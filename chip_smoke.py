@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py
 
-1. Builds every CUDA kernel from `neurad_tpu_torch/csrc/` (nvcc, sm_90a).
+1. Builds every CUDA kernel from `neurad_tpu_torch/csrc/` (nvcc, sm_90a; one
+   nvcc per source, started together).
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the full-width shapes of the serving path (camera tile composite:
-   T=8160 tiles x P=256 pixels x K=256 slots, C=16; lidar tile composite:
-   T=3780 x P=128 x K=128, C=16, azimuth wrap on), on inputs projected and
-   binned from 500,000 seeded gaussians, and times both with CUDA events.
-3. Slice phase: builds the SplatAD serving pipeline on the synthetic scene at
+   card at the full-width shapes of the main paths (camera tile composite and
+   its backward: T=8160 tiles x P=256 pixels x K=256 slots, C=16; lidar tile
+   composite and its backward: T=3780 x P=128 x K=128, C=16, azimuth wrap on),
+   on inputs projected and binned from 500,000 seeded gaussians and, for the
+   backwards, seeded cotangents that are zero on the rows outside the image,
+   and times both with CUDA events.
+3. Serving phase: builds the SplatAD pipeline on the synthetic scene at
    1920x1080 with 500,000 gaussians and a 64x1024-beam lidar, starts the
-   closed-loop HTTP server on localhost, answers three /render_image requests
-   at different poses and timestamps plus one lidar scan render, checks the
-   outputs and that both kernels were launched on that path, then renders one
-   more request and scan under torch.profiler (device time by kernel).
-4. Checks the card's renders against the CPU path on a small scene.
+   closed-loop HTTP server on localhost, answers two /render_image requests at
+   different poses and timestamps plus one lidar scan render, checks the
+   outputs and that both forward kernels were launched on that path, then
+   renders one more request under torch.profiler (device time by kernel).
+4. Train phase: trains SplatAD through `SplatADPipeline.init_state`,
+   `datamanager.next_train` and `train_step` on the same scene at full
+   resolution (`num_downscales=0`), at least three camera and three lidar
+   steps with MCMC refines among them, checks the losses, that every parameter
+   group moved and that the backward kernels were launched once per step,
+   profiles one step of each kind, writes a checkpoint into a run directory and
+   serves a request from a `ClosedLoopState` loaded from it. One more camera
+   step runs at the default schedule's first resolution (480x270).
+5. Checks the card's renders and one train step's gradients against the CPU
+   path on a small scene.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
@@ -35,14 +47,19 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"  # the report, and the train phase's run directory while it runs
 sys.path.insert(0, str(ROOT))
 
 # H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 N_GAUSS = 500_000
+MIN_STEPS_PER_KIND = 3
+BWD_TOL = 1e-5  # backward kernels: error of an entry over the sum of its per-pixel terms' absolute values
 WIDTH, HEIGHT = 1920, 1080
 LIDAR_BEAMS = (64, 1024)  # channels x azimuth steps: 65,536 beams
+SCENE = dict(num_frames=3, image_height=HEIGHT, image_width=WIDTH, focal=0.7 * WIDTH, lidar_channels=LIDAR_BEAMS[0],
+             lidar_azimuths=LIDAR_BEAMS[1])
 SEED = 0
 DEVICE = "cuda"
 REPORT = {}
@@ -161,6 +178,77 @@ def _bound(bytes_moved, ops):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _cotangents(rng, t_total, p, c, n_extra, outside=None):
+    """Seeded cotangents [T, P, C] and n_extra x [T, P, 1]; zero where
+    `outside` [T, P] is set (pixels of the last tile row beyond the image)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    cots = [torch.randn((t_total, p, c), generator=gen, device=DEVICE)]
+    cots += [torch.randn((t_total, p, 1), generator=gen, device=DEVICE) for _ in range(n_extra)]
+    if outside is not None:
+        cots = [torch.where(outside[..., None], torch.zeros_like(x), x) for x in cots]
+    return cots
+
+
+def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input_bytes, c, extra_ops=0):
+    """Hold a backward kernel (reached through its autograd function: `outs`
+    were computed from `table`, which requires grad) against its plain version
+    and time both. Tolerance per entry of the table's gradient: BWD_TOL times
+    the sum of the absolute values of the entry's per-pixel terms (the plain
+    version's `magnitude`), so that a gaussian with a small gradient is held as
+    tightly as one with a large gradient. The kernel adds a warp's pixels by
+    shuffles and the warps and tiles by global atomics, in an order that
+    changes from run to run, and the plain version with einsum / cumsum /
+    index_add_; both divide by 1 - alpha >= 0.001, which amplifies the rounding
+    of the suffix sum it divides."""
+    import torch
+
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    grad = lambda: torch.autograd.grad(outs, table, cots, retain_graph=True)[0]
+    got = grad()
+    _sync()
+    again = grad()
+    ref = plain_fn()
+    mag = plain_fn(magnitude=True)
+    scale = ref.abs().amax(dim=0)
+    err = (got - ref).abs()
+    col_err = err.amax(dim=0)
+    rel_col = (col_err / scale.clamp_min(1e-30)).tolist()
+    to_mag = (err / mag.clamp_min(1e-30)).amax(dim=0).tolist()
+    rows_off = float(((err > 1e-3 * ref.abs()).any(dim=1)).float().mean())
+    run_to_run = float(((got - again).abs().amax(dim=0) / scale.clamp_min(1e-30)).max())
+    names = list(TC.PACKED_COLUMNS) + [f"feature_{i}" for i in range(c)]
+    log(f"[kernels] {label}: max abs err {float(err.max()):.3e}; per column, relative to the column's largest entry: "
+        + ", ".join(f"{n} {r:.1e}" for n, r in zip(names, rel_col)))
+    log(f"[kernels] {label}: largest error of an entry over the sum of its terms' absolute values, per column: "
+        + ", ".join(f"{n} {r:.1e}" for n, r in zip(names, to_mag))
+        + f"; rows with an entry off by more than 1e-3 of itself: {rows_off:.2e}")
+    log(f"[kernels] {label}: two launches on the same inputs differ by at most {run_to_run:.1e} of a column's "
+        f"largest entry (atomics)")
+    require(bool(torch.isfinite(got).all()), f"{label} output is finite")
+    require(bool((scale > 0).all()), f"{label}: every column gets a gradient")
+    require(max(to_mag) <= BWD_TOL, f"{label}: every entry within {BWD_TOL} of the sum of its terms' absolute values")
+    ms = cuda_time_ms(grad)
+    plain_ms = cuda_time_ms(plain_fn, warmup=1, reps=3)
+    width = table.shape[1]
+    # per valid pair, what the function needs: alpha (~30) and the payload gradient (2c + 4) once, the gradient
+    # terms (~45 + c) and the sum over a tile's pixels of the 10 + c terms. (The kernel evaluates alpha and the
+    # payload gradient a second time, in its first pass: that is its overhead, not part of the bound.)
+    ops = pairs * ((34 + 2 * c) + 45 + c + width + extra_ops)
+    atomic_bytes = valid_slots * width * 4 * 2  # each valid slot's row of d_table read and written
+    bytes_moved = input_bytes + sum(x.numel() * 4 for x in cots) + table.numel() * 4 + atomic_bytes
+    bound_ms, bound_by = _bound(bytes_moved, ops)
+    log(f"[kernels] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{ops:.3e} ops, {bytes_moved:.3e} bytes of which {atomic_bytes:.3e} atomic traffic)")
+    return dict(max_abs_err=float(err.max()), max_rel_err=max(rel_col), rel_err_by_column=dict(zip(names, rel_col)),
+                max_err_over_term_sum=max(to_mag), err_over_term_sum_by_column=dict(zip(names, to_mag)),
+                rows_off_1e3_relative=rows_off, run_to_run=run_to_run,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, ops=ops,
+                bytes=bytes_moved, atomic_bytes=atomic_bytes)
+
+
 def kernel_phase(rng):
     import torch
 
@@ -192,7 +280,18 @@ def kernel_phase(rng):
                              pairs=pairs, ops=ops, bytes=bytes_moved, errs=errs)
     log(f"[kernels] camera: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{ops:.3e} ops, {bytes_moved:.3e} bytes)")
-    del args, got, ref, table, tile_gauss, tile_valid, pix, times
+
+    # --- camera backward (K3) ---
+    outside = (pix[..., 0] > WIDTH) | (pix[..., 1] > HEIGHT)
+    require(bool(outside.any()), "the last tile row reaches beyond the image")
+    cots = _cotangents(rng, t_total, p, c, 2, outside)
+    leaf = table.clone().requires_grad_(True)
+    outs = TC.tile_composite_camera(leaf, tile_gauss, tile_valid, pix, times)
+    results["camera_bwd"] = backward_check(
+        "camera backward", leaf, outs, cots,
+        lambda **kw: TC.tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, *cots, **kw),
+        n_valid, pairs, bytes_moved - t_total * p * (c + 2) * 4, c)
+    del args, got, ref, table, tile_gauss, tile_valid, pix, times, cots, leaf, outs
 
     # --- lidar (K4) ---
     args = lidar_inputs(rng)
@@ -242,6 +341,16 @@ def kernel_phase(rng):
                             median_ties=n_ambiguous)
     log(f"[kernels] lidar: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{ops:.3e} ops, {bytes_moved:.3e} bytes)")
+
+    # --- lidar backward (K5): cotangents on features, depth, accumulation and the line-of-sight sum ---
+    cots = _cotangents(rng, t_total, p, c, 3)
+    leaf = table.clone().requires_grad_(True)
+    outs = TC.tile_composite_lidar(leaf, tile_gauss, tile_valid, pts_slot, vmask, True, eps, True)[:4]
+    results["lidar_bwd"] = backward_check(
+        "lidar backward", leaf, outs, cots,
+        lambda **kw: TC.tile_composite_lidar_bwd_plain(table, tile_gauss, tile_valid, pts_slot, vmask, True, eps, *cots,
+                                                       **kw),
+        int((tile_valid > 0).sum()), pairs, bytes_moved - t_total * p * (c + 4) * 4, c, extra_ops=2)
     return results
 
 
@@ -274,10 +383,7 @@ def slice_phase():
 
     w, h = WIDTH, HEIGHT
     t0 = time.perf_counter()
-    outputs = SyntheticDataParserConfig(
-        num_frames=3, image_height=h, image_width=w, focal=0.7 * w, lidar_channels=LIDAR_BEAMS[0],
-        lidar_azimuths=LIDAR_BEAMS[1],
-    ).setup().get_dataparser_outputs()
+    outputs = SyntheticDataParserConfig(**SCENE).setup().get_dataparser_outputs()
     t_data = time.perf_counter() - t0
     t0 = time.perf_counter()
     pipeline = SplatADPipeline(outputs, SplatADPipelineConfig(cap_max=N_GAUSS, seed=SEED), device=DEVICE)
@@ -299,7 +405,7 @@ def slice_phase():
         c2w_all = outputs.cameras.camera_to_worlds.numpy()
         times = outputs.cameras.times[:, 0].numpy()
         TC.reset_launch_counts()
-        for i, lateral in enumerate((0.0, 1.5, -2.0)):
+        for i, lateral in enumerate((0.0, 1.5)):
             pose = np.eye(4, dtype=np.float32)
             pose[:3] = c2w_all[i]
             pose[:3, 3] += pose[:3, 0] * lateral  # lane shift along the camera's right axis
@@ -333,14 +439,134 @@ def slice_phase():
     for key in ("depth", "intensity", "ray_drop_logits"):
         require(bool(np.isfinite(lid[key]).all()), f"lidar {key} finite")
     log(f"[slice] kernel launches on the serving path: {launches}")
-    require(launches["camera"] >= 3, "camera kernel launched for every request")
+    require(launches["camera"] >= 2, "camera kernel launched for every request")
     require(launches["lidar"] >= 1, "lidar kernel launched for the scan")
     profile = {
-        "camera": profiled("camera request", lambda: state.render_image(pose.tolist(), float(times[2]), "front_camera")),
-        "lidar": profiled("lidar scan", lambda: pipeline.render_eval_lidar(scan)),
+        "camera": profiled("camera request", lambda: state.render_image(pose.tolist(), float(times[1]), "front_camera")),
     }
+
+    # one camera train step with the default configuration: the coarse-to-fine schedule starts at a quarter
+    # of the resolution
+    sample = pipeline.datamanager._camera_sample(pipeline.datamanager.train_cams[0])
+    tstate, metrics = pipeline.train_step(pipeline.init_state(), sample)
+    _sync()
+    coarse = pipeline._downscale_sample(sample, 0)
+    log(f"[slice] one camera train step at the default schedule's first resolution {coarse.width}x{coarse.height}: "
+        f"total loss {float(metrics['total_loss']):.4f}, psnr {float(metrics['psnr']):.2f}")
+    require((coarse.width, coarse.height) == (w // 4, h // 4), "default schedule starts at a quarter resolution")
+    require(math.isfinite(float(metrics["total_loss"])) and tstate.step == 1, "coarse train step finite")
     return dict(requests=requests, lidar_ms=lidar_s * 1e3, lidar_returns=n_pts, launches=launches,
-                start_time=start_time, scene_s=t_data, pipeline_s=t_pipe, profile=profile)
+                start_time=start_time, scene_s=t_data, pipeline_s=t_pipe, profile=profile,
+                coarse_step=dict(width=coarse.width, height=coarse.height, total_loss=float(metrics["total_loss"]))), outputs
+
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+
+def train_phase(outputs):
+    """SplatAD training at full width through the pipeline's entry points."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.data.full_image_datamanager import CameraSample
+    from neurad_tpu_torch.model_components.strategy import MCMCStrategyConfig, should_refine
+    from neurad_tpu_torch.models.splatad import SplatADConfig
+    from neurad_tpu_torch.ops import tile_composite as TC
+    from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
+    from neurad_tpu_torch.scripts.closed_loop import ClosedLoopState
+    from neurad_tpu_torch.scripts.train import write_run_config
+
+    cfg = SplatADPipelineConfig(
+        cap_max=N_GAUSS, seed=SEED, model=SplatADConfig(num_downscales=0),
+        mcmc=MCMCStrategyConfig(cap_max=N_GAUSS, refine_start_iter=1, refine_every=3),
+    )
+    pipeline = SplatADPipeline(outputs, cfg, device=DEVICE)
+    state = pipeline.init_state()
+    model = pipeline.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+
+    steps = {"camera": [], "lidar": []}
+    by_frame = {}
+    refines = 0
+    TC.reset_launch_counts()
+    while min(len(v) for v in steps.values()) < MIN_STEPS_PER_KIND:
+        require(state.step < 40, "both kinds of sample drawn within 40 steps")
+        sample = pipeline.datamanager.next_train()
+        kind = "camera" if isinstance(sample, CameraSample) else "lidar"
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = pipeline.train_step(state, sample)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        refined = should_refine(state.step, cfg.mcmc)
+        refines += refined
+        loss = float(metrics["total_loss"])
+        require(math.isfinite(loss), f"step {state.step} loss finite")
+        steps[kind].append(dict(step=state.step, ms=ms, refined=bool(refined), total_loss=loss))
+        if kind == "camera":
+            require((sample.width, sample.height) == (WIDTH, HEIGHT), "camera steps run at full resolution")
+            by_frame.setdefault(sample.cam_idx, []).append(float(metrics["main_loss"]))
+            detail = f"frame {sample.cam_idx} main_loss {float(metrics['main_loss']):.5f} psnr {float(metrics['psnr']):.2f}"
+        else:
+            detail = (f"scan {sample.scan_idx} depth_loss {float(metrics['depth_loss']):.4f} "
+                      f"overflowed points {int(metrics['points_overflowed'])}")
+        log(f"[train] step {state.step} {kind}: {ms:.1f} ms (synchronised{', incl. a refine' if refined else ''}), "
+            f"total loss {loss:.5f}, {detail}")
+    launches = {"camera": TC.camera_launches, "lidar": TC.lidar_launches, "camera_bwd": TC.camera_bwd_launches,
+                "lidar_bwd": TC.lidar_bwd_launches}
+    n_cam, n_lid = len(steps["camera"]), len(steps["lidar"])
+    log(f"[train] {n_cam} camera steps, {n_lid} lidar steps, {refines} refines; kernel launches {launches}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(launches == {"camera": n_cam, "lidar": n_lid, "camera_bwd": n_cam, "lidar_bwd": n_lid},
+            "every step launched its forward and its backward kernel once")
+    require(refines >= 1, "at least one MCMC refine")
+    repeated = {k: v for k, v in by_frame.items() if len(v) >= 2}
+    require(bool(repeated), "a camera frame was drawn twice")
+    require(all(v[-1] < v[0] for v in repeated.values()), f"main loss of every repeated frame falls: {repeated}")
+
+    moved = {}
+    for name, p in model.named_parameters():
+        group = state.optimizers.labels[name]
+        moved[group] = max(moved.get(group, 0.0), float((p.detach() - before[name]).abs().max()))
+        require(bool(torch.isfinite(p).all()), f"{name} finite after training")
+    log(f"[train] largest parameter change by group: {moved}")
+    require(all(v > 0 for v in moved.values()), "every parameter group moved")
+
+    cam_sample = pipeline.datamanager._camera_sample(pipeline.datamanager.train_cams[0])
+    lid_sample = pipeline.datamanager._lidar_sample(pipeline.datamanager.train_lidars[0])
+    profile = {}
+    for kind, sample in (("camera", cam_sample), ("lidar", lid_sample)):
+        while should_refine(state.step + 1, cfg.mcmc):  # keep the refine out of the profiled step
+            state, _ = pipeline.train_step(state, sample)
+        profile[kind] = profiled(f"{kind} train step", lambda: pipeline.train_step(state, sample), rows=22)
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        run_dir = write_run_config(Path(tmp) / "run", "splatad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
+        ckpt = pipeline.save_checkpoint(state, run_dir / "checkpoints")
+        size_mb = ckpt.stat().st_size / 2**20
+        del pipeline, state, before
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        served = ClosedLoopState.from_run_dir(run_dir, device=DEVICE)
+        load_s = time.perf_counter() - t0
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3] = outputs.cameras.camera_to_worlds[0].numpy()
+    pose[:3, 3] += pose[:3, 0] * 1.0
+    img = served.render_image(pose.tolist(), float(outputs.cameras.times[0, 0]), "front_camera")
+    log(f"[train] checkpoint {ckpt.name} ({size_mb:.0f} MiB); ClosedLoopState.from_run_dir in {load_s:.1f} s; "
+        f"its render {served.last_render_seconds * 1e3:.1f} ms")
+    require(img.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(img).all()), "the loaded run renders a finite image")
+    for name, p in served.pipeline.model.named_parameters():
+        require(torch.equal(p.detach(), dict(model.named_parameters())[name].detach()), f"{name} loaded as trained")
+    return dict(steps=steps, refines=refines, launches=launches, moved=moved, profile=profile,
+                repeated_frames=repeated, checkpoint_mib=size_mb, load_run_s=load_s,
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def profiled(label, fn, rows=15):
@@ -408,7 +634,45 @@ def reference_phase():
     require(all(v <= 0.01 for v in off.values()), f"card and CPU path agree on 99% of values: {off}")
     require(errs["camera_accumulation"] <= 1.0 / 255.0 + 1e-4, "accumulation off by at most one alpha-gate step")
     require(errs["camera_rgb"] <= 5e-2 and errs["lidar_intensity"] <= 2e-2, "decoded outputs agree")
-    return {"max_abs_err": errs, "share_off": off}
+
+    # One train step's loss and gradients, card (backward kernels) against the CPU (plain backward), with
+    # fp32 decoders on both so that the comparison is about the composites. A gradient entry counts as off
+    # when it differs by more than 1e-3 of its tensor's largest entry; pairs that land on the other side of
+    # the alpha gate on the two devices move a few entries, so up to 1% may be off, and the losses agree to 1e-3.
+    for pipe in (gpu, cpu):
+        for module in pipe.model.modules():
+            if hasattr(module, "compute_dtype"):
+                module.compute_dtype = torch.float32
+    grad_off, loss_err = {}, {}
+    for kind, sample in (("camera", gpu.datamanager._camera_sample(1)), ("lidar", gpu.datamanager._lidar_sample(1))):
+        grads, losses = [], []
+        for pipe in (gpu, cpu):
+            model = pipe.model
+            model.zero_grad()
+            if kind == "camera":
+                out = model.get_camera_outputs(sample.c2w, sample.K, sample.width, sample.height, sample.time,
+                                               sample.sensor_idx, sample.cam_idx, cam_linear_vel=sample.linear_velocity,
+                                               rolling_shutter_time=0.04)
+                total, _ = model.camera_loss(out, sample.image)
+            else:
+                out = model.get_lidar_outputs(sample.l2w, sample.raster_pts, sample.time, sample.sensor_idx,
+                                              lidar_linear_vel=sample.linear_velocity)
+                total, _ = model.lidar_loss(out, sample.raster_pts, sample.did_return, sample.valid)
+            total.backward()
+            losses.append(float(total.detach()))
+            grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None})
+        require(grads[0].keys() == grads[1].keys(), "the same parameters get gradients on both devices")
+        loss_err[kind] = abs(losses[0] - losses[1]) / abs(losses[1])
+        for name, g_cpu in grads[1].items():
+            scale = float(g_cpu.abs().max())
+            if scale > 0:
+                grad_off[f"{kind}:{name}"] = float(((grads[0][name] - g_cpu).abs() > 1e-3 * scale).float().mean())
+    worst = max(grad_off, key=grad_off.get)
+    log(f"[reference] one train step, card vs CPU: relative loss difference {loss_err}; share of gradient entries "
+        f"off by more than 1e-3 of their tensor's largest, worst of {len(grad_off)} tensors: {worst} {grad_off[worst]:.4f}")
+    require(all(v <= 1e-3 for v in loss_err.values()), "train losses agree to 1e-3 relative")
+    require(all(v <= 0.01 for v in grad_off.values()), f"gradients agree on 99% of entries: {grad_off}")
+    return {"max_abs_err": errs, "share_off": off, "train_loss_rel_err": loss_err, "grad_share_off": grad_off}
 
 
 def main() -> int:
@@ -427,7 +691,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in libs:
@@ -440,24 +704,38 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kernels = kernel_phase(rng)
     torch.cuda.empty_cache()
-    slice_res = slice_phase()
+    OUT_DIR.mkdir(exist_ok=True)
+    slice_res, outputs = slice_phase()
+    torch.cuda.empty_cache()
+    train_res = train_phase(outputs)
+    del outputs
     torch.cuda.empty_cache()
     ref = reference_phase()
 
-    names = {"camera": ("tile_composite_camera", "neurad_tpu/ops/pallas_composite.py:54"),
-             "lidar": ("tile_composite_lidar", "neurad_tpu/ops/pallas_composite.py:377")}
+    # name, source, the TPU kernel it replaces, and the main path whose launches are reported: the serving
+    # path for the forward composites (the train path launches them too: "train_launches"), the train path
+    # for the backward composites
+    fwd, bwd = "neurad_tpu_torch/csrc/tile_composite.cu", "neurad_tpu_torch/csrc/tile_composite_bwd.cu"
+    names = {"camera": ("tile_composite_camera_fwd", fwd, "neurad_tpu/ops/pallas_composite.py:54", slice_res),
+             "camera_bwd": ("tile_composite_camera_bwd", bwd, "neurad_tpu/ops/pallas_composite.py:129", train_res),
+             "lidar": ("tile_composite_lidar_fwd", fwd, "neurad_tpu/ops/pallas_composite.py:377", slice_res),
+             "lidar_bwd": ("tile_composite_lidar_bwd", bwd, "neurad_tpu/ops/pallas_composite.py:467", train_res)}
     line = {"kernels": [
-        {"name": names[key][0], "route": "cuda", "source": "neurad_tpu_torch/csrc/tile_composite.cu",
-         "replaces": names[key][1], "launches": slice_res["launches"][key],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+        {"name": names[key][0], "route": "cuda", "source": names[key][1],
+         "replaces": names[key][2], "launches": names[key][3]["launches"][key],
+         "train_launches": train_res["launches"][key],
+         # max_rel_err (backward kernels): the largest error of a column of the table's gradient over that
+         # column's largest entry; their absolute errors are large because the gradients are (up to 1e11)
+         "max_abs_err": r["max_abs_err"], "max_rel_err": r.get("max_rel_err"), "ms": r["ms"],
+         "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         for key, r in kernels.items()
     ]}
+    require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 4,
+            "all four kernels were launched on their main path")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, slice=slice_res,
-                  reference=ref)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
+                  train=train_res, reference=ref, seconds=time.perf_counter() - t_start)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """PyTorch + CUDA port of `neurad_tpu` (the JAX package stays the reference).
 
-Slice 1 covers the SplatAD serving path: closed-loop camera renders and lidar
-scans, with the two forward tile composites as hand-written Hopper kernels
-(`ops/tile_composite.py`, `csrc/tile_composite.cu`). The module layout mirrors
-`neurad_tpu/` so each counterpart is easy to find.
+Ported so far: the SplatAD serving path (closed-loop camera renders and lidar
+scans) and SplatAD training (camera step, lidar step, MCMC and Default
+densification, checkpoints, `scripts/train.py`), with the four tile composites
+(camera and lidar, forward and fused backward) as hand-written Hopper kernels
+(`ops/tile_composite.py`, `csrc/tile_composite.cu`, `csrc/tile_composite_bwd.cu`).
+The module layout mirrors `neurad_tpu/` so each counterpart is easy to find.
 """
 
 import torch

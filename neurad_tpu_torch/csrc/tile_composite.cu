@@ -4,6 +4,8 @@
 //   tile_composite_camera_fwd <- _composite_fwd_kernel (K2, launched by _run_fwd)
 //   tile_composite_lidar_fwd  <- _make_lidar_fwd_kernel (K4, launched by run_lidar_fwd)
 // Plain PyTorch versions of the same functions: neurad_tpu_torch/ops/tile_composite.py.
+// The backward composites are in tile_composite_bwd.cu; the stage, its loader and
+// the gated alpha they share are in tile_composite_common.cuh.
 //
 // Inputs. Unlike the TPU kernels, which take pre-gathered [T, K, ...] arrays,
 // these read the per-gaussian packed table [N, 10 + C] (mean xy, vel xy,
@@ -44,82 +46,12 @@
 //    sum reaches half the total (slot 0 where the total is 0); a second pass
 //    recomputes the weights and stops at that crossing.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_composite_common.cuh"
 
 namespace {
 
-constexpr int ATTR = 10;    // mean xy, vel xy, conic abc, opacity, depth, depth velocity
-constexpr int CHUNK = 256;  // slots staged in shared memory at a time
-constexpr float kMinAlpha = 1.0f / 255.0f;
+using namespace tile_composite;
 
-template <int CMAX>
-struct Stage {
-  float attr[CHUNK * ATTR];
-  float feat[CHUNK * CMAX];
-  float valid[CHUNK];
-  int idx[CHUNK];
-};
-
-// Copy slots [k0, k0 + n) of `tile` into shared memory (all threads call it).
-template <int CMAX>
-__device__ void load_chunk(Stage<CMAX>& s, const float* __restrict__ table, int n_gauss, int c,
-                           const int* __restrict__ tile_gauss, const float* __restrict__ tile_valid,
-                           int tile, int k, int k0, int n) {
-  const int width = ATTR + c;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int g = tile_gauss[(int64_t)tile * k + k0 + j];
-    s.idx[j] = min(max(g, 0), n_gauss - 1);
-    s.valid[j] = tile_valid[(int64_t)tile * k + k0 + j];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < n * width; e += blockDim.x) {
-    int j = e / width;
-    int col = e - j * width;
-    float v = table[(int64_t)s.idx[j] * width + col];
-    if (col < ATTR) {
-      s.attr[j * ATTR + col] = v;
-    } else {
-      s.feat[j * CMAX + col - ATTR] = v;
-    }
-  }
-  for (int e = threadIdx.x; e < n * (CMAX - c); e += blockDim.x) {
-    int j = e / (CMAX - c);
-    s.feat[j * CMAX + c + (e - j * (CMAX - c))] = 0.f;
-  }
-  __syncthreads();
-}
-
-// alpha of slot j at (x, y, t) with the TPU kernels' clipping and gating.
-// The gate is a discontinuity (alpha >= 1/255 or 0), so everything up to it is
-// rounded op by op in the plain version's order (__f*_rn: no FMA contraction)
-// and the kernel takes the same side of the gate as the plain version.
-template <int CMAX>
-__device__ __forceinline__ float slot_alpha(const Stage<CMAX>& s, int j, float x, float y, float t,
-                                            bool wrap, bool slot_ok) {
-  const float* a = &s.attr[j * ATTR];
-  float dx = __fsub_rn(x, __fadd_rn(a[0], __fmul_rn(a[2], t)));
-  if (wrap) {
-    float m = fmodf(__fadd_rn(dx, 180.f), 360.f);  // exact
-    if (m < 0.f) m = __fadd_rn(m, 360.f);
-    dx = __fsub_rn(m, 180.f);
-  }
-  float dy = __fsub_rn(y, __fadd_rn(a[1], __fmul_rn(a[3], t)));
-  float quad = __fadd_rn(__fmul_rn(__fmul_rn(a[4], dx), dx), __fmul_rn(__fmul_rn(a[6], dy), dy));
-  float sigma = __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(a[5], dx), dy));
-  sigma = fminf(fmaxf(sigma, 0.f), 50.f);
-  float alpha = fminf(fmaxf(__fmul_rn(a[7], expf(-sigma)), 0.f), 0.999f);
-  if (!(s.valid[j] > 0.f) || !(alpha >= kMinAlpha) || !slot_ok) alpha = 0.f;
-  return alpha;
-}
-
-// rolling-shutter-corrected depth of slot j, rounded like the plain version
-// (it meets a comparison in the lidar line-of-sight sum)
-template <int CMAX>
-__device__ __forceinline__ float slot_depth(const Stage<CMAX>& s, int j, float t) {
-  const float* a = &s.attr[j * ATTR];
-  return __fadd_rn(a[8], __fmul_rn(a[9], t));
-}
 
 template <int CMAX>
 __global__ void __launch_bounds__(1024) camera_fwd_kernel(
@@ -246,8 +178,6 @@ __global__ void __launch_bounds__(1024) lidar_fwd_kernel(
   med_out[slot] = med;
 }
 
-int block_threads(int p) { return ((p + 31) / 32) * 32; }
-
 }  // namespace
 
 // C interface (loaded with ctypes). Shapes: table [n_gauss, 10 + c],
@@ -259,7 +189,7 @@ extern "C" int tile_composite_camera_fwd(const float* table, int n_gauss, int c,
                                          int n_tiles, int p, int k, float* feat_out, float* depth_out,
                                          float* alpha_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_tiles), block(block_threads(p));
+  dim3 grid(n_tiles), block(round_up_to_warp(p));
   if (c <= 8) {
     camera_fwd_kernel<8><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pix, times, p, k,
                                                  feat_out, depth_out, alpha_out);
@@ -281,7 +211,7 @@ extern "C" int tile_composite_lidar_fwd(const float* table, int n_gauss, int c, 
                                         float* feat_out, float* depth_out, float* acc_out, float* until_out,
                                         float* med_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_tiles), block(block_threads(p));
+  dim3 grid(n_tiles), block(round_up_to_warp(p));
   if (c <= 8) {
     lidar_fwd_kernel<8><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
                                                 depth_eps, compute_until, feat_out, depth_out, acc_out, until_out,

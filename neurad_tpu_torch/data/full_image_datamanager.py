@@ -1,15 +1,17 @@
 """Full-sensor datamanager for gaussian-splatting models (torch port of
-`neurad_tpu/data/full_image_datamanager.py`, the parts the serving path reads).
+`neurad_tpu/data/full_image_datamanager.py`).
 
 Samples stay host-side numpy, as in the JAX package; the model moves them to
 its device. Each lidar scan becomes a padded, fixed-size set of spherical query
-points (azim, elev, depth, time, intensity).
+points (azim, elev, depth, time, intensity). The train sampler is numpy's
+generator, as in the JAX package: the same seed gives the same sequence of
+samples on both sides, and its state rides the checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -100,6 +102,14 @@ class FullImageLidarDataManager:
         self.train_lidars = [i for i in range(len(outputs.point_clouds)) if i not in eval_lidars]
         self._raster_cache: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
 
+    def rng_state(self) -> dict:
+        """Host sampler state, saved with a checkpoint so a resumed run draws
+        the samples the uninterrupted run would have drawn."""
+        return self._rng.bit_generator.state
+
+    def set_rng_state(self, state: dict) -> None:
+        self._rng.bit_generator.state = state
+
     def _camera_sample(self, idx: int) -> CameraSample:
         cams = self.outputs.cameras
         img = self.outputs.images[idx]
@@ -150,6 +160,18 @@ class FullImageLidarDataManager:
             scan_idx=idx,
             linear_velocity=_np(md["velocities"][idx]) if "velocities" in md else np.zeros(3),
         )
+
+    def next_train(self):
+        """A random train camera frame (with probability `camera_fraction`) or
+        lidar scan."""
+        use_camera = self._rng.uniform() < self.config.camera_fraction or not self.train_lidars
+        if use_camera and self.train_cams:
+            return self._camera_sample(int(self._rng.choice(self.train_cams)))
+        return self._lidar_sample(int(self._rng.choice(self.train_lidars)))
+
+    def iter_train(self) -> Iterator:
+        while True:
+            yield self.next_train()
 
     def all_seed_points(self, paint_topk: int = 4) -> np.ndarray:
         """World-frame accumulated point cloud for gaussian seeding, painted

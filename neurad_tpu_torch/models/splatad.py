@@ -1,10 +1,12 @@
-"""SplatAD: 3D gaussian splatting for AD scenes, camera + lidar rendering
-(torch port of `neurad_tpu/models/splatad.py`, the serving path's part).
+"""SplatAD: 3D gaussian splatting for AD scenes, camera + lidar rendering and
+their losses (torch port of `neurad_tpu/models/splatad.py`).
 
 Gaussian parameters are fixed-capacity tensors [cap, ...]. Actor gaussians
 store means in their box frame with a per-gaussian actor id; the world
-transform and per-gaussian velocity (v + w x r) are computed densely. Losses,
-densification and training wait for slice 2.
+transform and per-gaussian velocity (v + w x r) are computed densely. The
+renders are differentiable in every parameter (the tile composites through
+their backward kernels); densification lives in `model_components/strategy.py`
+and the train steps in `pipelines/splatad_pipeline.py`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 
 from neurad_tpu_torch.cameras.camera_optimizers import CameraOptimizer, CameraVelocityOptimizer
 from neurad_tpu_torch.fields.mlp import MLP
+from neurad_tpu_torch.model_components import losses as L
 from neurad_tpu_torch.model_components.cnns import BasicBlock
 from neurad_tpu_torch.model_components.dynamic_actors import ActorData, DynamicActors
 from neurad_tpu_torch.ops import gaussian_rasterize as GR
@@ -71,14 +74,23 @@ def actor_adjusted_means(
     vels6: torch.Tensor,  # [A, 6] (linear world, angular box frame)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """World-frame means + velocities for all gaussians. The angular
-    contribution is rot(ang) x rot(r_box)."""
+    contribution is rot(ang) x rot(r_box).
+
+    Each gaussian's pose and velocity are selected with a one-hot [N, A]
+    product, as in the JAX package, not with `b2w[ids]`: the backward of that
+    gather scatters N rows into A, and with a handful of actors every row
+    collides (PyTorch's indexing backward took 220 ms of a 290 ms train step
+    at 500,000 gaussians on an H100). As a product the backward is
+    onehot^T @ cotangent. fp32 products on CUDA run in full fp32 unless TF32
+    is switched on, so the selection is exact."""
     ids_c = ids.long().clamp(0, n_actors - 1)
     is_actor = (ids < n_actors)[:, None]
-    pose = b2w[ids_c]  # [N, 4, 4]
+    onehot = torch.nn.functional.one_hot(ids_c, n_actors).to(means.dtype)  # [N, A]
+    pose = (onehot @ b2w.reshape(n_actors, 16)).reshape(-1, 4, 4)
     rot = pose[:, :3, :3]
     r_world = torch.einsum("nij,nj->ni", rot, means)  # offset from box centre, world frame
     world_means = r_world + pose[:, :3, 3]
-    vel6 = vels6[ids_c]
+    vel6 = onehot @ vels6
     ang_world = torch.einsum("nij,nj->ni", rot, vel6[:, 3:])
     vel = vel6[:, :3] + torch.linalg.cross(ang_world, r_world, dim=-1)
     return torch.where(is_actor, world_means, means), torch.where(is_actor, vel, torch.zeros_like(vel))
@@ -257,8 +269,8 @@ class SplatADConfig:
     # only "tiled" is ported; the per-point "points" path waits
     lidar_raster_mode: str = "tiled"
     lidar_pts_per_tile: int = 128
-    # the port's compositor is the Pallas forward's function ("pallas"); on
-    # CUDA other values raise until the backward kernels exist
+    # the port's compositor is the fp32 Pallas composite ("pallas"); "hybrid"
+    # and "xla" (XLA's bf16 composite, a TPU trade-off) raise on CUDA
     rasterize_backend: str = "pallas"
 
 
@@ -359,10 +371,12 @@ class SplatADModel(nn.Module):
         cam_angular_vel=None,  # [3] local frame
         rolling_shutter_time: float = 0.0,
         time_to_center_pixel: float = 0.0,
+        means2d_offset: Optional[torch.Tensor] = None,
         edits=None,
     ) -> Dict[str, torch.Tensor]:
         """Camera render. Array arguments may be numpy or tensors; they move to
-        the model's device."""
+        the model's device. means2d_offset: zeros [N, 2] whose gradient equals
+        d(loss)/d(means2d), the signal the Default densification strategy reads."""
         cfg = self.config
         dev = self.device
         c2w_opengl, K = _as_tensor(c2w_opengl, dev), _as_tensor(K, dev)
@@ -407,6 +421,8 @@ class SplatADModel(nn.Module):
             radius_clip=cfg.radius_clip_pix,
             antialiased=cfg.antialiased,
         )
+        if means2d_offset is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_offset)
         feat_img, depth_img, alpha_img, binning = GR.rasterize_camera(
             proj,
             self.features,
@@ -489,3 +505,80 @@ class SplatADModel(nn.Module):
         out["intensity"] = torch.sigmoid(dec[..., :1])
         out["ray_drop_logits"] = dec[..., 1:]
         return out
+
+    # ------------------------------------------------------------------
+    # losses
+    # ------------------------------------------------------------------
+
+    def camera_loss(self, outputs: Dict[str, torch.Tensor], gt_image) -> Tuple[torch.Tensor, Dict]:
+        cfg = self.config
+        pred = outputs["rgb"]
+        gt_image = _as_tensor(gt_image, pred.device)
+        l1 = torch.mean(torch.abs(gt_image - pred))
+        ssim_val = L.ssim(pred, gt_image)
+        main = (1.0 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * (1.0 - ssim_val)
+        reg = self._mcmc_regs()
+        metrics = {
+            "main_loss": main,
+            "psnr": L.psnr(pred.detach(), gt_image),
+            "ssim": ssim_val.detach(),
+            **reg,
+        }
+        total = main + reg["mcmc_scale_reg"] + reg["mcmc_opacity_reg"] + self.camera_optimizer.regularization_loss()
+        total = total + self.camera_velocity_optimizer.regularization_loss()
+        for k in ("binning_dropped_pairs", "binning_cropped_gaussians"):
+            if k in outputs:
+                metrics[k] = outputs[k]
+        return total, metrics
+
+    def lidar_loss(self, outputs: Dict[str, torch.Tensor], raster_pts, did_return, valid) -> Tuple[torch.Tensor, Dict]:
+        """raster_pts [M, 5]; did_return / valid [M] bools."""
+        cfg = self.config
+        dev = outputs["depth"].device
+        raster_pts = _as_tensor(raster_pts, dev)
+        did_return = _as_tensor(did_return, dev, torch.bool)
+        valid = _as_tensor(valid, dev, torch.bool)
+        ret = valid & did_return
+        depth = outputs["depth"][:, 0]
+        gt_depth = raster_pts[:, 2]
+        unred = torch.abs(depth - gt_depth)
+        quantile = L.masked_quantile(unred, ret, cfg.depth_loss_quantile_threshold)
+        qmask = ret & (unred < quantile)
+
+        depth_loss = cfg.depth_lambda * L.masked_mean(unred, qmask)
+        intensity = outputs["intensity"][:, 0]
+        intensity_loss = cfg.intensity_lambda * L.masked_mean((intensity - raster_pts[:, 4]) ** 2, qmask)
+
+        logits = outputs["ray_drop_logits"][:, 0]
+        targets = (~did_return).to(logits.dtype)
+        bce = logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+        # padded points (valid=False) carry did_return=False: masked out and
+        # left out of the count
+        ray_drop_loss = cfg.ray_drop_lambda * L.masked_mean(bce, valid)
+
+        los = cfg.line_of_sight_lambda * L.masked_mean(outputs["alpha_sum_until_points"][:, 0], qmask)
+
+        reg = self._mcmc_regs()
+        total = depth_loss + intensity_loss + ray_drop_loss + los + reg["mcmc_scale_reg"] + reg["mcmc_opacity_reg"]
+        rel = ((depth - gt_depth) / gt_depth.clamp_min(1e-6)) ** 2
+        metrics = {
+            "depth_loss": depth_loss,
+            "intensity_loss": intensity_loss,
+            "ray_drop_loss": ray_drop_loss,
+            "line_of_sight_loss": los,
+            "depth_median_l2": L.masked_quantile((depth - gt_depth) ** 2, ret, 0.5),
+            "depth_mean_rel_l2": L.masked_mean(rel, ret),
+            "ray_drop_accuracy": L.masked_mean(((torch.sigmoid(logits) > 0.5) == ~did_return).float(), valid),
+            **reg,
+        }
+        for k in ("binning_dropped_pairs", "binning_cropped_gaussians", "points_overflowed"):
+            if k in outputs:
+                metrics[k] = outputs[k]
+        return total, metrics
+
+    def _mcmc_regs(self) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        return {
+            "mcmc_scale_reg": cfg.mcmc_scale_reg_lambda * torch.abs(torch.exp(self.scales).mean()),
+            "mcmc_opacity_reg": cfg.mcmc_opacity_reg_lambda * torch.abs(torch.sigmoid(self.opacities).mean()),
+        }

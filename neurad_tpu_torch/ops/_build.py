@@ -3,8 +3,9 @@
 Each source under `neurad_tpu_torch/csrc/` is compiled at first use with
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` into a shared library
 with a plain C interface, loaded with ctypes. Libraries land in
-`neurad_tpu_torch/_build/` under a name that carries the source's hash, so an
-edited source is rebuilt and an unchanged one is reused. `build_all()` starts
+`neurad_tpu_torch/_build/` under a name that carries the hash of the source
+and of the headers (`*.cuh`) beside it, so an edited source is rebuilt and an
+unchanged one is reused. `build_all()` starts
 one nvcc per source, all at once.
 """
 
@@ -33,6 +34,13 @@ LIBRARIES = {
             "tile_composite_lidar_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
         },
     ),
+    "tile_composite_bwd": (
+        "tile_composite_bwd.cu",
+        {
+            "tile_composite_camera_bwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+            "tile_composite_lidar_bwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+        },
+    ),
 }
 
 _lock = threading.Lock()
@@ -52,7 +60,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / LIBRARIES[name][0]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,13 +1,18 @@
 """Tile-binned gaussian rasterization for camera pixels and lidar query points
-(torch port of `neurad_tpu/ops/gaussian_rasterize.py`, the serving path's part).
+(torch port of `neurad_tpu/ops/gaussian_rasterize.py`).
 
 Static caps as in the JAX package: every gaussian emits up to
 `max_tiles_per_gaussian` (tile, gaussian) pairs, pairs are depth-ordered and
 grouped by tile, and each tile keeps its first `max_per_tile` gaussians. The
 per-tile compositing is `ops/tile_composite.py`: the hand-written kernels on a
-CUDA device, their plain versions on the CPU. Both compute the JAX package's
-fp32 Pallas forward (`backend="pallas"`); on CUDA any other backend raises
-until the backward kernels exist.
+CUDA device, their plain versions on the CPU, forward and backward. Both
+compute the JAX package's fp32 Pallas composites (`backend="pallas"`), which
+is the only backend on CUDA: "hybrid" and "xla" there mean XLA's bf16
+composite, a TPU trade-off with no counterpart in the port.
+
+Both rasterizers are differentiable in the projected means, velocities,
+conics, depths, compensations, the opacities and the features. Binning and
+slot assignment produce indices only and run on detached values.
 """
 
 from __future__ import annotations
@@ -151,9 +156,12 @@ def _packed_table(projected: Projected, opac: torch.Tensor, features: torch.Tens
 
 
 def _check_backend(backend: str, device: torch.device) -> None:
+    if backend not in ("pallas", "hybrid", "xla"):
+        raise ValueError(f"unknown rasterize backend {backend!r}")
     if device.type == "cuda" and backend != "pallas":
         raise NotImplementedError(
-            f"rasterize backend {backend!r} on CUDA: only the forward kernels ('pallas') exist in this slice"
+            f"rasterize backend {backend!r} on CUDA: the port's kernels compute the fp32 'pallas' composite; "
+            "'hybrid' and 'xla' are the JAX package's bf16 XLA composite, a TPU trade-off that is not ported"
         )
 
 
@@ -176,7 +184,7 @@ def camera_tile_inputs(
     ntx = -(-width // tile_size)
     nty = -(-height // tile_size)
     binning = bin_gaussians(
-        projected.means2d, projected.radii, projected.depths,
+        projected.means2d.detach(), projected.radii.detach(), projected.depths.detach(),
         grid_min=(0.0, 0.0),
         tile_size=(float(tile_size), float(tile_size)),
         num_tiles=(ntx, nty),
@@ -258,7 +266,7 @@ def lidar_tile_inputs(
     nty = max(1, int(-(-(elev_range[1] - elev_range[0]) // tile_size_elev)))
     wrap = (azim_range[1] - azim_range[0]) >= 360.0 - 1e-6
     binning = bin_gaussians(
-        projected.means2d, projected.radii, projected.depths,
+        projected.means2d.detach(), projected.radii.detach(), projected.depths.detach(),
         grid_min=(azim_range[0], elev_range[0]),
         tile_size=(tile_size_azim, tile_size_elev),
         num_tiles=(ntx, nty),
@@ -335,7 +343,9 @@ def rasterize_lidar_points_tiled(
     def per_point(x):
         flat = x.reshape(-1, x.shape[-1])
         flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])  # overflow -> zero row
-        return flat[slot_of_pt]
+        # index_select: its backward adds with atomics; advanced indexing's backward sorts, which is
+        # slow where many points share the overflow row
+        return torch.index_select(flat, 0, slot_of_pt)
 
     binning = ti["binning"]
     return {

@@ -32,6 +32,13 @@ def quat_scale_to_covar6(quats: torch.Tensor, scales: torch.Tensor):
     return (entry(0, 0), entry(0, 1), entry(0, 2), entry(1, 1), entry(1, 2), entry(2, 2))
 
 
+def quat_scale_to_covariance(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """[N,4] wxyz quats + [N,3] scales -> [N,3,3] covariances R S S R^T (the
+    densification strategies' form; the projection uses `quat_scale_to_covar6`)."""
+    xx, xy, xz, yy, yz, zz = quat_scale_to_covar6(quats, scales)
+    return torch.stack([xx, xy, xz, xy, yy, yz, xz, yz, zz], dim=-1).reshape(quats.shape[:-1] + (3, 3))
+
+
 def _rotate_covar6(R: torch.Tensor, c6):
     """R Σ R^T with R [3,3] and Σ six [N] entries; returns six [N] entries."""
     S = ((c6[0], c6[1], c6[2]), (c6[1], c6[3], c6[4]), (c6[2], c6[4], c6[5]))

@@ -48,10 +48,14 @@ def _basic_block(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
 
 def splatad_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """flax params of `neurad_tpu.models.splatad.SplatADModel` (the dict under
-    or including the "params" key) -> state dict of the port's SplatADModel."""
+    or including the "params" key) -> state dict of the port's SplatADModel.
+
+    Any tree shaped like the parameters maps the same way, so this also
+    carries the JAX package's gradients and optax's Adam moments (`mu`, `nu`)
+    into the port's parameter names and layouts."""
     p = tree["params"] if "params" in tree else tree
     sd = {name: _t(p[name]) for name in ("means", "scales", "quats", "features", "opacities")}
-    for name, value in p["actors"].items():
+    for name, value in p.get("actors", {}).items():  # absent in a scene without actors
         sd[f"actors.{name}"] = _t(value)
 
     dec = p["rgb_decoder"]

@@ -9,12 +9,13 @@ http.server (threaded; renders run under a lock):
   GET  /start_time     -> {start_time: float}
 
 `ClosedLoopState` serves a pipeline and, optionally, a state dict for its
-model (for example one bridged from JAX params by `params_from_jax`). Loading
-a training run directory waits for the checkpoint slice.
+model (for example one bridged from JAX params by `params_from_jax`);
+`ClosedLoopState.from_run_dir` rebuilds the pipeline of a training run
+(`scripts/train.py`) and loads its newest checkpoint.
 
-    python -m neurad_tpu_torch.scripts.closed_loop --port 8000 [--state-dict model.pt] [--device cuda]
+    python -m neurad_tpu_torch.scripts.closed_loop --port 8000 [--load-dir outputs/<run>] [--state-dict model.pt] [--device cuda]
 
-serves the synthetic scene.
+serves the run's scene, or the synthetic scene without `--load-dir`.
 """
 
 from __future__ import annotations
@@ -48,6 +49,16 @@ class ClosedLoopState:
         self.render_lock = threading.Lock()
         self.time_offset = float((pipeline.outputs.metadata or {}).get("time_offset", 0.0))
         self.last_render_seconds = float("nan")  # render + copy to host of the last image
+
+    @classmethod
+    def from_run_dir(cls, run_dir, device="cuda") -> "ClosedLoopState":
+        """The server state of a training run: its scene and pipeline rebuilt
+        from `config.json`, its model loaded from the newest checkpoint."""
+        from neurad_tpu_torch.scripts.train import load_run
+
+        dev = resolve_device(device)
+        pipeline, _ = load_run(run_dir, device=dev)
+        return cls(pipeline, device=dev)
 
     def render_image(self, pose_4x4, timestamp: float, camera_name: str = "front") -> np.ndarray:
         outputs = self.pipeline.outputs
@@ -153,12 +164,16 @@ def entrypoint(argv=None):
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--state-dict", default=None, help="torch.save'd state dict for the SplatAD model")
+    parser.add_argument("--load-dir", default=None, help="run directory of scripts/train.py to serve")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    outputs = SyntheticDataParserConfig().setup().get_dataparser_outputs()
-    pipeline = SplatADPipeline(outputs, device=device)
-    sd = torch.load(args.state_dict, map_location=device) if args.state_dict else None
-    state = ClosedLoopState(pipeline, sd, device=device)
+    if args.load_dir:
+        state = ClosedLoopState.from_run_dir(args.load_dir, device=device)
+    else:
+        outputs = SyntheticDataParserConfig().setup().get_dataparser_outputs()
+        state = ClosedLoopState(SplatADPipeline(outputs, device=device), device=device)
+    if args.state_dict:
+        state.pipeline.model.load_state_dict(torch.load(args.state_dict, map_location=device))
     server = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(state))
     print(f"[closed-loop] serving on :{args.port}")
     try:

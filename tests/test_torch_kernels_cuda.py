@@ -10,6 +10,14 @@ kernel sums serially where the plain version uses cumprod/einsum, so values
 agree to 1e-4 absolute (features, alpha, depths of tens of metres: 1e-4
 relative). The lidar median compares equal except where a running weight sum
 lies within rounding of the half-way mark, which these inputs avoid.
+
+The backward kernels (K3, K5) are reached through the autograd functions and
+held against the plain backward versions. They sum a tile's pixels by warp
+shuffles and atomics (an order that changes from run to run) where the plain
+version uses einsum/cumsum, and divide by 1 - alpha >= 0.001, so each entry
+of the table's gradient is held to BWD_TOL times the sum of the absolute
+values of its per-pixel terms (the plain version's `magnitude`): a row with a
+small gradient is held as tightly as one with a large gradient.
 """
 
 import numpy as np
@@ -86,3 +94,56 @@ def test_wrapper_rejects_mixed_devices(cuda):
     args[0] = args[0].cpu()
     with pytest.raises(ValueError, match="several devices"):
         TC.tile_composite_camera(*args)
+
+
+def _cotangents(seed, t, p, c, n_extra):
+    rng = np.random.default_rng(seed)
+    shapes = [(t, p, c)] + [(t, p, 1)] * n_extra
+    cots = [rng.normal(size=shape).astype(np.float32) for shape in shapes]
+    for x in cots:
+        x[-1] = 0.0  # a tile outside the image: zero cotangents
+    return [torch.from_numpy(x).cuda() for x in cots]
+
+
+BWD_TOL = 1e-5
+
+
+def _assert_columns_close(got, plain_fn):
+    want, magnitude = plain_fn(), plain_fn(magnitude=True)
+    assert bool(torch.isfinite(got).all())
+    assert bool((want.abs().amax(dim=0) > 0).all()), "every column must get a gradient"
+    ratio = float(((got - want).abs() / magnitude.clamp_min(1e-30)).max())
+    print(f"largest error over the sum of an entry's absolute terms: {ratio:.2e}")
+    assert ratio <= BWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 16, 32])
+@pytest.mark.parametrize("k,p", [(40, 100), (300, 100), (40, 300)])
+def test_camera_bwd_kernel_matches_plain(cuda, c, k, p):
+    args = _inputs(3, t=20, p=p, k=k, n=500, c=c, lidar=False)
+    cots = _cotangents(4, 20, p, c, 2)
+    table = args[0].clone().requires_grad_(True)
+    before = (TC.camera_launches, TC.camera_bwd_launches)
+    outs = TC.tile_composite_camera(table, *args[1:])
+    (got,) = torch.autograd.grad(outs, table, cots)
+    torch.cuda.synchronize()
+    assert (TC.camera_launches, TC.camera_bwd_launches) == (before[0] + 1, before[1] + 1)
+    _assert_columns_close(got, lambda **kw: TC.tile_composite_camera_bwd_plain(*args, *cots, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 16, 32])
+@pytest.mark.parametrize("k", [40, 300])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_lidar_bwd_kernel_matches_plain(cuda, c, k, wrap):
+    args = _inputs(5, t=20, p=100, k=k, n=500, c=c, lidar=True)
+    cots = _cotangents(6, 20, 100, c, 3)
+    table = args[0].clone().requires_grad_(True)
+    before = (TC.lidar_launches, TC.lidar_bwd_launches)
+    outs = TC.tile_composite_lidar(table, *args[1:], wrap, 0.4, True)
+    assert not outs[4].requires_grad
+    (got,) = torch.autograd.grad(outs[:4], table, cots)
+    torch.cuda.synchronize()
+    assert (TC.lidar_launches, TC.lidar_bwd_launches) == (before[0] + 1, before[1] + 1)
+    _assert_columns_close(got, lambda **kw: TC.tile_composite_lidar_bwd_plain(*args, wrap, 0.4, *cots, **kw))
