@@ -11,11 +11,19 @@
    composite and its backward: T=3780 x P=128 x K=128, C=16, azimuth wrap on),
    on inputs projected and binned from 500,000 seeded gaussians and, for the
    backwards, seeded cotangents that are zero on the rows outside the image,
-   and times both with CUDA events.
+   and times both with CUDA events. After the SplatAD serving phase, so that
+   that phase meets the card as it always did: the hash-grid lookup at the
+   NeuRAD field's full width (static grid: N=1,048,576 samples, 8 levels, D=3, 4 features,
+   the preset's tables, bf16 and fp32 reads; actor grid: N=131,072, D=4, 4
+   levels) must equal its plain version bit for bit. The three gather probes
+   run through their own entry point at every table shape against table[idx]
+   (bit for bit) beside torch.index_select.
 3. Serving phase: builds the SplatAD pipeline on the synthetic scene at
    1920x1080 with 500,000 gaussians and a 64x1024-beam lidar, starts the
    closed-loop HTTP server on localhost, answers two /render_image requests at
-   different poses and timestamps plus one lidar scan render, checks the
+   different poses and timestamps, renders five more warm requests without
+   the JSON round trip (two of them from a new thread, as the server gives
+   every request one) and the lidar scan three times, checks the
    outputs and that both forward kernels were launched on that path, then
    renders one more request under torch.profiler (device time by kernel).
 4. Train phase: trains SplatAD through `SplatADPipeline.init_state`,
@@ -26,8 +34,16 @@
    profiles one step of each kind, writes a checkpoint into a run directory and
    serves a request from a `ClosedLoopState` loaded from it. One more camera
    step runs at the default schedule's first resolution (480x270).
-5. Checks the card's renders and one train step's gradients against the CPU
-   path on a small scene.
+5. NeuRAD serving phase: the `neurad` preset's model at full width (2^22
+   static slots x 8 levels x 4 features, 2^17 actor slots, MLP proposals
+   128/64, 32 field samples, 32 + 16 features, CNN hidden 32, upsample 3),
+   weights from seed 0, on the same scene: the closed-loop server answers two
+   1920x1080 camera requests (cold and warm timed apart) and /update_actors,
+   the pipeline renders the 64x1024-beam scan twice, one warm request runs
+   under torch.profiler; the lookup kernel must launch twice per chunk of
+   32,768 rays.
+6. Checks the card's renders (SplatAD and NeuRAD) and one SplatAD train step's
+   gradients against the CPU path on small scenes.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
@@ -62,6 +78,9 @@ SCENE = dict(num_frames=3, image_height=HEIGHT, image_width=WIDTH, focal=0.7 * W
              lidar_azimuths=LIDAR_BEAMS[1])
 SEED = 0
 DEVICE = "cuda"
+NEURAD_CHUNK = 1 << 15  # rays per chunk of a NeuRAD render (ADPipelineConfig.eval_chunk)
+NEURAD_SAMPLES = 32  # field samples per ray
+HASH_KERNEL = "hash_grid_fwd_kernel"
 REPORT = {}
 
 
@@ -354,6 +373,85 @@ def kernel_phase(rng):
     return results
 
 
+
+def _hash_grid_case(label, settings, d, n, gen, results):
+    """One full-width lookup: the grid of `settings` with random O(1) tables,
+    n seeded positions and stds, kernel against plain (must be equal), times,
+    and the bytes bound from the rows this run's positions touch."""
+    import torch
+
+    from neurad_tpu_torch.fields.neurad_encoding import HashGrid
+    from neurad_tpu_torch.ops import hash_encoding as HE
+
+    grid = HashGrid(settings, d)
+    tables = HE.init_hash_tables(gen, grid.scales, d, grid.table_size, grid.features, scale=1.0,
+                                 cell_packed=grid.cell_packed)
+    scales = [float(s) for s in grid.scales]
+    buckets = [t.shape[0] * pk for t, pk in zip(tables, grid.pack)]
+    pos = torch.rand((n, d), generator=gen, device=DEVICE)
+    std = torch.rand((n,), generator=gen, device=DEVICE) * 2e-3  # the finest levels get a weight below 1
+    f, n_levels = grid.features, len(tables)
+    row_bytes = (2**d) * f * 4  # the fp32 master row is read, whatever the read type
+    touched = sum(int(torch.unique(HE.level_index(pos, s, b, r, True)[0]).numel())
+                  for s, b, r in zip(scales, buckets, grid.dense_res))
+    bytes_moved = touched * row_bytes + pos.numel() * 4 + std.numel() * 4 + n * n_levels * f * 4
+    ops = n * n_levels * ((2**d) * (d + 2 * f) + 6 * d + 8)
+    bound_ms, bound_by = _bound(bytes_moved, ops)
+    log(f"[kernels] {label}: N={n} L={n_levels} D={d} F={f}, tables "
+        f"{[tuple(t.shape) for t in tables]} ({sum(t.numel() for t in tables) * 4 / 2**20:.0f} MiB), "
+        f"{touched} of {n * n_levels} row reads are distinct rows")
+    for read_bf16 in (True, False):
+        args = (pos, std, tables, scales, buckets, grid.dense_res, f, read_bf16, True)
+        before = HE.hash_grid_launches
+        got = HE.hash_grid_encode(*args)
+        _sync()
+        require(DEVICE == "cpu" or HE.hash_grid_launches == before + 1, f"{label}: the wrapper launched its kernel")
+        want = HE.hash_grid_encode_plain(*args)
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0.1, f"{label}: finite, non-trivial output")
+        require(torch.equal(got, want), f"{label} ({'bf16' if read_bf16 else 'fp32'} reads): kernel equals the plain "
+                                        f"version bit for bit (max abs err {err:.3e})")
+        ms = cuda_time_ms(lambda: HE.hash_grid_encode(*args))
+        plain_ms = cuda_time_ms(lambda: HE.hash_grid_encode_plain(*args), warmup=1, reps=3)
+        key = f"{label}_{'bf16' if read_bf16 else 'fp32'}"
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, n=n,
+                            levels=n_levels, bytes=bytes_moved, ops=ops, distinct_rows=touched)
+        log(f"[kernels] {key}: equal to the plain version; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved:.3e} bytes, {ops:.3e} ops)")
+
+
+def hash_grid_phase(rng):
+    """K1 forward at the NeuRAD field's full width."""
+    import torch
+
+    from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
+
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    results = {}
+    n_static = NEURAD_CHUNK * NEURAD_SAMPLES
+    _hash_grid_case("hash_grid_static", StaticSettings(), 3, n_static, gen, results)
+    _hash_grid_case("hash_grid_actor", ActorSettings(flip_prob=0.25), 4, n_static // 8, gen, results)
+    return results
+
+
+def probe_phase():
+    """The gather probes through their own entry point: every table shape,
+    each kernel against table[idx] (the run raises on any difference), times
+    beside torch.index_select. The counts are read around this one run."""
+    from neurad_tpu_torch.benchmarks import gather_microbench as GM
+
+    GM.reset_launch_counts()
+    records = GM.entrypoint(["--device", DEVICE])
+    launches = {"coalesced": GM.coalesced_launches, "onehot": GM.onehot_launches, "serial": GM.serial_launches}
+    log(f"[gather] kernel launches in the run: {launches}")
+    require(all(r["max_abs_err"] == 0.0 for r in records), "every probe equals table[idx]")
+    require({(r["name"], r["T"], r["F"]) for r in records} >= {(n, t, f) for t, f in GM.TABLE_SHAPES
+                                                                 for n in ("coalesced", "serial")},
+            "the copies ran at every table shape")
+    require(sum(r["name"] == "onehot" for r in records) == 3, "the one-hot product ran at the three shapes up to 131072 rows")
+    return dict(records=records, launches=launches)
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -423,11 +521,31 @@ def slice_phase():
             off_background = float((np.abs(img - np.asarray(BACKGROUND, np.float32)).max(-1) > 1e-3).mean())
             require(off_background > 0.05, f"image not all background ({off_background:.3f} of pixels differ)")
             requests.append(dict(render_ms=render_s * 1e3, round_trip_s=round_trip, off_background=off_background))
+        # further warm requests at the second pose, through the server state without the JSON round trip: two
+        # from this thread, two from one new thread (the server gives every request a thread of its own, so
+        # what it answers is a thread's first render), one more from this thread
+        warm_ms = []
+
+        def render(count=1):
+            for _ in range(count):
+                state.render_image(pose.tolist(), float(times[1]) + 0.1, "front_camera")
+                warm_ms.append(state.last_render_seconds * 1e3)
+
+        render(2)
+        worker = threading.Thread(target=render, args=(2,))
+        worker.start()
+        worker.join()
+        render()
+        log(f"[slice] five more warm requests without HTTP: render {', '.join(f'{t:.1f}' for t in warm_ms)} ms "
+            f"(the third and fourth are a new thread's first and second)")
         scan = 0
-        _sync()
-        t_l = time.perf_counter()
-        lid = pipeline.render_eval_lidar(scan)
-        lidar_s = time.perf_counter() - t_l
+        lidar_times = []
+        for _ in range(3):  # the process's first scan apart from two warm ones
+            _sync()
+            t_l = time.perf_counter()
+            lid = pipeline.render_eval_lidar(scan)
+            lidar_times.append((time.perf_counter() - t_l) * 1e3)
+        lidar_s = lidar_times[1] * 1e-3
         launches = {"camera": TC.camera_launches, "lidar": TC.lidar_launches}
     finally:
         server.shutdown()
@@ -435,12 +553,13 @@ def slice_phase():
         thread.join(timeout=30)
     n_pts = int(outputs.point_clouds[scan].shape[0])
     log(f"[slice] lidar scan: {n_pts} returns of {LIDAR_BEAMS[0] * LIDAR_BEAMS[1]} beams, {lid['depth'].shape[0]} query points, "
-        f"render {lidar_s * 1e3:.1f} ms (synchronised, incl. copy to host)")
+        f"render cold {lidar_times[0]:.1f} ms, warm {lidar_times[1]:.1f} and {lidar_times[2]:.1f} ms (synchronised, "
+        f"incl. copy to host)")
     for key in ("depth", "intensity", "ray_drop_logits"):
         require(bool(np.isfinite(lid[key]).all()), f"lidar {key} finite")
     log(f"[slice] kernel launches on the serving path: {launches}")
     require(launches["camera"] >= 2, "camera kernel launched for every request")
-    require(launches["lidar"] >= 1, "lidar kernel launched for the scan")
+    require(launches["lidar"] >= 3, "lidar kernel launched for every scan")
     profile = {
         "camera": profiled("camera request", lambda: state.render_image(pose.tolist(), float(times[1]), "front_camera")),
     }
@@ -455,7 +574,8 @@ def slice_phase():
         f"total loss {float(metrics['total_loss']):.4f}, psnr {float(metrics['psnr']):.2f}")
     require((coarse.width, coarse.height) == (w // 4, h // 4), "default schedule starts at a quarter resolution")
     require(math.isfinite(float(metrics["total_loss"])) and tstate.step == 1, "coarse train step finite")
-    return dict(requests=requests, lidar_ms=lidar_s * 1e3, lidar_returns=n_pts, launches=launches,
+    return dict(requests=requests, warm_render_ms=warm_ms, lidar_ms=lidar_s * 1e3, lidar_cold_ms=lidar_times[0], lidar_warm_ms=lidar_times[1:],
+                lidar_returns=n_pts, launches=launches,
                 start_time=start_time, scene_s=t_data, pipeline_s=t_pipe, profile=profile,
                 coarse_step=dict(width=coarse.width, height=coarse.height, total_loss=float(metrics["total_loss"]))), outputs
 
@@ -569,9 +689,186 @@ def train_phase(outputs):
                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def profiled(label, fn, rows=15):
+# ---------------------------------------------------------------------------
+# NeuRAD serving phase
+# ---------------------------------------------------------------------------
+
+
+def _liven(model) -> None:
+    """Make a freshly drawn NeuRAD model's picture depend on its hash grids and
+    actors: both packages draw hash tables at 1e-3, where features vanish next
+    to the MLPs' biases and every ray's first sample is nearly opaque. Tables
+    are scaled by 300 (features O(0.3)) and the SDF head's bias set to 0.08 (a
+    sample's alpha about 0.03-0.6). Still random weights from the seed."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "hash_table" in name:
+                p.mul_(300.0)
+        model.field.mlp_geo.output.bias[0] = 0.08
+
+
+def neurad_phase(outputs):
+    """NeuRAD serving at the `neurad` preset's full width through the
+    closed-loop server state and the pipeline's eval renders."""
+    import numpy as np
+    import torch
+
+    from http.server import ThreadingHTTPServer
+
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+    from neurad_tpu_torch.scripts.closed_loop import build_state, make_handler
+
+    w, h = WIDTH, HEIGHT
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = build_state("neurad", device=DEVICE, seed=SEED, outputs=outputs)
+    pipeline = state.pipeline
+    _sync()
+    t_pipe = time.perf_counter() - t0
+    model = pipeline.model
+    _liven(model)
+    require(isinstance(pipeline, ADPipeline) and pipeline.config.eval_chunk == NEURAD_CHUNK, "the preset's chunk size")
+    static, actor = model.field.hashgrid.static_hash_table, model.field.hashgrid.actor_hash_table
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[neurad] pipeline in {t_pipe:.1f} s: {n_params / 1e6:.1f} M parameters; static tables "
+        f"{[tuple(t.shape) for t in static]}, actor tables {[tuple(t.shape) for t in actor]}")
+    require(sum(t.numel() for t in static) >= 0.9 * 8 * 2**22 and len(static) == 8, "2^22 static slots x 8 levels")
+    require(len(actor) == 4 and actor[0].shape == (2**17 // 16, 64), "2^17 actor slots, 4 levels")
+    require(model.sampling.num_proposal_samples == (128, 64) and model.sampling.num_nerf_samples == NEURAD_SAMPLES,
+            "128/64 proposal samples, 32 field samples")
+    require(model.rgb_decoder.stem.in_channels == 48 and model.rgb_decoder.upsample.stride == (3, 3),
+            "32 + 16 features into the decoder, upsample 3")
+
+    hs, ws = h // 3, w // 3
+    cam_chunks = -(-(hs * ws) // NEURAD_CHUNK)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    c2w_all = outputs.cameras.camera_to_worlds.numpy()
+    times = outputs.cameras.times[:, 0].numpy()
+    requests, images = [], []
+    try:
+        HE.reset_launch_counts()
+        for i, lateral in enumerate((0.0, 1.5)):
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3] = c2w_all[i]
+            pose[:3, 3] += pose[:3, 0] * lateral
+            before = HE.hash_grid_launches
+            img = state.render_image(pose.tolist(), float(times[i]) + 0.1 * i, "front_camera")
+            launched = HE.hash_grid_launches - before
+            log(f"[neurad] camera request {i} ({'cold' if i == 0 else 'warm'}): render "
+                f"{state.last_render_seconds * 1e3:.1f} ms (synchronised, incl. copy to host), {hs * ws} rays in "
+                f"{cam_chunks} chunks, {launched} lookup launches")
+            require(img.shape == (h, w, 3) and bool(np.isfinite(img).all()), f"image shape {img.shape}, finite")
+            require(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, "image in [0, 1]")
+            require(launched == 2 * cam_chunks, "the lookup kernel launched twice per chunk (static + actor grid)")
+            requests.append(dict(render_ms=state.last_render_seconds * 1e3, launches=launched))
+            images.append(img)
+        actors = _get(url + "/get_actors")["actors"]
+        moved = np.asarray(actors[0]["poses"], np.float32)
+        moved[:, :3, 3] = c2w_all[1][:3, 3] + c2w_all[1][:3, :3] @ np.array([0.0, -0.3, -2.5], np.float32)  # 2.5 m ahead
+        actors[0]["poses"] = moved.tolist()
+        require(_post(url + "/update_actors", {"actors": actors})["status"] == "ok", "/update_actors answered")
+        img = state.render_image(pose.tolist(), float(times[1]) + 0.1, "front_camera")
+        changed = float((np.abs(img - images[1]).max(-1) > 1e-3).mean())
+        log(f"[neurad] camera request after /update_actors: render {state.last_render_seconds * 1e3:.1f} ms, "
+            f"{changed:.4f} of the pixels changed")
+        require(changed > 0.001, "the moved actor changes the image")
+        requests.append(dict(render_ms=state.last_render_seconds * 1e3, launches=2 * cam_chunks, after_update=True))
+        camera_launches = HE.hash_grid_launches
+
+        scan = 0
+        n_pts = int(outputs.point_clouds[scan].shape[0])
+        lidar_chunks = -(-n_pts // NEURAD_CHUNK)
+        lidar_times = []
+        for _ in range(2):
+            before = HE.hash_grid_launches
+            _sync()
+            t_l = time.perf_counter()
+            lid = pipeline.render_eval_lidar(scan)
+            lidar_times.append((time.perf_counter() - t_l) * 1e3)
+            require(HE.hash_grid_launches - before == 2 * lidar_chunks, "the lookup kernel launched twice per lidar chunk")
+        launches = HE.hash_grid_launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"[neurad] lidar scan: {n_pts} returns of {LIDAR_BEAMS[0] * LIDAR_BEAMS[1]} beams in {lidar_chunks} chunks, render "
+        f"cold {lidar_times[0]:.1f} ms, warm {lidar_times[1]:.1f} ms (synchronised, incl. copy to host)")
+    for key in ("depth", "intensity", "ray_drop_logits"):
+        require(lid[key].shape == (n_pts, 1) and bool(np.isfinite(lid[key]).all()), f"lidar {key} finite, one per point")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[neurad] lookup launches on the serving path: {launches} ({camera_launches} for three camera requests); peak "
+        f"device memory {peak:.2f} GiB")
+    prof = profiled("neurad camera request", lambda: state.render_image(pose.tolist(), float(times[1]), "front_camera"),
+                    rows=18, match=HASH_KERNEL)
+    k1_ms, k1_n = prof["matched_ms"], prof["matched_launches"]
+    log(f"[neurad] profiled request: the lookup kernel {k1_ms:.3f} ms in {k1_n} launches, "
+        f"{100 * k1_ms / prof['device_busy_ms']:.1f}% of the device's busy time")
+    require(k1_n == 2 * cam_chunks and k1_ms > 0, "the profile shows the lookup kernel's launches")
+    return dict(requests=requests, lidar_ms=lidar_times, lidar_returns=n_pts, launches={"hash_grid": launches},
+                camera_chunks=cam_chunks, lidar_chunks=lidar_chunks, pipeline_s=t_pipe, parameters=n_params,
+                peak_memory_gib=peak, profile=prof, hash_grid_profile_ms=k1_ms)
+
+
+def neurad_reference_phase():
+    """The card's NeuRAD renders (lookup kernel) against the CPU path (plain
+    version) on a small scene at small widths, same parameters, livened as in
+    the serving phase, the actor placed 1.5 m ahead of the camera. Matmuls and transcendentals round differently on the
+    two devices, and a resampled sample that crosses a cell face changes its
+    features: with fp32 reads and decoders rgb within 1e-4 on 99% of the values
+    (measured: 2e-6 at most) and 2e-2 everywhere (room for a sample that crosses
+    a face); at the bf16 default within 1e-2 on 99% and 3e-2 everywhere
+    (measured: 8e-3 at most), on a picture whose values have a standard
+    deviation above 0.02 (printed)."""
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
+    from neurad_tpu_torch.scripts.closed_loop import neurad_tiny_overrides
+
+    outputs = SyntheticDataParserConfig(num_frames=3).setup().get_dataparser_outputs()
+    traj = outputs.trajectories[0]
+    stamps = np.asarray(traj["timestamps"])
+    traj["poses"] = np.array(traj["poses"])
+    traj["poses"][:, :3, 3] = np.stack([2.0 * stamps + 1.5, np.full(len(stamps), 0.1), np.full(len(stamps), 1.5)], -1)
+    traj["dims"] = np.array([1.2, 1.2, 1.2], np.float32)
+    result = {}
+    for fp32 in (True, False):
+        cfg = ADPipelineConfig(model_overrides=dict(neurad_tiny_overrides(), compute_fp32=fp32), eval_chunk=1024,
+                               seed=SEED)
+        gpu, cpu = ADPipeline(outputs, cfg, device="cuda"), ADPipeline(outputs, cfg, device="cpu")
+        _liven(gpu.model)
+        cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+        before = HE.hash_grid_launches
+        a, _ = gpu.render_eval_camera(1)
+        require(HE.hash_grid_launches - before == 2 * -(-(16 * 24) // 1024), "the card's render went through the kernel")
+        b, _ = cpu.render_eval_camera(1)
+        diff = np.abs(a - b)
+        la, lb = gpu.render_eval_lidar(1), cpu.render_eval_lidar(1)
+        rel = np.abs(la["depth"] - lb["depth"]) / np.maximum(np.abs(lb["depth"]), 1.0)
+        tight, loose = (1e-4, 2e-2) if fp32 else (1e-2, 3e-2)
+        name = "fp32" if fp32 else "bf16"
+        result[name] = dict(rgb_max_err=float(diff.max()), rgb_share_off=float((diff > tight).mean()),
+                            depth_max_rel_err=float(rel.max()), depth_share_off=float((rel > tight).mean()),
+                            intensity_max_err=float(np.abs(la["intensity"] - lb["intensity"]).max()))
+        log(f"[reference] NeuRAD card vs CPU path, 72x48 scene, {name}: {result[name]} (picture std {b.std():.3f})")
+        require(b.std() > 0.02, "the picture is not flat")
+        require(diff.max() <= loose and (diff > tight).mean() <= 0.01, f"NeuRAD rgb agrees ({name})")
+        require((rel > tight).mean() <= 0.02 and result[name]["intensity_max_err"] <= loose, f"NeuRAD lidar agrees ({name})")
+    return result
+
+
+def profiled(label, fn, rows=15, match=None):
     """Run fn once more under torch.profiler: device time by kernel, and the
-    device's busy share of the host-clock interval (profiler on)."""
+    device's busy share of the host-clock interval (profiler on). `match`: also
+    sum the time and launches of the kernels whose name contains it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -590,7 +887,11 @@ def profiled(label, fn, rows=15):
     top = [(e.key[:100], e.self_device_time_total / 1e3, e.count) for e in kernels[:rows]]
     for name, ms, n in top:
         log(f"[profile] {label}: {ms:8.3f} ms x{n:<3d} {name}")
-    return dict(host_ms=host_ms, device_busy_ms=busy_ms, top=top)
+    out = dict(host_ms=host_ms, device_busy_ms=busy_ms, top=top)
+    if match is not None:
+        out["matched_ms"] = sum(e.self_device_time_total for e in kernels if match in e.key) / 1e3
+        out["matched_launches"] = sum(e.count for e in kernels if match in e.key)
+    return out
 
 
 def reference_phase():
@@ -707,14 +1008,22 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     slice_res, outputs = slice_phase()
     torch.cuda.empty_cache()
+    hash_kernels = hash_grid_phase(rng)
+    torch.cuda.empty_cache()
+    probes = probe_phase()
+    torch.cuda.empty_cache()
+    neurad_res = neurad_phase(outputs)
+    torch.cuda.empty_cache()
     train_res = train_phase(outputs)
     del outputs
     torch.cuda.empty_cache()
     ref = reference_phase()
+    ref["neurad"] = neurad_reference_phase()
 
-    # name, source, the TPU kernel it replaces, and the main path whose launches are reported: the serving
-    # path for the forward composites (the train path launches them too: "train_launches"), the train path
-    # for the backward composites
+    # name, source, the TPU kernel it replaces, and the main path whose launches are reported: the SplatAD
+    # serving path for the forward composites (the train path launches them too: "train_launches"), the train
+    # path for the backward composites, the NeuRAD serving path for the hash-grid lookup, the gather
+    # microbenchmark's own run for the probes
     fwd, bwd = "neurad_tpu_torch/csrc/tile_composite.cu", "neurad_tpu_torch/csrc/tile_composite_bwd.cu"
     names = {"camera": ("tile_composite_camera_fwd", fwd, "neurad_tpu/ops/pallas_composite.py:54", slice_res),
              "camera_bwd": ("tile_composite_camera_bwd", bwd, "neurad_tpu/ops/pallas_composite.py:129", train_res),
@@ -731,10 +1040,31 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         for key, r in kernels.items()
     ]}
-    require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 4,
-            "all four kernels were launched on their main path")
-    REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, slice=slice_res,
-                  train=train_res, reference=ref, seconds=time.perf_counter() - t_start)
+    # the lookup's line entry is the static grid with bf16 reads, the shape and mode of the serving path's
+    # larger launch; the fp32 and actor-grid readings ride along
+    k1 = hash_kernels["hash_grid_static_bf16"]
+    line["kernels"].append({
+        "name": "hash_grid_fwd", "route": "cuda", "source": "neurad_tpu_torch/csrc/hash_grid.cu",
+        "replaces": "neurad_tpu/ops/hash_encoding.py:492", "launches": neurad_res["launches"]["hash_grid"],
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None,
+        "other_shapes": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                         for k, v in hash_kernels.items() if k != "hash_grid_static_bf16"}})
+    # the probes' line entries are the (131072, 32) table, the largest all three run at; every shape is in the report
+    probe_names = {"coalesced": ("gather_rows_coalesced", "benchmarks/pallas_gather_microbench.py:54"),
+                   "onehot": ("gather_rows_onehot", "benchmarks/pallas_gather_microbench.py:91"),
+                   "serial": ("gather_rows_serial", "benchmarks/pallas_gather_microbench2.py:100")}
+    for key, (name, replaces) in probe_names.items():
+        (r,) = [r for r in probes["records"] if r["name"] == key and (r["T"], r["F"]) == (131072, 32)]
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": "neurad_tpu_torch/csrc/gather_probes.cu", "replaces": replaces,
+            "launches": probes["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "table": [r["T"], r["F"]], "queries": r["N"]})
+    require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 8,
+            "all eight kernels were launched on their main path")
+    REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
+                  gather_probes=probes, slice=slice_res, neurad=neurad_res, train=train_res, reference=ref, seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
     print(smi)
     print(json.dumps(line))

@@ -1,7 +1,7 @@
 """Camera pose / velocity optimizers (torch port of
 `neurad_tpu/cameras/camera_optimizers.py`): learnable per-image 6-dof tangent
 deltas, their application to sensor-to-world matrices, their regularisers and
-metrics. Applying them to ray bundles arrives with the ray-based models.
+metrics.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from neurad_tpu_torch.core.lie import exp_map_SE3, exp_map_SO3xR3
+from neurad_tpu_torch.core.structs import RayBundle
 
 
 class CameraOptimizer(nn.Module):
@@ -52,6 +53,16 @@ class CameraOptimizer(nn.Module):
             return eye.expand(indices.shape + (3, 4))
         adj = self._adjustment()[indices.reshape(-1)]
         return exp_map_SO3xR3(adj) if self.mode == "SO3xR3" else exp_map_SE3(adj)
+
+    def apply_to_raybundle(self, bundle: RayBundle) -> RayBundle:
+        """Rotate directions and translate origins of a bundle's rays by their
+        cameras' corrections (the identity when the mode is 'off')."""
+        if self.mode == "off":
+            return bundle
+        corr = self(bundle.camera_indices[..., 0])
+        origins = bundle.origins + corr[..., :3, 3]
+        directions = torch.sum(corr[..., :3, :3] * bundle.directions[..., None, :], dim=-1)
+        return bundle.replace(origins=origins, directions=directions)
 
     def apply_to_camera_pose(self, sensor_to_world: torch.Tensor, camera_idx: torch.Tensor) -> torch.Tensor:
         """Correct a [.., 3, 4] sensor-to-world matrix: rotation applied to the

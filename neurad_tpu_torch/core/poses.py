@@ -19,6 +19,13 @@ def to4x4(pose: torch.Tensor) -> torch.Tensor:
     return torch.cat([pose, bottom], dim=-2)
 
 
+def multiply(pose_a: torch.Tensor, pose_b: torch.Tensor) -> torch.Tensor:
+    """Compose [..., 3, 4] poses a∘b."""
+    r = pose_a[..., :3, :3] @ pose_b[..., :3, :3]
+    t = pose_a[..., :3, :3] @ pose_b[..., :3, 3:] + pose_a[..., :3, 3:]
+    return torch.cat([r, t], dim=-1)
+
+
 def rotmat_to_6d(r: torch.Tensor) -> torch.Tensor:
     """Rotation matrix [..., 3, 3] -> 6D rep (first two rows)."""
     return torch.cat([r[..., 0, :], r[..., 1, :]], dim=-1)

@@ -17,7 +17,7 @@ from torch import nn
 class MLP(nn.Module):
     """ReLU multi-layer perceptron with raw outputs. num_layers counts Linear
     layers (num_layers=2 means one hidden layer). The JAX module's skip
-    connections and output activation wait for the NeuRAD slice, which uses
+    connections and output activation are not ported: no ported model uses
     them."""
 
     def __init__(

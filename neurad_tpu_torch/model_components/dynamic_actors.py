@@ -149,9 +149,11 @@ class DynamicActors(nn.Module):
     `actor_positions` [T,A,3], `actor_rotations_6d` [T,A,6],
     `actor_vel_linear` / `actor_vel_angular` [T,A,3]."""
 
-    def __init__(self, data: ActorData):
+    def __init__(self, data: ActorData, actor_bbox_padding: Tuple[float, float, float] = (0.25, 0.25, 0.1)):
         super().__init__()
         self.data = data
+        bounds = np.asarray(data.sizes, dtype=np.float32) / 2.0 + np.asarray(actor_bbox_padding, dtype=np.float32)
+        self.register_buffer("bounds", torch.from_numpy(bounds), persistent=False)
         poses = torch.from_numpy(np.asarray(data.poses, dtype=np.float32))
         self.actor_positions = nn.Parameter(poses[..., :3, 3].clone())
         self.actor_rotations_6d = nn.Parameter(pose_utils.rotmat_to_6d(poses[..., :3, :3]))
@@ -165,6 +167,10 @@ class DynamicActors(nn.Module):
     @property
     def n_actors(self) -> int:
         return self.data.n_actors
+
+    def actor_bounds(self) -> torch.Tensor:
+        """Half-sizes + padding [A, 3]."""
+        return self.bounds
 
     def forward(self, query_times: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.get_boxes2world(query_times)

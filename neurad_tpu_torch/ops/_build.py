@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # library name -> (source file, {C function: argument types})
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 LIBRARIES = {
     "tile_composite": (
         "tile_composite.cu",
@@ -39,6 +39,18 @@ LIBRARIES = {
         {
             "tile_composite_camera_bwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
             "tile_composite_lidar_bwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+        },
+    ),
+    "hash_grid": (
+        "hash_grid.cu",
+        {"hash_grid_fwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]},
+    ),
+    "gather_probes": (
+        "gather_probes.cu",
+        {
+            "gather_rows_coalesced": [_P, _P, _P, _L, _I, _I, _P],
+            "gather_rows_onehot": [_P, _P, _P, _L, _I, _I, _P],
+            "gather_rows_serial": [_P, _P, _P, _L, _I, _I, _P],
         },
     ),
 }

@@ -1,0 +1,384 @@
+"""Multi-resolution hash encoding (iNGP), 3D and 4D (torch port of
+`neurad_tpu/ops/hash_encoding.py`), with the lookup as a hand-written CUDA
+kernel (`csrc/hash_grid.cu`) and its plain PyTorch version beside it.
+
+  hash_grid_encode  <- `_interp_gather_cp_impl` (cell-packed rows), and the
+                       same family for the other layouts
+                       (`_gather_levels_multi_impl`, `_gather_levels_impl`),
+                       with the index and weight code of `hash_encode` around
+                       them and `gaussian_level_weights`
+
+The kernel's boundary (and the plain version's): positions [N, D] in [0, 1]^D,
+optionally one std per position, the per-level tables -> [N, L * F] fp32. One
+launch does every level of an encoding. Forward only: the backward kernel
+(table and position gradients for the same inputs) arrives with the training
+slice; until then a CUDA lookup refuses tables that require grad while grad
+mode is on. On the CPU the plain version runs and autograd differentiates it.
+
+Table layouts (parameters are carried across from the JAX package in these):
+a level's table is [rows, pk * row_width] fp32, pk logical buckets a physical
+row (`level_layout`), row_width = 2^D * F when `cell_packed` (one row holds a
+cell's corner features) and F otherwise (one row per grid corner). Its
+row-major memory is also [rows * pk, row_width]: the lookup addresses that
+view by the logical bucket, so `pk` only sets the hash's modulus. The legacy
+layout is one [L * table_size, F] array for all levels. The JAX package
+stores tables as 1-D leaves (an XLA layout repair); here they are 2-D
+parameters and the parameter bridge reshapes.
+
+Reads in bf16 (`gather_dtype`) round the fp32 master table to bf16 at the
+read (round to nearest even), round the corner weights to bf16, and interpolate
+in bf16: each product and each addition, corners in order, rounds to bf16.
+Each launch of the kernel is counted in `hash_grid_launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from neurad_tpu_torch.ops import _build
+
+# Spatial-hash primes (the fourth is tiny-cuda-nn's, for 4D grids).
+_PRIMES = (1, 2654435761, 805459861, 3674653429)
+_MASK32 = 0xFFFFFFFF
+
+# Levels with more buckets than this pack `bucket_pack` buckets per physical
+# row. The threshold was chosen for another accelerator's gather; it is kept
+# because it fixes the table LAYOUT that parameters are carried across in, not
+# for any property of this card.
+_FAST_GATHER_MAX_ROWS = 2**18
+
+MAX_LEVELS = 16  # of one launch (csrc/hash_grid.cu)
+hash_grid_launches = 0
+
+
+def reset_launch_counts() -> None:
+    global hash_grid_launches
+    hash_grid_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# layout (numpy, static)
+# ---------------------------------------------------------------------------
+
+
+def level_scales(num_levels: int, min_res: int, max_res: int) -> np.ndarray:
+    """Per-level grid resolutions: floor(min_res * growth^level)."""
+    if num_levels > 1:
+        growth = np.exp((np.log(max_res) - np.log(min_res)) / (num_levels - 1))
+    else:
+        growth = 1.0
+    return np.floor(min_res * growth ** np.arange(num_levels)).astype(np.float32)
+
+
+def level_rows(
+    scales: np.ndarray, d: int, max_rows: int, cell_packed: bool
+) -> Tuple[Tuple[int, ...], Tuple[Optional[int], ...]]:
+    """Per-level table sizing: a level whose dense grid fits under `max_rows`
+    gets exactly (res + pad)^d rows and collision-free linear indexing; finer
+    levels hash into `max_rows` rows. `cell_packed` rows index cells (res + 1
+    per dimension), unpacked rows index grid corners (res + 2). Returns
+    (rows_per_level, dense_res_per_level); dense_res is None for hashed levels."""
+    rows, dense = [], []
+    for s in np.asarray(scales):
+        res = int(np.floor(float(s))) + (1 if cell_packed else 2)
+        if res**d <= max_rows:
+            rows.append(res**d)
+            dense.append(res)
+        else:
+            rows.append(max_rows)
+            dense.append(None)
+    return tuple(rows), tuple(dense)
+
+
+def level_layout(
+    scales: np.ndarray, d: int, max_rows: int, cell_packed: bool, force_hash: bool = False
+) -> Tuple[Tuple[int, ...], Tuple[Optional[int], ...], Tuple[int, ...]]:
+    """Per-level (buckets, dense_res, bucket_pack). `force_hash` hashes every
+    level into `max_rows` entries with no bucket packing (the reference-faithful
+    layout)."""
+    if force_hash:
+        return (max_rows,) * len(scales), (None,) * len(scales), (1,) * len(scales)
+    rows, dense = level_rows(scales, d, max_rows, cell_packed)
+    packs = []
+    for r in rows:
+        pack = 1
+        while r // pack > _FAST_GATHER_MAX_ROWS:
+            pack *= 2
+        packs.append(pack)
+    return rows, dense, tuple(packs)
+
+
+def table_physical_shapes(
+    scales: np.ndarray, d: int, max_rows: int, features_per_level: int, cell_packed: bool = False,
+    force_hash: bool = False,
+) -> Tuple[Tuple[int, int], ...]:
+    """Per-level physical [rows, f_row] shapes matching `init_hash_tables`."""
+    rows, _, packs = level_layout(scales, d, max_rows, cell_packed, force_hash)
+    f_row = features_per_level * ((2**d) if cell_packed else 1)
+    return tuple((-(-r // p), f_row * p) for r, p in zip(rows, packs))
+
+
+def init_hash_tables(
+    generator: torch.Generator, scales: np.ndarray, d: int, max_rows: int, features_per_level: int,
+    scale: float = 0.001, cell_packed: bool = False, force_hash: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Per-level tables, uniform(-1, 1) * scale, as a tuple of [rows_l, f_row_l]
+    fp32 tensors on the generator's device."""
+    shapes = table_physical_shapes(scales, d, max_rows, features_per_level, cell_packed, force_hash)
+    return tuple(
+        (torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32) * 2.0 - 1.0) * scale
+        for shape in shapes
+    )
+
+
+def init_hash_table(
+    generator: torch.Generator, num_levels: int, table_size: int, features_per_level: int, scale: float = 0.001,
+    corners_packed: int = 1,
+) -> torch.Tensor:
+    """The legacy single array [num_levels * table_size, F * corners_packed]."""
+    shape = (num_levels * table_size, features_per_level * corners_packed)
+    return (torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32) * 2.0 - 1.0) * scale
+
+
+def _corner_offsets(d: int) -> np.ndarray:
+    """[2^D, D] binary corner offsets: corner c has bit i set for dimension i."""
+    corners = np.arange(2**d)
+    return np.stack([(corners >> i) & 1 for i in range(d)], axis=-1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+
+def _hash(coords: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Spatial hash of integer coords [..., D] -> [...] int64 in [0, table_size):
+    uint32 products with wraparound, xor, modulo. int64 arithmetic masked to 32
+    bits after each product (torch has no uint32 multiply)."""
+    c = coords.to(torch.int64) & _MASK32
+    h = None
+    for i in range(coords.shape[-1]):
+        x = (c[..., i] * _PRIMES[i]) & _MASK32
+        h = x if h is None else h ^ x
+    return h % table_size
+
+
+def _dense_index(coords: torch.Tensor, res: int) -> torch.Tensor:
+    """Collision-free row-major index of a dense level (dimension 0 slowest);
+    coordinates are clipped to [0, res - 1]."""
+    c = coords.to(torch.int64).clamp(0, res - 1)
+    idx = c[..., 0]
+    for i in range(1, coords.shape[-1]):
+        idx = idx * res + c[..., i]
+    return idx
+
+
+def _corner_weights(offset: torch.Tensor) -> torch.Tensor:
+    """[N, D] offsets in [0, 1) -> [N, 2^D] D-linear weights; each is the product
+    over the dimensions in order of (offset if the corner's bit else 1 - offset)."""
+    d = offset.shape[-1]
+    one_minus = 1.0 - offset
+    cols = []
+    for bits in _corner_offsets(d):
+        w = offset[:, 0] if bits[0] else one_minus[:, 0]
+        for i in range(1, d):
+            w = w * (offset[:, i] if bits[i] else one_minus[:, i])
+        cols.append(w)
+    return torch.stack(cols, dim=-1)
+
+
+def level_index(
+    positions: torch.Tensor, scale: float, n_buckets: int, dense_res: Optional[int], cell_packed: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level's logical bucket indices and in-cell offsets for positions
+    [N, D]: (bucket [N] of the cell when `cell_packed`, else [N, 2^D] of its
+    corners; offset [N, D] in [0, 1))."""
+    d = positions.shape[1]
+    scaled = positions * float(scale)
+    floor = torch.floor(scaled)
+    offset = scaled - floor
+    cell = floor.to(torch.int64)
+    if not cell_packed:
+        cell = cell[:, None, :] + torch.from_numpy(_corner_offsets(d)).to(positions.device).to(torch.int64)
+    bucket = _dense_index(cell, dense_res) if dense_res else _hash(cell, n_buckets)
+    return bucket, offset
+
+
+def hash_grid_encode_plain(
+    positions: torch.Tensor, stds: Optional[torch.Tensor], tables: Sequence[torch.Tensor], scales: Sequence[float],
+    buckets: Sequence[int], dense_res: Sequence[Optional[int]], f: int, read_bf16: bool, cell_packed: bool,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, op by op in the kernel's order.
+    positions [N, D], stds [N] or None, tables[l] any shape whose row-major
+    memory is [buckets_l, row_width] -> [N, L * f] fp32."""
+    n, d = positions.shape
+    n_corners = 2**d
+    row_width = f * (n_corners if cell_packed else 1)
+    outs = []
+    for tbl, scale, n_buckets, res in zip(tables, scales, buckets, dense_res):
+        bucket, offset = level_index(positions, scale, n_buckets, res, cell_packed)
+        rows = tbl.reshape(-1, row_width)[bucket].reshape(n, n_corners, f)
+        w = _corner_weights(offset)
+        if read_bf16:
+            rows, w = rows.to(torch.bfloat16), w.to(torch.bfloat16)
+        o = rows[:, 0] * w[:, 0:1]
+        for c in range(1, n_corners):
+            o = o + rows[:, c] * w[:, c : c + 1]
+        o = o.float()
+        if stds is not None:
+            o = o * torch.reciprocal(torch.clamp_min(stds * (2.0 * float(scale)), 1.0))[:, None]
+        outs.append(o)
+    return torch.cat(outs, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# wrapper
+# ---------------------------------------------------------------------------
+
+
+def hash_grid_encode(
+    positions: torch.Tensor, stds: Optional[torch.Tensor], tables: Sequence[torch.Tensor], scales: Sequence[float],
+    buckets: Sequence[int], dense_res: Sequence[Optional[int]], f: int, read_bf16: bool, cell_packed: bool,
+) -> torch.Tensor:
+    """Every level of one encoding: positions [N, D] (D = 3 or 4) in [0, 1]^D,
+    stds [N] or None (no level weight), L tables -> [N, L * f] fp32.
+
+    tables[l] is an fp32 tensor whose row-major memory is [buckets_l,
+    row_width] (see the module note); a view into a larger array serves the
+    legacy layout. CPU tensors go to the plain version, CUDA tensors to the
+    kernel; anything the kernel does not take raises."""
+    n_levels = len(tables)
+    if not (len(scales) == len(buckets) == len(dense_res) == n_levels):
+        raise ValueError("one scale, bucket count and dense resolution per table")
+    if positions.dim() != 2 or positions.shape[1] not in (3, 4) or positions.dtype != torch.float32:
+        raise ValueError(f"positions must be [N, 3 or 4] float32, got {tuple(positions.shape)} {positions.dtype}")
+    n, d = positions.shape
+    if stds is not None and (stds.shape != (n,) or stds.dtype != torch.float32 or stds.device != positions.device):
+        raise ValueError("stds must be [N] float32 on the positions' device")
+    row_width = f * ((2**d) if cell_packed else 1)
+    for tbl, n_buckets in zip(tables, buckets):
+        if tbl.dtype != torch.float32 or tbl.device != positions.device or not tbl.is_contiguous():
+            raise ValueError("tables must be contiguous float32 tensors on the positions' device")
+        if tbl.numel() != n_buckets * row_width:
+            raise ValueError(f"a table of {tbl.numel()} entries does not hold {n_buckets} rows of {row_width}")
+    if positions.device.type == "cpu":
+        return hash_grid_encode_plain(positions, stds, tables, scales, buckets, dense_res, f, read_bf16, cell_packed)
+    if positions.device.type != "cuda":
+        raise ValueError(f"unsupported device {positions.device}")
+    if f not in (1, 2, 4) or not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"the kernel takes 1, 2 or 4 features a level and up to {MAX_LEVELS} levels")
+    if torch.is_grad_enabled() and (positions.requires_grad or any(t.requires_grad for t in tables)):
+        raise NotImplementedError("the lookup's backward kernel is not ported yet: call under torch.no_grad()")
+    positions = positions.contiguous()
+    stds = None if stds is None else stds.contiguous()
+    out = torch.empty((n, n_levels * f), dtype=torch.float32, device=positions.device)
+    lib = _build.load("hash_grid")
+    ptrs = (ctypes.c_void_p * n_levels)(*[t.data_ptr() for t in tables])
+    n_buckets = (ctypes.c_int * n_levels)(*[int(b) for b in buckets])
+    res = (ctypes.c_int * n_levels)(*[int(r or 0) for r in dense_res])
+    scl = (ctypes.c_float * n_levels)(*[float(s) for s in scales])
+    as_p = lambda arr: ctypes.cast(arr, ctypes.c_void_p)
+    global hash_grid_launches
+    with torch.cuda.device(positions.device):
+        err = lib.hash_grid_fwd(
+            positions.data_ptr(), None if stds is None else stds.data_ptr(), as_p(ptrs), as_p(n_buckets), as_p(res),
+            as_p(scl), out.data_ptr(), n, n_levels, d, f, int(read_bf16), int(cell_packed),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"hash_grid_fwd failed with CUDA error {err}")
+    hash_grid_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's functional interface
+# ---------------------------------------------------------------------------
+
+
+def gaussian_level_weights(std: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Per-level downweighting by gaussian std: 1 / clamp(res * 2 * std, 1, inf).
+    std [..., 1], scales [L] -> [..., L]."""
+    return 1.0 / torch.clamp_min(std * (2.0 * scales), 1.0)
+
+
+def _encode(positions, stds, table, scales, table_size, gather_dtype, cell_packed, dense_res, bucket_pack):
+    scales = [float(s) for s in np.asarray(scales, dtype=np.float32)]
+    num_levels = len(scales)
+    d = positions.shape[-1]
+    n_corners = 2**d
+    multi = isinstance(table, (tuple, list, torch.nn.ParameterList))
+    if bucket_pack is None:
+        bucket_pack = (1,) * num_levels
+    if dense_res is None:
+        dense_res = (None,) * num_levels
+    if multi:
+        tables = list(table)
+        f_row = tables[0].shape[-1] // bucket_pack[0]
+        buckets = [t.shape[0] * pk for t, pk in zip(tables, bucket_pack)]
+    else:
+        if any(r is not None for r in dense_res) or any(pk != 1 for pk in bucket_pack):
+            raise ValueError("dense levels and bucket packing need per-level tables")
+        tables = [table[l * table_size : (l + 1) * table_size] for l in range(num_levels)]
+        f_row = table.shape[-1]
+        buckets = [table_size] * num_levels
+    f = f_row // (n_corners if cell_packed else 1)
+    flat = positions.reshape(-1, d)
+    out = hash_grid_encode(
+        flat, None if stds is None else stds.reshape(-1), tables, scales, buckets, dense_res, f,
+        read_bf16=gather_dtype is not None, cell_packed=cell_packed,
+    )
+    return out.reshape(positions.shape[:-1] + (num_levels * f,)), f
+
+
+def hash_encode(
+    positions: torch.Tensor,
+    table,
+    scales,
+    table_size: int = 0,
+    level_weights: Optional[torch.Tensor] = None,
+    gather_dtype: Optional[torch.dtype] = torch.bfloat16,
+    cell_packed: bool = False,
+    dense_res: Optional[Tuple[Optional[int], ...]] = None,
+    bucket_pack: Optional[Tuple[int, ...]] = None,
+) -> torch.Tensor:
+    """Multi-level hash lookup with D-linear interpolation.
+
+    positions [..., D] in [0, 1]^D (D = 3 or 4); table: a sequence of per-level
+    [rows_l, F_row] tables or the legacy [num_levels * table_size, F] array;
+    scales [L]; level_weights: optional [..., L] per-level downweighting,
+    applied after the lookup; gather_dtype: torch.bfloat16 (reads and
+    interpolation in bf16) or None (fp32). Returns [..., L * F] fp32."""
+    if gather_dtype not in (None, torch.bfloat16):
+        raise ValueError("gather_dtype is torch.bfloat16 or None")
+    out, f = _encode(positions, None, table, scales, table_size, gather_dtype, cell_packed, dense_res, bucket_pack)
+    if level_weights is not None:
+        out = out * torch.repeat_interleave(level_weights, f, dim=-1)
+    return out
+
+
+def hash_encode_gaussians(
+    gauss_mean: torch.Tensor,
+    gauss_std: torch.Tensor,
+    table,
+    scales,
+    table_size: int = 0,
+    cell_packed: bool = False,
+    dense_res: Optional[Tuple[Optional[int], ...]] = None,
+    bucket_pack: Optional[Tuple[int, ...]] = None,
+    gather_dtype: Optional[torch.dtype] = torch.bfloat16,
+) -> torch.Tensor:
+    """Encode multisampled gaussians, weight each level by the gaussian's std
+    (inside the lookup) and average over the multisamples: gauss_mean
+    [..., M, D], gauss_std [..., M, 1] -> [..., L * F]."""
+    if gather_dtype not in (None, torch.bfloat16):
+        raise ValueError("gather_dtype is torch.bfloat16 or None")
+    feats, _ = _encode(gauss_mean, gauss_std, table, scales, table_size, gather_dtype, cell_packed, dense_res,
+                       bucket_pack)
+    if feats.shape[-2] == 1:  # the mean of one multisample is that multisample
+        return feats[..., 0, :]
+    return feats.mean(dim=-2)

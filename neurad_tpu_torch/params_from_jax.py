@@ -73,3 +73,78 @@ def splatad_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     for name, value in p.get("camera_velocity_optimizer", {}).items():
         sd[f"camera_velocity_optimizer.{name}"] = _t(value)
     return sd
+
+
+def _conv_transpose(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ConvTranspose [kh, kw, in, out] (its default, `transpose_kernel=False`,
+    correlates the dilated input with the kernel as stored) -> torch
+    ConvTranspose2d [in, out, kh, kw], which scatters the kernel as stored: the
+    same taps in the opposite spatial order, so the kernel is flipped."""
+    kernel = _t(p["kernel"]).flip(0, 1).permute(2, 3, 0, 1).contiguous()
+    return {f"{prefix}.weight": kernel, f"{prefix}.bias": _t(p["bias"])}
+
+
+def mlp_from_flax(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, layer in p.items():
+        out.update(_dense(f"{prefix}.{name}", layer))
+    return out
+
+
+def hash_tables_from_flax(prefix: str, p: Mapping, like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """flax params of a `NeuRADHashEncoding` -> the port's, under `prefix`. The JAX package stores each level's table as a 1-D leaf; the port's
+    parameter of the same level gives the physical [rows, width] shape."""
+    out = {}
+    for name in ("static_hash_table", "actor_hash_table"):
+        for i, leaf in enumerate(p[name]):
+            key = f"{prefix}.{name}.{i}"
+            out[key] = _t(leaf).reshape(like[key].shape)
+    return out
+
+
+def neurad_decoder_from_flax(prefix: str, dec: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params of `RGBDecoderCNN` -> the port's, under `prefix`. Flax names
+    the 1x1 stem Conv_0 and the 1x1 head Conv_1 (creation order)."""
+    sd = _conv(f"{prefix}.stem", dec["Conv_0"])
+    sd.update(_conv(f"{prefix}.head", dec["Conv_1"]))
+    sd.update(_conv_transpose(f"{prefix}.upsample", dec["ConvTranspose_0"]))
+    blocks = sorted((k for k in dec if k.startswith("BasicBlock_")), key=lambda k: int(k.split("_")[1]))
+    for i, name in enumerate(blocks):
+        sd.update(_basic_block(f"{prefix}.blocks.{i}", dec[name]))
+    return sd
+
+
+def neurad_params_from_flax(tree: Mapping, like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """flax params of `neurad_tpu.models.neurad.NeuRADModel` (the dict under or
+    including the "params" key, leaves as numpy arrays) -> state dict of the
+    port's NeuRADModel. `like` is the target model's own state dict: it gives
+    the 2-D shapes of the hash tables, which the JAX package keeps as 1-D
+    leaves."""
+    p = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {}
+    for name, value in p.get("actors", {}).items():  # absent in a scene without actors
+        sd[f"actors.{name}"] = _t(value)
+    if "appearance_embedding" in p:
+        sd["appearance_embedding.weight"] = _t(p["appearance_embedding"]["embedding"])
+
+    field = p["field"]
+    sd.update(hash_tables_from_flax("field.hashgrid", field["hashgrid"], like))
+    sd.update(mlp_from_flax("field.mlp_geo", field["mlp_geo"]))
+    sd.update(mlp_from_flax("field.mlp_feature", field["mlp_feature"]))
+    if "sdf_to_alpha" in field:
+        sd["field.sdf_to_alpha.beta"] = _t(field["sdf_to_alpha"]["beta"])
+
+    props = sorted((k for k in p if k.startswith("proposal_field_")), key=lambda k: int(k.rsplit("_", 1)[1]))
+    for i, name in enumerate(props):
+        prop, prefix = p[name], f"proposal_fields.{i}"
+        sd[f"{prefix}.density_decoder.weight"] = _t(prop["density_decoder"]["kernel"]).T.contiguous()
+        if "mlp" in prop:
+            sd.update(mlp_from_flax(f"{prefix}.mlp", prop["mlp"]))
+        else:
+            sd.update(hash_tables_from_flax(f"{prefix}.hashgrid", prop["hashgrid"], like))
+
+    sd.update(neurad_decoder_from_flax("rgb_decoder", p["rgb_decoder"]))
+    sd.update(mlp_from_flax("lidar_decoder", p["lidar_decoder"]))
+    for name, value in p.get("camera_optimizer", {}).items():
+        sd[f"camera_optimizer.{name}"] = _t(value)
+    return sd

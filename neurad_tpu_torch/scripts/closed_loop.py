@@ -8,14 +8,17 @@ http.server (threaded; renders run under a lock):
   POST /update_actors  {actors: [...]} -> swap trajectories live
   GET  /start_time     -> {start_time: float}
 
-`ClosedLoopState` serves a pipeline and, optionally, a state dict for its
-model (for example one bridged from JAX params by `params_from_jax`);
-`ClosedLoopState.from_run_dir` rebuilds the pipeline of a training run
+`ClosedLoopState` serves a pipeline (a `SplatADPipeline` or an `ADPipeline`
+with a NeuRAD model) and, optionally, a state dict for its model (for example
+one bridged from JAX params by `params_from_jax`);
+`ClosedLoopState.from_run_dir` rebuilds the pipeline of a SplatAD training run
 (`scripts/train.py`) and loads its newest checkpoint.
 
-    python -m neurad_tpu_torch.scripts.closed_loop --port 8000 [--load-dir outputs/<run>] [--state-dict model.pt] [--device cuda]
+    python -m neurad_tpu_torch.scripts.closed_loop --port 8000 [--method splatad|neurad|neurad-tiny]
+        [--load-dir outputs/<run>] [--state-dict model.pt] [--seed 0] [--device cuda]
 
-serves the run's scene, or the synthetic scene without `--load-dir`.
+serves the run's scene, or the synthetic scene without `--load-dir`. A NeuRAD
+state is built from `--seed` (there are no NeuRAD training runs to load yet).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import json
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -33,13 +36,14 @@ import torch
 from neurad_tpu_torch import resolve_device
 from neurad_tpu_torch.core import poses as pose_utils
 from neurad_tpu_torch.model_components.dynamic_actors import actor_data_from_trajectories
+from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline
 
 
 class ClosedLoopState:
     """Holds the pipeline + live-editable actor trajectories."""
 
-    def __init__(self, pipeline: SplatADPipeline, state_dict: Optional[dict] = None, device="cuda"):
+    def __init__(self, pipeline: Union[SplatADPipeline, ADPipeline], state_dict: Optional[dict] = None, device="cuda"):
         dev = resolve_device(device)
         if pipeline.device != dev:
             raise ValueError(f"pipeline lives on {pipeline.device}, the server was asked for {dev}")
@@ -157,25 +161,66 @@ def make_handler(cls_state: ClosedLoopState):
     return Handler
 
 
-def entrypoint(argv=None):
+def neurad_tiny_overrides() -> dict:
+    """Model overrides of the JAX package's `neurad-tiny` preset (CPU smoke widths)."""
+    from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
+    from neurad_tpu_torch.models.neurad import SamplingSettings
+
+    proposal = StaticSettings(num_levels=2, base_res=16, max_res=128, log2_hashmap_size=11, hashgrid_dim=1)
+    return dict(
+        sampling=SamplingSettings(num_proposal_samples=(12, 8), num_nerf_samples=6, sky_distance=1000.0),
+        field_static=StaticSettings(num_levels=4, base_res=16, max_res=256, log2_hashmap_size=13, hashgrid_dim=4),
+        field_actor=ActorSettings(num_levels=2, base_res=16, max_res=64, log2_hashmap_size=11, hashgrid_dim=4),
+        proposal_static=(proposal, proposal),
+        proposal_actor=ActorSettings(num_levels=2, base_res=16, max_res=64, log2_hashmap_size=9, hashgrid_dim=1),
+        appearance_dim=4,
+        max_actors_per_ray=1,
+    )
+
+
+def build_state(method: str = "splatad", device="cuda", seed: int = 0, outputs=None) -> ClosedLoopState:
+    """A server state on the synthetic scene (or `outputs`) with a model drawn
+    from `seed`: method "splatad", "neurad" (the preset's full width) or
+    "neurad-tiny"."""
     from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
 
+    device = resolve_device(device)
+    if outputs is None:
+        outputs = SyntheticDataParserConfig().setup().get_dataparser_outputs()
+    if method == "splatad":
+        pipeline = SplatADPipeline(outputs, device=device)
+    elif method in ("neurad", "neurad-tiny"):
+        overrides = neurad_tiny_overrides() if method == "neurad-tiny" else {}
+        pipeline = ADPipeline(outputs, ADPipelineConfig(model_overrides=overrides, seed=seed), device=device)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return ClosedLoopState(pipeline, device=device)
+
+
+def state_from_args(argv=None):
+    """(the server state the command line asks for, the port to serve it on)."""
     parser = argparse.ArgumentParser(description="Closed-loop render server (synthetic scene)")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--state-dict", default=None, help="torch.save'd state dict for the SplatAD model")
+    parser.add_argument("--method", default="splatad", choices=("splatad", "neurad", "neurad-tiny"))
+    parser.add_argument("--seed", type=int, default=0, help="seed of a NeuRAD state's weights")
+    parser.add_argument("--state-dict", default=None, help="torch.save'd state dict for the model")
     parser.add_argument("--load-dir", default=None, help="run directory of scripts/train.py to serve")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if args.load_dir:
         state = ClosedLoopState.from_run_dir(args.load_dir, device=device)
     else:
-        outputs = SyntheticDataParserConfig().setup().get_dataparser_outputs()
-        state = ClosedLoopState(SplatADPipeline(outputs, device=device), device=device)
+        state = build_state(args.method, device=device, seed=args.seed)
     if args.state_dict:
         state.pipeline.model.load_state_dict(torch.load(args.state_dict, map_location=device))
-    server = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(state))
-    print(f"[closed-loop] serving on :{args.port}")
+    return state, args.port
+
+
+def entrypoint(argv=None):
+    state, port = state_from_args(argv)
+    server = ThreadingHTTPServer(("0.0.0.0", port), make_handler(state))
+    print(f"[closed-loop] serving on :{server.server_address[1]}")
     try:
         server.serve_forever()
     finally:

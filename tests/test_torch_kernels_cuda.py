@@ -147,3 +147,121 @@ def test_lidar_bwd_kernel_matches_plain(cuda, c, k, wrap):
     torch.cuda.synchronize()
     assert (TC.lidar_launches, TC.lidar_bwd_launches) == (before[0] + 1, before[1] + 1)
     _assert_columns_close(got, lambda **kw: TC.tile_composite_lidar_bwd_plain(*args, wrap, 0.4, *cots, **kw))
+
+
+# ---------------------------------------------------------------------------
+# hash-grid lookup (K1 forward) and the gather probes (P1, P2, P5): gathers and
+# fixed-order sums without atomics, so the kernels are held to the plain
+# versions bit for bit, in the fp32 and the bf16 read mode alike.
+# ---------------------------------------------------------------------------
+
+from neurad_tpu_torch.benchmarks import gather_microbench as GM  # noqa: E402
+from neurad_tpu_torch.ops import hash_encoding as HE  # noqa: E402
+
+
+def _grid(d, f, cell_packed, force_hash, seed, levels=4, max_rows=2**12):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scales = HE.level_scales(levels, 4, 96 if d == 3 else 24)
+    _, dense, packs = HE.level_layout(scales, d, max_rows, cell_packed, force_hash)
+    tables = HE.init_hash_tables(gen, scales, d, max_rows, f, scale=1.0, cell_packed=cell_packed,
+                                 force_hash=force_hash)
+    return scales, dense, packs, tables, gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 4])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("cell_packed", [True, False])
+@pytest.mark.parametrize("read_bf16", [True, False])
+def test_hash_grid_kernel_equals_plain(cuda, d, f, cell_packed, read_bf16):
+    scales, dense, packs, tables, gen = _grid(d, f, cell_packed, False, seed=d * 10 + f)
+    assert any(r is not None for r in dense) and any(r is None for r in dense), "dense and hashed levels"
+    n = 5000
+    pos = torch.rand((n, d), generator=gen, device="cuda")
+    pos[:64] = torch.round(pos[:64] * 8) / 8  # on cell faces of the coarse levels
+    pos[64:72] = torch.tensor([0.0, 1.0] * 4, device="cuda")[:, None]  # the box's faces
+    std = torch.rand((n,), generator=gen, device="cuda") * 0.05
+    buckets = [t.shape[0] * pk for t, pk in zip(tables, packs)]
+    args = (tables, [float(s) for s in scales], buckets, dense, f, read_bf16, cell_packed)
+    for stds in (std, None):
+        before = HE.hash_grid_launches
+        got = HE.hash_grid_encode(pos, stds, *args)
+        torch.cuda.synchronize()
+        assert HE.hash_grid_launches == before + 1
+        want = HE.hash_grid_encode_plain(pos, stds, *args)
+        assert got.shape == want.shape == (n, len(tables) * f)
+        assert bool(want.abs().max() > 0)
+        assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_hash_grid_kernel_bucket_packing_and_legacy_array(cuda):
+    # a level above 2^18 buckets is stored two buckets a row; the lookup addresses the logical bucket
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scales = np.array([16.0, 300.0], np.float32)
+    _, dense, packs = HE.level_layout(scales, 3, 2**19, True)
+    assert packs == (1, 2) and dense == (17, None)
+    tables = HE.init_hash_tables(gen, scales, 3, 2**19, 4, scale=1.0, cell_packed=True)
+    assert tables[1].shape == (2**18, 64)
+    pos = torch.rand((4096, 1, 3), generator=gen, device="cuda")
+    std = torch.full((4096, 1, 1), 0.002, device="cuda")
+    got = HE.hash_encode_gaussians(pos, std, tables, scales, cell_packed=True, dense_res=dense, bucket_pack=packs)
+    want = HE.hash_grid_encode_plain(pos.reshape(-1, 3), std.reshape(-1), tables, [16.0, 300.0], [17**3, 2**19], dense,
+                                     4, True, True)
+    assert torch.equal(got, want)
+    # the legacy layout: one array for all levels, hashed, a row per corner
+    table = HE.init_hash_table(gen, 3, 1024, 2, scale=1.0)
+    scales = HE.level_scales(3, 8, 64)
+    got = HE.hash_encode(pos[:, 0], table, scales, table_size=1024, gather_dtype=None)
+    want = HE.hash_grid_encode_plain(pos[:, 0], None, [table[i * 1024:(i + 1) * 1024] for i in range(3)],
+                                     [float(s) for s in scales], [1024] * 3, [None] * 3, 2, False, False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_hash_grid_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    scales, dense, packs, tables, gen = _grid(3, 4, True, False, seed=1)
+    buckets = [t.shape[0] * pk for t, pk in zip(tables, packs)]
+    args = ([float(s) for s in scales], buckets, dense, 4, True, True)
+    pos = torch.rand((16, 3), device="cuda")
+    with pytest.raises(ValueError, match="device"):
+        HE.hash_grid_encode(pos, None, [t.cpu() for t in tables], *args)
+    with pytest.raises(ValueError, match="float32"):
+        HE.hash_grid_encode(pos.double(), None, tables, *args)
+    leaf = [t.clone().requires_grad_(True) for t in tables]
+    with pytest.raises(NotImplementedError, match="backward"):
+        HE.hash_grid_encode(pos, None, leaf, *args)
+    with torch.no_grad():
+        assert HE.hash_grid_encode(pos, None, leaf, *args).shape == (16, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_rows,f", [(4096, 8), (4096, 16), (8192, 32), (1000, 32)])
+@pytest.mark.parametrize("n", [1, 200, 4099])
+def test_gather_probes_equal_plain(cuda, t_rows, f, n):
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    table = torch.randn((t_rows, f), generator=gen, device="cuda").to(torch.bfloat16)
+    idx = torch.randint(0, t_rows, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    idx[0] = t_rows - 1
+    want = GM.gather_rows_plain(table, idx)
+    before = (GM.coalesced_launches, GM.onehot_launches, GM.serial_launches)
+    assert torch.equal(GM.gather_rows_coalesced(table, idx), want)
+    assert torch.equal(GM.gather_rows_serial(table, idx), want)
+    onehot = GM.gather_rows_onehot(table, idx)
+    torch.cuda.synchronize()
+    assert onehot.dtype == torch.float32 and torch.equal(onehot, want.float())
+    assert (GM.coalesced_launches, GM.onehot_launches, GM.serial_launches) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_gather_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    table = torch.zeros((64, 8), dtype=torch.bfloat16, device="cuda")
+    idx = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        GM.gather_rows_coalesced(table.float(), idx)
+    with pytest.raises(ValueError, match="int32"):
+        GM.gather_rows_serial(table, idx.long())
+    with pytest.raises(ValueError, match="device"):
+        GM.gather_rows_onehot(table, idx.cpu())
+    with pytest.raises(ValueError, match="16 bytes"):
+        GM.gather_rows_coalesced(torch.zeros((64, 4), dtype=torch.bfloat16, device="cuda"), idx)

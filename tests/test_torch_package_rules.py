@@ -30,6 +30,13 @@ def test_importing_every_module_loads_no_jax():
     assert "neurad_tpu_torch.scripts.closed_loop" in mods and "neurad_tpu_torch.ops.tile_composite" in mods
     assert {"neurad_tpu_torch.engine.optimizers", "neurad_tpu_torch.scripts.train",
             "neurad_tpu_torch.model_components.strategy"} <= set(mods)
+    assert {"neurad_tpu_torch.ops.hash_encoding", "neurad_tpu_torch.ops.rendering",
+            "neurad_tpu_torch.ops.spherical_harmonics", "neurad_tpu_torch.core.structs",
+            "neurad_tpu_torch.core.math_utils", "neurad_tpu_torch.fields.activations",
+            "neurad_tpu_torch.fields.spatial_distortions", "neurad_tpu_torch.fields.neurad_encoding",
+            "neurad_tpu_torch.fields.neurad_field", "neurad_tpu_torch.model_components.ray_samplers",
+            "neurad_tpu_torch.models.neurad", "neurad_tpu_torch.data.datamanager",
+            "neurad_tpu_torch.pipelines.ad_pipeline", "neurad_tpu_torch.benchmarks.gather_microbench"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -50,7 +57,7 @@ def test_no_source_file_imports_jax():
     static = re.compile(r"^\s*(?:import|from)\s+(\w+)", re.MULTILINE)
     dynamic = re.compile(r"(?:import_module|__import__)\(\s*[\"'](\w+)")
     paths = list(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
-    assert len(paths) > 30
+    assert len(paths) > 45 and PKG / "benchmarks" / "gather_microbench.py" in paths
     for path in paths:
         text = path.read_text()
         roots = set(static.findall(text)) | set(dynamic.findall(text))
@@ -91,3 +98,38 @@ def test_train_and_run_dir_entry_points_need_cuda_unless_asked_for_cpu(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         closed_loop.entrypoint(["--port", "0", "--load-dir", str(tmp_path / "r")])
     assert closed_loop.ClosedLoopState.from_run_dir(tmp_path / "r", device="cpu").pipeline.device.type == "cpu"
+
+
+def test_neurad_entry_points_need_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    from neurad_tpu_torch.benchmarks import gather_microbench
+    from neurad_tpu_torch.data.datamanager import ADDataManager
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
+
+    outputs = SyntheticDataParserConfig(num_frames=2, image_height=12, image_width=18, lidar_channels=4,
+                                        lidar_azimuths=12).setup().get_dataparser_outputs()
+    cfg = ADPipelineConfig(model_overrides=closed_loop.neurad_tiny_overrides())
+    for refused in (lambda: ADPipeline(outputs, cfg), lambda: ADDataManager(outputs),
+                    lambda: closed_loop.build_state("neurad-tiny", outputs=outputs),
+                    lambda: closed_loop.entrypoint(["--port", "0", "--method", "neurad-tiny"]),
+                    lambda: gather_microbench.run(queries=8), lambda: gather_microbench.entrypoint(["--queries", "8"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            refused()
+    pipeline = ADPipeline(outputs, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        closed_loop.ClosedLoopState(pipeline)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ADPipeline(outputs, ADPipelineConfig(model="nerfacto"), device="cpu")
+    state, port = closed_loop.state_from_args(["--port", "0", "--method", "neurad-tiny", "--device", "cpu", "--seed", "3"])
+    assert port == 0
+    assert state.pipeline.device.type == "cpu" and state.pipeline.config.seed == 3
+    image = state.render_image(torch.eye(4).tolist(), 0.5, "front_camera")
+    assert image.shape == (48, 72, 3)
+    # the seed decides the weights
+    again = closed_loop.build_state("neurad-tiny", device="cpu", seed=3).pipeline.model.state_dict()
+    other = closed_loop.build_state("neurad-tiny", device="cpu", seed=4).pipeline.model.state_dict()
+    mine = state.pipeline.model.state_dict()
+    assert all(torch.equal(mine[k], again[k]) for k in mine)
+    assert any(not torch.equal(mine[k], other[k]) for k in mine if "hash_table" in k)
+    assert not any(k.count("actors.") > 1 or ".hashgrid.actors." in k for k in mine), "actors are registered once"
