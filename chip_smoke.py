@@ -15,9 +15,10 @@
    that phase meets the card as it always did: the hash-grid lookup at the
    NeuRAD field's full width (static grid: N=1,048,576 samples, 8 levels, D=3, 4 features,
    the preset's tables, bf16 and fp32 reads; actor grid: N=131,072, D=4, 4
-   levels) must equal its plain version bit for bit. The three gather probes
-   run through their own entry point at every table shape against table[idx]
-   (bit for bit) beside torch.index_select.
+   levels) must equal its plain version bit for bit. The six gather and
+   scatter-add probes run through their own entry point at every table shape
+   against table[idx] (bit for bit) and index_add_ (1e-5 of the terms'
+   magnitude), beside torch.index_select and index_add_.
 3. Serving phase: builds the SplatAD pipeline on the synthetic scene at
    1920x1080 with 500,000 gaussians and a 64x1024-beam lidar, starts the
    closed-loop HTTP server on localhost, answers two /render_image requests at
@@ -26,7 +27,7 @@
    every request one) and the lidar scan three times, checks the
    outputs and that both forward kernels were launched on that path, then
    renders one more request under torch.profiler (device time by kernel).
-4. Train phase: trains SplatAD through `SplatADPipeline.init_state`,
+4. Train phase (run after the NeuRAD phases): trains SplatAD through `SplatADPipeline.init_state`,
    `datamanager.next_train` and `train_step` on the same scene at full
    resolution (`num_downscales=0`), at least three camera and three lidar
    steps with MCMC refines among them, checks the losses, that every parameter
@@ -41,12 +42,21 @@
    1920x1080 camera requests (cold and warm timed apart) and /update_actors,
    the pipeline renders the 64x1024-beam scan twice, one warm request runs
    under torch.profiler; the lookup kernel must launch twice per chunk of
-   32,768 rays.
-6. Checks the card's renders (SplatAD and NeuRAD) and one SplatAD train step's
-   gradients against the CPU path on small scenes.
+   32,768 rays. Before it, the lookup's backward (K1b) at a train chunk's full
+   width (static grid: 8,192 rays x 32 samples from the scene's cameras, bf16
+   and fp32 reads; actor grid: N=32,768, D=4; the unpacked layout of
+   `neurad-parity`) is held against its plain version, and the probe run
+   includes the three scatter-add probes beside index_add_.
+6. NeuRAD train phase: the `neurad` preset at full width (57,344 rays a batch
+   in 7 chunks of 8,192, VGG on, five Adam groups), livened weights, 5 steps
+   through `ADPipeline.train_step` (K1f and K1b twice a chunk), 4 more through
+   the train script's loop with the preset's sampler threads, one profiled
+   step, a checkpoint and a 1080p request served from it.
+7. Checks the card's renders (SplatAD and NeuRAD) and one train step's
+   gradients of each model against the CPU path on small scenes.
 
-Prints the card's name and power limit, one JSON line with every kernel's
-numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
+Prints the card's name and power limit, one JSON line with the twelve
+kernels' numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -81,6 +91,11 @@ DEVICE = "cuda"
 NEURAD_CHUNK = 1 << 15  # rays per chunk of a NeuRAD render (ADPipelineConfig.eval_chunk)
 NEURAD_SAMPLES = 32  # field samples per ray
 HASH_KERNEL = "hash_grid_fwd_kernel"
+HASH_BWD_KERNEL = "hash_grid_bwd_kernel"
+NEURAD_TRAIN_STEPS = 5  # the first apart, then the warm ones
+NEURAD_LOOP_STEPS = 4  # then through the train script's loop and sampler threads, the first apart
+K1B_RAYS = 8192  # one train chunk (ADPipelineConfig.train_ray_chunk) of the `neurad` preset ...
+K1B_SAMPLES = 32  # ... times its field samples: the static lookup's N in a train step
 REPORT = {}
 
 
@@ -434,21 +449,143 @@ def hash_grid_phase(rng):
     return results
 
 
+def _train_chunk_gaussians(outputs, gen):
+    """The static field's lookup inputs in one train chunk: K1B_RAYS rays
+    through random pixels of the scene's cameras, K1B_SAMPLES samples each
+    spread over 1-80 m, contracted into the grid's [0, 1]^3 with their cone
+    radii as stds -> (positions [N, 3], stds [N])."""
+    import math
+
+    import torch
+
+    from neurad_tpu_torch.cameras.cameras import generate_rays
+    from neurad_tpu_torch.core.structs import GaussiansStd
+    from neurad_tpu_torch.fields.spatial_distortions import scaled_scene_contraction_gaussian
+
+    n = K1B_RAYS
+    hw = torch.tensor([HEIGHT, WIDTH], dtype=torch.float32, device=DEVICE)
+    idx = torch.randint(0, len(outputs.images), (n,), generator=gen, device=DEVICE)
+    bundle = generate_rays(outputs.cameras, idx, torch.rand((n, 2), generator=gen, device=DEVICE) * hw)
+    t = torch.exp(torch.rand((n, K1B_SAMPLES), generator=gen, device=DEVICE) * math.log(80.0)).sort(dim=-1).values
+    mean = bundle.origins[:, None, :] + bundle.directions[:, None, :] * t[..., None]
+    std = torch.sqrt(bundle.pixel_area * 9.0) * t  # a camera ray covers upsample^2 = 9 pixels
+    scale = float(outputs.scene_box.aabb.abs().max())
+    g = scaled_scene_contraction_gaussian(GaussiansStd(mean=mean.reshape(-1, 1, 3), std=std.reshape(-1, 1, 1)), scale)
+    return g.mean.reshape(-1, 3).contiguous(), g.std.reshape(-1).contiguous()
+
+
+def _hash_grid_bwd_case(label, settings, d, pos, std, gen, results, modes=(True, False)):
+    """K1b at one full-width lookup: the grid of `settings` with random O(1)
+    tables, the given positions and stds, a random output gradient; kernel
+    against the plain backward per entry (BWD_TOL of the sum of the absolute
+    values of the entry's terms), two launches against each other, times, the
+    zero-fill of the table gradient apart, and the bound."""
+    import torch
+
+    from neurad_tpu_torch.fields.neurad_encoding import HashGrid
+    from neurad_tpu_torch.ops import hash_encoding as HE
+
+    grid = HashGrid(settings, d)
+    tables = HE.init_hash_tables(gen, grid.scales, d, grid.table_size, grid.features, scale=1.0,
+                                 cell_packed=grid.cell_packed, force_hash=grid.force_hash)
+    scales = [float(s) for s in grid.scales]
+    buckets = [t.shape[0] * pk for t, pk in zip(tables, grid.pack)]
+    n, f, n_levels = pos.shape[0], grid.features, len(tables)
+    g = torch.randn((n, n_levels * f), generator=gen, device=DEVICE)
+    c = 2**d
+    row_bytes = (c if grid.cell_packed else 1) * f * 4
+    touched = sum(int(torch.unique(HE.level_index(pos, s, b, r, grid.cell_packed)[0]).numel())
+                  for s, b, r in zip(scales, buckets, grid.dense_res))
+    table_bytes = sum(t.numel() for t in tables) * 4
+    # inputs read once (positions, stds, g, the rows the position gradient needs), outputs written once (the
+    # dense table gradient, positions' and stds' gradients)
+    bytes_moved = 2 * (pos.numel() + std.numel()) * 4 + g.numel() * 4 + touched * row_bytes + table_bytes
+    ops = n * n_levels * (c * (2 * d + 4 * f) + 2 * d * c + 20)
+    bound_ms, bound_by = _bound(bytes_moved, ops)
+    log(f"[k1b] {label}: N={n} L={n_levels} D={d} F={f} cell_packed={grid.cell_packed}, tables "
+        f"{table_bytes / 2**20:.0f} MiB, {touched} distinct rows read for the position gradient")
+    for read_bf16 in modes:
+        layout = (scales, buckets, grid.dense_res, f, read_bf16, grid.cell_packed)
+        before = HE.hash_grid_bwd_launches
+        got = HE.hash_grid_encode_bwd(pos, std, tables, *layout, g)
+        again = HE.hash_grid_encode_bwd(pos, std, tables, *layout, g)
+        _sync()
+        require(DEVICE == "cpu" or HE.hash_grid_bwd_launches == before + 2, f"{label}: the wrapper launched K1b")
+        want = HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g)
+        mag = HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g, magnitude=True)
+        errs, runs, abs_err = [], [], 0.0
+        for a, b, w, m in zip(list(got[0]) + [got[1], got[2]], list(again[0]) + [again[1], again[2]],
+                              list(want[0]) + [want[1], want[2]], list(mag[0]) + [mag[1], mag[2]]):
+            errs.append(float(((a - w).abs() / (m + 1e-30)).max()))
+            runs.append(float(((a - b).abs() / (m + 1e-30)).max()))
+            abs_err = max(abs_err, float((a - w).abs().max()))
+        err, run_diff = max(errs), max(runs)
+        mode = "bf16" if read_bf16 else "fp32"
+        require(all(bool(torch.isfinite(t).all()) for t in list(got[0]) + [got[1], got[2]]), f"{label}: finite")
+        require(float(got[1].abs().max()) > 0 and all(float(t.abs().max()) > 0 for t in got[0]),
+                f"{label}: non-trivial gradients")
+        require(err <= BWD_TOL, f"{label} ({mode}): K1b matches the plain backward to {BWD_TOL:g} of the terms' "
+                                f"magnitude (got {err:.3e})")
+        ms = cuda_time_ms(lambda: HE.hash_grid_encode_bwd(pos, std, tables, *layout, g))
+        zero_ms = cuda_time_ms(lambda: [torch.zeros_like(t) for t in tables])
+        plain_ms = cuda_time_ms(lambda: HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g), warmup=1, reps=3)
+        key = f"{label}_{mode}"
+        results[key] = dict(max_abs_err=abs_err, max_rel_err=err, run_to_run=run_diff, ms=ms, zero_fill_ms=zero_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, n=n, levels=n_levels,
+                            bytes=bytes_moved, ops=ops, distinct_rows=touched, table_mib=table_bytes / 2**20)
+        log(f"[k1b] {key}: error {err:.2e} of the terms' magnitude (two launches differ by {run_diff:.2e}); "
+            f"K1b with its zero-filled gradient {ms:.4f} ms (the zero-fill alone {zero_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {bytes_moved:.3e} bytes, {ops:.3e} ops)")
+        del got, again, want, mag
+
+
+def hash_grid_bwd_phase(outputs, rng):
+    """K1b at a train chunk's full width: the `neurad` preset's static grid on
+    positions from the scene's cameras (bf16 and fp32 reads), its actor grid
+    (N = the compacted lookup's capacity, D = 4), and the unpacked layout of
+    `neurad-parity` (fp32 reads)."""
+    import torch
+
+    from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
+
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    pos, std = _train_chunk_gaussians(outputs, gen)
+    require(bool(((pos >= 0) & (pos <= 1)).all()), "contracted positions lie in [0, 1]^3")
+    results = {}
+    _hash_grid_bwd_case("hash_grid_bwd_static", StaticSettings(), 3, pos, std, gen, results)
+    n_actor = pos.shape[0] // 8
+    pos4 = torch.cat([0.35 + 0.3 * torch.rand((n_actor, 3), generator=gen, device=DEVICE),
+                      torch.zeros((n_actor, 1), device=DEVICE)], dim=-1)  # inside an actor's box, actor 0
+    _hash_grid_bwd_case("hash_grid_bwd_actor", ActorSettings(flip_prob=0.25), 4, pos4, std[:n_actor].contiguous(),
+                        gen, results)
+    _hash_grid_bwd_case("hash_grid_bwd_unpacked", StaticSettings(cell_packed=False, parity=True), 3, pos, std, gen,
+                        results, modes=(False,))
+    return results
+
+
 def probe_phase():
-    """The gather probes through their own entry point: every table shape,
-    each kernel against table[idx] (the run raises on any difference), times
-    beside torch.index_select. The counts are read around this one run."""
+    """The gather and scatter-add probes through their own entry point: every
+    table shape, each kernel against its plain version (the run raises on any
+    difference beyond the scatter-adds' SCATTER_TOL), times beside
+    torch.index_select and index_add_. The counts are read around this one run."""
     from neurad_tpu_torch.benchmarks import gather_microbench as GM
 
     GM.reset_launch_counts()
     records = GM.entrypoint(["--device", DEVICE])
-    launches = {"coalesced": GM.coalesced_launches, "onehot": GM.onehot_launches, "serial": GM.serial_launches}
+    launches = {"coalesced": GM.coalesced_launches, "onehot": GM.onehot_launches, "serial": GM.serial_launches,
+                "scatter_onehot": GM.scatter_onehot_launches, "scatter_blocked": GM.scatter_blocked_launches,
+                "scatter_serial": GM.scatter_serial_launches}
     log(f"[gather] kernel launches in the run: {launches}")
-    require(all(r["max_abs_err"] == 0.0 for r in records), "every probe equals table[idx]")
-    require({(r["name"], r["T"], r["F"]) for r in records} >= {(n, t, f) for t, f in GM.TABLE_SHAPES
-                                                                 for n in ("coalesced", "serial")},
-            "the copies ran at every table shape")
-    require(sum(r["name"] == "onehot" for r in records) == 3, "the one-hot product ran at the three shapes up to 131072 rows")
+    gathers = [r for r in records if not r["name"].startswith("scatter_")]
+    scatters = [r for r in records if r["name"].startswith("scatter_")]
+    require(all(r["max_abs_err"] == 0.0 for r in gathers), "every gather probe equals table[idx]")
+    require(all(r["max_rel_err"] <= GM.SCATTER_TOL for r in scatters), "every scatter-add probe matches index_add_")
+    names = {(r["name"], r["T"], r["F"]) for r in records}
+    require(names >= {(n, t, f) for t, f in GM.TABLE_SHAPES
+                      for n in ("coalesced", "serial", "scatter_blocked", "scatter_serial")},
+            "the copies and the atomic scatter-adds ran at every table shape")
+    require(sum(r["name"] == "onehot" for r in records) == 3 and sum(r["name"] == "scatter_onehot" for r in records) == 3,
+            "the one-hot products ran at the three shapes up to 131072 rows")
     return dict(records=records, launches=launches)
 
 
@@ -865,6 +1002,223 @@ def neurad_reference_phase():
     return result
 
 
+def neurad_train_phase(outputs):
+    """NeuRAD training at the `neurad` preset's full width (57,344 rays a batch
+    in 7 chunks of 8,192, VGG on) through `ADPipeline.init_state`,
+    `datamanager.next_train` and `train_step`, weights from the seed, livened;
+    then a few steps through the train script's loop (`train_loop`, batches
+    from the preset's sampler threads), one profiled step, a checkpoint and a
+    1080p request served from it by `ClosedLoopState.from_run_dir`."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+    from neurad_tpu_torch.scripts.closed_loop import ClosedLoopState
+    from neurad_tpu_torch.scripts.train import train_loop, write_run_config
+
+    cfg = METHODS["neurad"]().pipeline
+    cfg.seed = SEED
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipeline = ADPipeline(outputs, cfg, device=DEVICE)
+    model = pipeline.model
+    _liven(model)
+    state = pipeline.init_state()
+    _sync()
+    t_pipe = time.perf_counter() - t0
+    n_rays = pipeline.num_cam_rays + cfg.datamanager.num_lidar_rays
+    n_chunks = -(-n_rays // cfg.train_ray_chunk)
+    groups = sorted(set(state.optimizers.labels.values()))
+    log(f"[neurad-train] pipeline + state in {t_pipe:.1f} s: {n_rays} rays a batch ({pipeline.num_cam_rays} camera "
+        f"rays in {cfg.datamanager.num_cam_patches} patches of {cfg.datamanager.patch_size}^2, "
+        f"{cfg.datamanager.num_lidar_rays} lidar rays), {n_chunks} chunks of {cfg.train_ray_chunk}; VGG "
+        f"{'on' if pipeline.vgg is not None else 'off'}; optimizer groups {sorted(cfg.optimizer_groups)}, "
+        f"with parameters {groups}")
+    require(n_rays == 57344 and n_chunks == 7, "57,344 rays a batch in 7 chunks of 8,192")
+    require(pipeline.vgg is not None and model.loss.vgg_mult > 0, "VGG perceptual loss on")
+    require(len(cfg.optimizer_groups) == 5, "five Adam groups")
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if "hash_table" not in n}
+    table_before = [t.detach()[:4096].clone() for t in model.field.hashgrid.static_hash_table]
+
+    steps = []
+    fwd = bwd = 0
+    HE.reset_launch_counts()
+    for i in range(NEURAD_TRAIN_STEPS):
+        bundle, batch = pipeline.datamanager.next_train()
+        f0, b0 = HE.hash_grid_launches, HE.hash_grid_bwd_launches
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = pipeline.train_step(state, bundle, batch)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        fwd, bwd = HE.hash_grid_launches - f0, HE.hash_grid_bwd_launches - b0
+        loss = float(metrics["total_loss"])
+        require(math.isfinite(loss), f"step {state.step} loss finite")
+        steps.append(dict(step=state.step, ms=ms, total_loss=loss, rgb_loss=float(metrics["rgb_loss"]),
+                          vgg_loss=float(metrics["vgg_loss"]), depth_loss=float(metrics["depth_loss"]),
+                          k1f=fwd, k1b=bwd))
+        log(f"[neurad-train] step {state.step}: {ms:.1f} ms (synchronised{', the first' if i == 0 else ''}), total "
+            f"loss {loss:.5f}, rgb {float(metrics['rgb_loss']):.5f}, vgg {float(metrics['vgg_loss']):.5f}, depth "
+            f"{float(metrics['depth_loss']):.4f}, psnr {float(metrics['psnr']):.2f}; K1f {fwd}, K1b {bwd} launches")
+        require(fwd == bwd == 2 * n_chunks, "K1f and K1b launched twice per chunk (static + actor grid)")
+    warm = [s["ms"] for s in steps[1:]]
+    rays_per_s = n_rays * len(warm) / (sum(warm) / 1e3)
+
+    # the train script's loop as `scripts.train neurad` runs it: the preset's sampler threads build the next
+    # batches on the card while a step runs; a log line (and a synchronisation) every step
+    dm_cfg = pipeline.datamanager.config
+    b0 = HE.hash_grid_bwd_launches
+    trainer = METHODS["neurad"]().trainer
+    trainer.max_num_iterations, trainer.steps_per_log, trainer.steps_per_save = (
+        state.step + NEURAD_LOOP_STEPS, 1, 10**9)
+    state, history = train_loop(pipeline, state, trainer, OUT_DIR)
+    loop_rates = [h["train_rays_per_sec"] for h in history]
+    loop_rays_per_s = n_rays * (len(loop_rates) - 1) / sum(n_rays / r for r in loop_rates[1:])
+    require(len(history) == NEURAD_LOOP_STEPS and all(math.isfinite(h["total_loss"]) for h in history),
+            "the train loop logs every step with a finite loss")
+    require(HE.hash_grid_bwd_launches - b0 == 2 * n_chunks * NEURAD_LOOP_STEPS, "the train loop's steps ran K1b")
+    require(pipeline.datamanager._threads is None, "the train loop stopped its sampler threads")
+    launches = {"hash_grid": HE.hash_grid_launches, "hash_grid_bwd": HE.hash_grid_bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[neurad-train] first step {steps[0]['ms']:.1f} ms, warm {min(warm):.1f}-{max(warm):.1f} ms: "
+        f"{rays_per_s:.0f} train rays/s over the warm steps with batches from next_train outside the clock; "
+        f"train_loop with {dm_cfg.num_workers} sampler threads and prefetch {dm_cfg.prefetch}: "
+        f"{', '.join(f'{r:.0f}' for r in loop_rates)} rays/s a step, {loop_rays_per_s:.0f} over its warm steps; "
+        f"peak device memory {peak:.2f} GiB")
+
+    moved = {}
+    for name, p in model.named_parameters():
+        if name in before:
+            moved[state.optimizers.labels[name]] = max(moved.get(state.optimizers.labels[name], 0.0),
+                                                       float((p.detach() - before[name]).abs().max()))
+        require(bool(torch.isfinite(p).all()), f"{name} finite after training")
+    moved["hashgrids"] = max(float((t.detach()[:4096] - b).abs().max())
+                             for t, b in zip(model.field.hashgrid.static_hash_table, table_before))
+    log(f"[neurad-train] largest parameter change by group: {moved}")
+    require(all(v > 0 for v in moved.values()) and set(moved) == set(groups), "every group with parameters moved")
+
+    # what the dense per-chunk table gradient costs a step: its zero-fill in each chunk's backward, and the
+    # add of all but the first chunk's into .grad
+    tables = [t for t in model.parameters() if t.dim() == 2 and t.numel() > 2**20]
+    zero_ms = cuda_time_ms(lambda: [torch.zeros_like(t) for t in tables])
+    add_ms = cuda_time_ms(lambda: [t.grad.add_(t.grad) for t in tables if t.grad is not None])
+    dense_grad_ms = n_chunks * zero_ms + (n_chunks - 1) * add_ms
+    log(f"[neurad-train] dense table gradients ({sum(t.numel() for t in tables) * 4 / 2**20:.0f} MiB): zero-fill "
+        f"{zero_ms:.4f} ms and add {add_ms:.4f} ms a chunk, {dense_grad_ms:.2f} ms a step")
+
+    prof = profiled("neurad train step", lambda: pipeline.train_step(state, *pipeline.datamanager.next_train()),
+                    rows=25, match=HASH_BWD_KERNEL)
+    k1b_ms, k1b_n = prof["matched_ms"], prof["matched_launches"]
+    k1f_ms = sum(ms for name, ms, _ in prof["all"] if HASH_KERNEL in name)
+    log(f"[neurad-train] profiled step: K1b {k1b_ms:.3f} ms in {k1b_n} launches ({100 * k1b_ms / prof['device_busy_ms']:.1f}% "
+        f"of the busy time), K1f {k1f_ms:.3f} ms; the device idles "
+        f"{100 - 100 * prof['device_busy_ms'] / prof['host_ms']:.0f}% of the step (profiler on)")
+    require(k1b_n == 2 * n_chunks and k1b_ms > 0, "the profile shows K1b's launches")
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        run_dir = write_run_config(Path(tmp) / "run", "neurad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
+        ckpt = pipeline.save_checkpoint(state, run_dir / "checkpoints")
+        size_mb = ckpt.stat().st_size / 2**20
+        trained = {n: p.detach().cpu() for n, p in model.named_parameters() if "hash_table" not in n}
+        del pipeline, state, model, before, table_before, tables
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        served = ClosedLoopState.from_run_dir(run_dir, device=DEVICE)
+        load_s = time.perf_counter() - t0
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3] = outputs.cameras.camera_to_worlds[1].numpy()
+    img = served.render_image(pose.tolist(), float(outputs.cameras.times[1, 0]), "front_camera")
+    render_ms = served.last_render_seconds * 1e3
+    log(f"[neurad-train] checkpoint {ckpt.name} ({size_mb:.0f} MiB); ClosedLoopState.from_run_dir in {load_s:.1f} s; "
+        f"its 1080p render {render_ms:.1f} ms")
+    require(img.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(img).all()), "the loaded run renders a finite image")
+    for name, p in served.pipeline.model.named_parameters():
+        if name in trained:
+            require(torch.equal(p.detach().cpu(), trained[name]), f"{name} loaded as trained")
+    del served
+    torch.cuda.empty_cache()
+    return dict(steps=steps, rays=n_rays, chunks=n_chunks, train_rays_per_s=rays_per_s,
+                loop_rays_per_s_by_step=loop_rates, loop_train_rays_per_s=loop_rays_per_s, peak_memory_gib=peak,
+                launches=launches, k1f_per_step=fwd, k1b_per_step=bwd, moved=moved, dense_grad_ms=dense_grad_ms,
+                zero_fill_ms=zero_ms, add_ms=add_ms, profile={k: v for k, v in prof.items() if k != "all"},
+                k1b_profile_ms=k1b_ms, k1f_profile_ms=k1f_ms, checkpoint_mib=size_mb, load_run_s=load_s,
+                served_render_ms=render_ms)
+
+
+def neurad_train_reference_phase():
+    """One `neurad-tiny` train step (fp32 reads, MLPs and decoders) on the card
+    (K1f, K1b) against the CPU path (the plain versions) on a small scene, same
+    parameters (livened), same batch and draws: the losses to 1e-4 relative;
+    every gradient entry within 1e-3 of the largest entry of its tensor (or,
+    for a tensor whose gradient is below 1e-3 of its group's largest, of the
+    group's), and a hash table's (K1b's output) within 1e-4: matmuls,
+    reductions and atomics sum in other orders on the two devices (measured
+    at most 5.2e-5, a proposal field's cancelling terms; 5.4e-6 in the
+    tables), and no entry may be off."""
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import neurad_tiny_overrides
+    from neurad_tpu_torch.data.datamanager import ADDataManagerConfig
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig, ChunkDraws
+
+    outputs = SyntheticDataParserConfig(num_frames=3).setup().get_dataparser_outputs()
+    traj = outputs.trajectories[0]
+    stamps = np.asarray(traj["timestamps"])
+    traj["poses"] = np.array(traj["poses"])
+    traj["poses"][:, :3, 3] = np.stack([2.0 * stamps + 1.5, np.full(len(stamps), 0.1), np.full(len(stamps), 1.5)], -1)
+    traj["dims"] = np.array([1.2, 1.2, 1.2], np.float32)
+    cfg = ADPipelineConfig(datamanager=ADDataManagerConfig(num_cam_patches=2, patch_size=4, num_lidar_rays=64),
+                           model_overrides=dict(neurad_tiny_overrides(), compute_fp32=True), train_ray_chunk=40,
+                           seed=SEED)
+    gpu, cpu = ADPipeline(outputs, cfg, device="cuda"), ADPipeline(outputs, cfg, device="cpu")
+    _liven(gpu.model)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    labels = gpu.init_state().optimizers.labels
+    cpu.init_state()
+    bundle_g, batch_g = gpu.datamanager.next_train()
+    bundle_c, batch_c = cpu.datamanager.next_train()
+    draws = cpu.draw(torch.Generator().manual_seed(SEED), bundle_c.origins.shape[0])
+    draws_g = [ChunkDraws(tuple(j.cuda() for j in d.jitters), d.flip.cuda()) for d in draws]
+    losses, grads = [], []
+    for pipe, bundle, batch, dr in ((gpu, bundle_g, batch_g, draws_g), (cpu, bundle_c, batch_c, draws)):
+        pipe.model.zero_grad()
+        before = HE.hash_grid_bwd_launches
+        total, _ = pipe.loss_fn(bundle, batch, dr)
+        total.backward()
+        if pipe is gpu:
+            torch.cuda.synchronize()
+            require(HE.hash_grid_bwd_launches - before == 2 * len(dr), "the card's backward went through K1b")
+        losses.append(float(total.detach()))
+        grads.append({n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                      for n, p in pipe.model.named_parameters()})
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    group_max = {}
+    for name, g in grads[1].items():
+        group_max[labels[name]] = max(group_max.get(labels[name], 0.0), float(g.abs().max()))
+    rel = {}
+    for name, g_cpu in grads[1].items():
+        scale = max(float(g_cpu.abs().max()), 1e-3 * group_max[labels[name]])
+        if scale > 0:
+            rel[name] = float((grads[0][name] - g_cpu).abs().max()) / scale
+    worst = max(rel, key=rel.get)
+    log(f"[reference] one neurad-tiny train step, card vs CPU: losses {losses[0]:.6f} / {losses[1]:.6f} (relative "
+        f"difference {loss_err:.2e}); largest gradient difference over its tensor's scale, worst of {len(rel)} "
+        f"tensors: {worst} {rel[worst]:.2e}")
+    require(loss_err <= 1e-4, "NeuRAD train losses agree to 1e-4 relative")
+    tol = {name: 1e-4 if "hash_table" in name else 1e-3 for name in rel}
+    require(all(v <= tol[name] for name, v in rel.items()),
+            f"every NeuRAD gradient entry agrees to 1e-3 of its scale, 1e-4 in the hash tables: {rel}")
+    return dict(losses=losses, loss_rel_err=loss_err, grad_max_rel_err=rel)
+
+
 def profiled(label, fn, rows=15, match=None):
     """Run fn once more under torch.profiler: device time by kernel, and the
     device's busy share of the host-clock interval (profiler on). `match`: also
@@ -887,7 +1241,8 @@ def profiled(label, fn, rows=15, match=None):
     top = [(e.key[:100], e.self_device_time_total / 1e3, e.count) for e in kernels[:rows]]
     for name, ms, n in top:
         log(f"[profile] {label}: {ms:8.3f} ms x{n:<3d} {name}")
-    out = dict(host_ms=host_ms, device_busy_ms=busy_ms, top=top)
+    out = dict(host_ms=host_ms, device_busy_ms=busy_ms, top=top,
+               all=[(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels])
     if match is not None:
         out["matched_ms"] = sum(e.self_device_time_total for e in kernels if match in e.key) / 1e3
         out["matched_launches"] = sum(e.count for e in kernels if match in e.key)
@@ -1010,15 +1365,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     hash_kernels = hash_grid_phase(rng)
     torch.cuda.empty_cache()
+    hash_bwd = hash_grid_bwd_phase(outputs, rng)
+    torch.cuda.empty_cache()
     probes = probe_phase()
     torch.cuda.empty_cache()
     neurad_res = neurad_phase(outputs)
+    torch.cuda.empty_cache()
+    neurad_train_res = neurad_train_phase(outputs)
     torch.cuda.empty_cache()
     train_res = train_phase(outputs)
     del outputs
     torch.cuda.empty_cache()
     ref = reference_phase()
     ref["neurad"] = neurad_reference_phase()
+    ref["neurad_train"] = neurad_train_reference_phase()
 
     # name, source, the TPU kernel it replaces, and the main path whose launches are reported: the SplatAD
     # serving path for the forward composites (the train path launches them too: "train_launches"), the train
@@ -1050,10 +1410,23 @@ def main() -> int:
         "bound_by": k1["bound_by"], "library_ms": None,
         "other_shapes": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
                          for k, v in hash_kernels.items() if k != "hash_grid_static_bf16"}})
-    # the probes' line entries are the (131072, 32) table, the largest all three run at; every shape is in the report
+    # K1b's entry is the static grid of a train chunk with bf16 reads (the `neurad` preset's launch); its launches
+    # are the NeuRAD train phase's
+    k1b = hash_bwd["hash_grid_bwd_static_bf16"]
+    line["kernels"].append({
+        "name": "hash_grid_bwd", "route": "cuda", "source": "neurad_tpu_torch/csrc/hash_grid.cu",
+        "replaces": "neurad_tpu/ops/hash_encoding.py:531", "launches": neurad_train_res["launches"]["hash_grid_bwd"],
+        "max_abs_err": k1b["max_abs_err"], "max_rel_err": k1b["max_rel_err"], "ms": k1b["ms"],
+        "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": None,
+        "other_shapes": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "max_rel_err")}
+                         for k, v in hash_bwd.items() if k != "hash_grid_bwd_static_bf16"}})
+    # the probes' line entries are the (131072, 32) table, the largest all six run at; every shape is in the report
     probe_names = {"coalesced": ("gather_rows_coalesced", "benchmarks/pallas_gather_microbench.py:54"),
                    "onehot": ("gather_rows_onehot", "benchmarks/pallas_gather_microbench.py:91"),
-                   "serial": ("gather_rows_serial", "benchmarks/pallas_gather_microbench2.py:100")}
+                   "serial": ("gather_rows_serial", "benchmarks/pallas_gather_microbench2.py:100"),
+                   "scatter_onehot": ("scatter_rows_onehot", "benchmarks/pallas_gather_microbench.py:124"),
+                   "scatter_blocked": ("scatter_rows_blocked", "benchmarks/pallas_gather_microbench.py:166"),
+                   "scatter_serial": ("scatter_rows_serial", "benchmarks/pallas_gather_microbench2.py:134")}
     for key, (name, replaces) in probe_names.items():
         (r,) = [r for r in probes["records"] if r["name"] == key and (r["T"], r["F"]) == (131072, 32)]
         line["kernels"].append({
@@ -1061,10 +1434,12 @@ def main() -> int:
             "launches": probes["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "table": [r["T"], r["F"]], "queries": r["N"]})
-    require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 8,
-            "all eight kernels were launched on their main path")
+    require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 12,
+            "all twelve kernels were launched on their main path")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
-                  gather_probes=probes, slice=slice_res, neurad=neurad_res, train=train_res, reference=ref, seconds=time.perf_counter() - t_start)
+                  hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res,
+                  neurad_train=neurad_train_res, train=train_res, reference=ref,
+                  seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
     print(smi)
     print(json.dumps(line))

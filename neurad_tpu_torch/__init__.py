@@ -5,10 +5,12 @@ scans) and SplatAD training (camera step, lidar step, MCMC and Default
 densification, checkpoints, `scripts/train.py`), with the four tile composites
 (camera and lidar, forward and fused backward) as hand-written Hopper kernels
 (`ops/tile_composite.py`, `csrc/tile_composite.cu`, `csrc/tile_composite_bwd.cu`);
-and the NeuRAD serving path (full-image camera renders and lidar scans through
-the hash-grid field, the closed-loop server's `--method neurad`), with the
-fused hash-grid lookup as a hand-written kernel (`ops/hash_encoding.py`,
-`csrc/hash_grid.cu`) and three row-gather probes
+the NeuRAD serving path (full-image camera renders and lidar scans through
+the hash-grid field, the closed-loop server's `--method neurad`) and NeuRAD
+training (ray batches, losses, VGG, five Adam groups, checkpoints, the presets
+of `configs/method_configs.py`), with the fused hash-grid lookup and its
+backward as hand-written kernels (`ops/hash_encoding.py`, `csrc/hash_grid.cu`)
+and three row-gather and three row-scatter probes
 (`benchmarks/gather_microbench.py`, `csrc/gather_probes.cu`).
 The module layout mirrors `neurad_tpu/` so each counterpart is easy to find.
 """

@@ -1,30 +1,40 @@
-"""Row-gather probes on the card: `out[i, :] = table[idx[i], :]` by three
-hand-written mechanisms (`csrc/gather_probes.cu`), the port's counterpart of
-the gather half of `benchmarks/pallas_gather_microbench.py` and
+"""Row-gather and row-scatter probes on the card, each by three hand-written
+mechanisms (`csrc/gather_probes.cu`): the port's counterpart of
+`benchmarks/pallas_gather_microbench.py` and
 `benchmarks/pallas_gather_microbench2.py`. They answer the hash-grid lookup's
-design question on this card: one thread per row, lanes across a row, or the
-tensor cores.
+design questions on this card, forward (a gather: one thread per row, lanes
+across a row, or the tensor cores) and backward (a scatter-add: atomics per
+row, a resident accumulator per range of rows, or the tensor cores).
 
-  gather_rows_coalesced  <- `make_vmem_gather`   lanes across a row, a block of queries at once
-  gather_rows_onehot     <- `make_onehot_gather` onehot(idx) @ table on the tensor cores, fp32 result
-  gather_rows_serial     <- `make_scalar_gather` one thread copies one row
+  gather_rows_coalesced  <- `make_vmem_gather`        lanes across a row, a block of queries at once
+  gather_rows_onehot     <- `make_onehot_gather`      onehot(idx) @ table on the tensor cores, fp32 result
+  gather_rows_serial     <- `make_scalar_gather`      one thread copies one row
+  scatter_rows_onehot    <- `make_onehot_scatter`     onehot(idx)^T @ bf16(g) on the tensor cores, fp32 sum
+  scatter_rows_blocked   <- `make_vmem_scatter_probe` a shared-memory accumulator per range of rows
+  scatter_rows_serial    <- `make_scalar_scatter`     one thread adds one row with atomics
 
-All three share one plain version, `gather_rows_plain` (`table[idx]`), taken
-for CPU tensors; CUDA tensors go to the kernels or raise. The coalesced and
-serial gathers equal the plain version bit for bit, the one-hot gather equals
-it as fp32. Launches are counted in `coalesced_launches`, `onehot_launches`,
-`serial_launches`.
+The gathers share one plain version, `gather_rows_plain` (`table[idx]`), the
+scatter-adds another, `scatter_rows_plain` (`index_add_` in fp32; with the
+one-hot product's bf16 rounding of g for P3), taken for CPU tensors; CUDA
+tensors go to the kernels or raise. The coalesced and serial gathers equal
+their plain version bit for bit, the one-hot gather equals it as fp32; the
+scatter-adds sum in another order (atomics, or the product's), and are held
+to 1e-5 of the sum of the absolute values of an entry's terms. Launches are
+counted in `coalesced_launches`, `onehot_launches`, `serial_launches`,
+`scatter_onehot_launches`, `scatter_blocked_launches`,
+`scatter_serial_launches`.
 
     python -m neurad_tpu_torch.benchmarks.gather_microbench [--device cuda] [--queries 1048576]
 
-prints, per table shape (T rows x F bf16 columns), each kernel's time (CUDA
-events: median of 10 launches after 2 warm-ups) and rate in M rows/s, beside
-`torch.index_select` (a yardstick that no path of the port calls) and the
-least time the card could take for the function (its bytes over the memory
-rate, for all three: a gather does no arithmetic). The one-hot product's own
-2 * N * T * F operations over the bf16 tensor-core rate are printed beside it
-as `mechanism_ops_ms`: the cost of that mechanism, not of the function. On the
-CPU (`--device cpu`) the plain version runs, timed on the host clock.
+prints, per table shape (T rows x F columns: bf16 for the gathers, fp32 for
+the scatter-adds' output), each kernel's time (CUDA events: median of 10
+launches after 2 warm-ups) and rate in M rows/s, beside `torch.index_select`
+and `index_add_` (yardsticks that no path of the port calls) and the least
+time the card could take for the function (its bytes over the memory rate:
+neither function needs arithmetic to speak of). The one-hot products' own
+2 * N * T * F operations over the bf16 tensor-core rate are printed beside
+them as `mechanism_ops_ms`: the cost of that mechanism, not of the function.
+On the CPU (`--device cpu`) the plain versions run, timed on the host clock.
 """
 
 from __future__ import annotations
@@ -48,14 +58,21 @@ ONEHOT_MAX_ROWS = 131072  # the dense product's cost grows with T: larger tables
 PEAK_BYTES = 3.35e12
 PEAK_BF16_OPS = 989e12
 
+SCATTER_TOL = 1e-5  # of the sum of the absolute values of an output entry's terms
+
 coalesced_launches = 0
 onehot_launches = 0
 serial_launches = 0
+scatter_onehot_launches = 0
+scatter_blocked_launches = 0
+scatter_serial_launches = 0
 
 
 def reset_launch_counts() -> None:
     global coalesced_launches, onehot_launches, serial_launches
+    global scatter_onehot_launches, scatter_blocked_launches, scatter_serial_launches
     coalesced_launches = onehot_launches = serial_launches = 0
+    scatter_onehot_launches = scatter_blocked_launches = scatter_serial_launches = 0
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -126,6 +143,74 @@ def gather_rows_onehot(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def scatter_rows_plain(idx: torch.Tensor, g: torch.Tensor, t_rows: int, round_bf16: bool = False) -> torch.Tensor:
+    """out [t_rows, F] fp32 = 0; out[idx[i]] += g[i] (`index_add_`), with g
+    rounded to bf16 first when `round_bf16` (the one-hot product's inputs)."""
+    if round_bf16:
+        g = g.to(torch.bfloat16).float()
+    return torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device).index_add_(0, idx.long(), g)
+
+
+def _check_scatter(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> None:
+    if g.dim() != 2 or g.dtype != torch.float32 or not g.is_contiguous():
+        raise ValueError(f"g must be a contiguous [N, F] float32 tensor, got {tuple(g.shape)} {g.dtype}")
+    if idx.shape != (g.shape[0],) or idx.dtype != torch.int32 or not idx.is_contiguous() or idx.device != g.device:
+        raise ValueError("idx must be a contiguous [N] int32 tensor on g's device")
+    if t_rows < 1:
+        raise ValueError("t_rows must be positive")
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {g.device}")
+
+
+def _launch_scatter(fn_name: str, idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
+    out = torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    lib = _build.load("gather_probes")
+    with torch.cuda.device(g.device):
+        err = getattr(lib, fn_name)(idx.data_ptr(), g.data_ptr(), out.data_ptr(), idx.shape[0], t_rows, g.shape[1],
+                                    torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed with CUDA error {err} (T={t_rows}, F={g.shape[1]})")
+    return out
+
+
+def scatter_rows_onehot(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
+    """P3: onehot(idx)^T @ bf16(g) on the tensor cores, fp32 sum -> [t_rows, F]. F is 8, 16 or 32."""
+    _check_scatter(idx, g, t_rows)
+    if g.device.type == "cpu":
+        return scatter_rows_plain(idx, g, t_rows, round_bf16=True)
+    if g.shape[1] not in (8, 16, 32):
+        raise ValueError("the one-hot scatter takes 8, 16 or 32 columns")
+    global scatter_onehot_launches
+    out = _launch_scatter("scatter_rows_onehot", idx, g, t_rows)
+    scatter_onehot_launches += 1
+    return out
+
+
+def scatter_rows_blocked(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
+    """P4: per (range of rows, slice of updates) a shared-memory accumulator,
+    flushed with global atomics -> [t_rows, F] fp32. F is 8, 16 or 32."""
+    _check_scatter(idx, g, t_rows)
+    if g.device.type == "cpu":
+        return scatter_rows_plain(idx, g, t_rows)
+    if g.shape[1] not in (8, 16, 32):
+        raise ValueError("the blocked scatter takes 8, 16 or 32 columns")
+    global scatter_blocked_launches
+    out = _launch_scatter("scatter_rows_blocked", idx, g, t_rows)
+    scatter_blocked_launches += 1
+    return out
+
+
+def scatter_rows_serial(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
+    """P6: one thread per update row, F serial fp32 atomics -> [t_rows, F]."""
+    _check_scatter(idx, g, t_rows)
+    if g.device.type == "cpu":
+        return scatter_rows_plain(idx, g, t_rows)
+    global scatter_serial_launches
+    out = _launch_scatter("scatter_rows_serial", idx, g, t_rows)
+    scatter_serial_launches += 1
+    return out
+
+
 def _time_ms(fn: Callable[[], torch.Tensor], device: torch.device, warmup: int = 2, reps: int = 10) -> float:
     """Median time of fn(): CUDA events on the card, the host clock on the CPU."""
     for _ in range(warmup):
@@ -158,10 +243,19 @@ def bounds_ms(n: int, t_rows: int, f: int) -> Dict[str, Tuple[float, str]]:
     return {"coalesced": (copy, "bytes"), "serial": (copy, "bytes"), "onehot": (onehot, "bytes")}
 
 
+def scatter_bound_ms(n: int, t_rows: int, f: int) -> Tuple[float, str]:
+    """The least time an H100 SXM could take for a scatter-add's function: the
+    indices and the updates read once, the fp32 output written once
+    (N * 4 + N * F * 4 + T * F * 4 bytes). Bound by bytes, whatever the
+    mechanism."""
+    return (n * 4 + n * f * 4 + t_rows * f * 4) / PEAK_BYTES * 1e3, "bytes"
+
+
 def onehot_mechanism_ops_ms(n: int, t_rows: int, f: int) -> float:
-    """What the one-hot gather's mechanism costs at the least: the dense
-    product's 2 * N * T * F operations at the bf16 tensor-core peak. Not the
-    function's bound (`bounds_ms`): the function needs none of them."""
+    """What a one-hot probe's mechanism (gather or scatter) costs at the least:
+    the dense product's 2 * N * T * F operations at the bf16 tensor-core peak.
+    Not the function's bound (`bounds_ms`, `scatter_bound_ms`): the function
+    needs none of them."""
     return 2.0 * n * t_rows * f / PEAK_BF16_OPS * 1e3
 
 
@@ -169,8 +263,11 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
         log: Optional[Callable[[str], None]] = print) -> List[dict]:
     """Check and time every probe at every table shape. Returns one record per
     (shape, probe): name, T, F, ms, rows_per_s, max_abs_err against the plain
-    version, plain_ms, library_ms (`torch.index_select`), bound_ms, bound_by;
-    the one-hot gather's records also hold mechanism_ops_ms."""
+    version, plain_ms, library_ms (`torch.index_select` for the gathers,
+    `index_add_` for the scatter-adds), bound_ms, bound_by; the one-hot probes'
+    records also hold mechanism_ops_ms, the scatter-adds' max_rel_err (error
+    over the sum of the absolute values of the entry's terms). Raises where a
+    probe disagrees with its plain version."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     probes = (("coalesced", gather_rows_coalesced), ("onehot", gather_rows_onehot), ("serial", gather_rows_serial))
@@ -207,11 +304,57 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
                     f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                     + (f", its dense product's operations {rec['mechanism_ops_ms']:.4f} ms" if name == "onehot" else "")
                     + "  exact")
+        records += _run_scatter(dev, gen, idx, t_rows, f, reps, log)
+    return records
+
+
+def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
+    """The scatter-add probes at one table shape, with the gathers' indices."""
+    n = idx.shape[0]
+    g = torch.randn((n, f), generator=gen, device=dev)
+    idx64 = idx.long()
+    plain_ms = _time_ms(lambda: scatter_rows_plain(idx, g, t_rows), dev, 1, 3)
+    library_ms = _time_ms(
+        lambda: torch.zeros((t_rows, f), dtype=torch.float32, device=dev).index_add_(0, idx64, g), dev, 2, reps)
+    magnitude = scatter_rows_plain(idx, g.abs(), t_rows)
+    bound = scatter_bound_ms(n, t_rows, f)
+    if log:
+        log(f"[scatter] T={t_rows} F={f} N={n}: plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms")
+    probes = (("scatter_onehot", scatter_rows_onehot), ("scatter_blocked", scatter_rows_blocked),
+              ("scatter_serial", scatter_rows_serial))
+    records = []
+    for name, fn in probes:
+        if name == "scatter_onehot" and t_rows > ONEHOT_MAX_ROWS:
+            continue
+        want = scatter_rows_plain(idx, g, t_rows, round_bf16=name == "scatter_onehot")
+        got = fn(idx, g, t_rows)
+        if got.dtype != torch.float32 or got.shape != want.shape:
+            raise RuntimeError(f"{name} returned {got.dtype} {tuple(got.shape)}")
+        diff = (got - want).abs()
+        err = float(diff.max()) if n else 0.0
+        rel = float((diff / (magnitude + 1e-30)).max()) if n else 0.0
+        if not bool((diff <= SCATTER_TOL * magnitude).all()):
+            raise RuntimeError(f"{name} differs from its plain version at T={t_rows}, F={f}: max error over the "
+                               f"magnitude of the entry's terms {rel:.3e}")
+        ms = _time_ms(lambda: fn(idx, g, t_rows), dev, 2, reps)
+        rec = dict(name=name, T=t_rows, F=f, N=n, ms=ms, rows_per_s=n / (ms * 1e-3) if ms else 0.0,
+                   max_abs_err=err, max_rel_err=rel, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
+                   bound_by=bound[1])
+        if name == "scatter_onehot":
+            rec["mechanism_ops_ms"] = onehot_mechanism_ops_ms(n, t_rows, f)
+        records.append(rec)
+        if log:
+            log(f"[scatter]  {name:16s} {ms:10.4f} ms  {rec['rows_per_s'] / 1e6:10.1f} M rows/s  "
+                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                + (f", its dense product's operations {rec['mechanism_ops_ms']:.4f} ms" if name == "scatter_onehot"
+                   else "")
+                + f"  max err {rel:.2e} of the terms' magnitude")
     return records
 
 
 def entrypoint(argv=None) -> List[dict]:
-    parser = argparse.ArgumentParser(description="Row-gather probes (coalesced, one-hot on tensor cores, serial)")
+    parser = argparse.ArgumentParser(description="Row-gather and scatter-add probes (coalesced or blocked, one-hot "
+                                                 "on the tensor cores, serial)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--queries", type=int, default=NUM_QUERIES)
     parser.add_argument("--seed", type=int, default=0)

@@ -76,9 +76,13 @@ def interpolate_trajectories_6d(
     frac = (qt - pose_times[left_idx]) / (pose_times[right_idx] - pose_times[left_idx] + 1e-6)
     frac = frac.clamp(0.0, 1.0)
 
+    # index_select, not poses[idx]: every query of a chunk picks one of a few
+    # timestamps, and on CUDA the backward of advanced indexing with that many
+    # repeated indices is a sort and a serial sum per row; index_select's
+    # backward adds with atomics
     poses_t_first = poses.transpose(0, 1)  # [T, A, 9]
-    pl_ = poses_t_first[left_idx]
-    pr_ = poses_t_first[right_idx]
+    pl_ = torch.index_select(poses_t_first, 0, left_idx)
+    pr_ = torch.index_select(poses_t_first, 0, right_idx)
     interp = pl_ + (pr_ - pl_) * frac[:, None, None]
 
     if pose_valid_mask is None:
@@ -93,7 +97,7 @@ def interpolate_velocities(
 ) -> torch.Tensor:
     """Lerp velocities [T, ...] at query times -> [Q, ...]."""
     left_idx, right_idx, frac = _interp_indices(pose_times, query_times, clamp_frac)
-    v0 = velocities[left_idx]
-    v1 = velocities[right_idx]
+    v0 = torch.index_select(velocities, 0, left_idx)
+    v1 = torch.index_select(velocities, 0, right_idx)
     frac = frac.reshape(frac.shape + (1,) * (v0.ndim - 1))
     return v0 + (v1 - v0) * frac

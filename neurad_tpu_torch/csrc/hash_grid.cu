@@ -1,6 +1,7 @@
-// Fused multi-resolution hash-grid lookup for Hopper (sm_90a): per sample and
-// level, cell index (dense or hashed) -> table row(s) -> D-linear interpolation
-// in the read type -> level weight. Forward only.
+// Fused multi-resolution hash-grid lookup for Hopper (sm_90a), forward and
+// backward: per sample and level, cell index (dense or hashed) -> table row(s)
+// -> D-linear interpolation in the read type -> level weight, and the table,
+// position and std gradients of the same function.
 //
 // Replaces the hand-written hot operator of neurad_tpu/ops/hash_encoding.py:
 //   hash_grid_fwd <- _interp_gather_cp_impl (cell-packed rows: row fetch, bucket
@@ -10,17 +11,20 @@
 //                    with the index and weight code of hash_encode around them
 //                    (scale, floor, _hash / _dense_index, bucket // pk, corner
 //                    weights) and gaussian_level_weights.
-// Plain PyTorch version of the same function: hash_grid_encode_plain in
-// neurad_tpu_torch/ops/hash_encoding.py.
+//   hash_grid_bwd <- _interp_gather_cp_bwd (K1b), _gather_levels_multi_bwd and
+//                    _gather_levels_bwd, with the autodiff of the index, weight
+//                    and level-weight code around them.
+// Plain PyTorch versions of the same functions: hash_grid_encode_plain and
+// hash_grid_encode_bwd_plain in neurad_tpu_torch/ops/hash_encoding.py.
 //
 // Boundary. In: positions [N, D] fp32 in [0, 1]^D, optionally one std per
 // position, and L per-level tables. Out: [N, L * F] fp32. The JAX code loops
 // over levels in Python and hands XLA per-level index, sub-bucket and weight
 // arrays (40 bytes per sample and level, against a 64-byte bf16 row); here one
-// launch does every level of an encoding and none of those arrays exists.
-// Positions are the boundary because the backward kernel will have to return
-// the gradient for the same inputs: d/d position = scale * sum_c d w_c / d
-// offset * <row_c, g>, next to the table's gradient.
+// launch does every level of an encoding and none of those arrays exists. The
+// backward takes the same inputs and the output's gradient g [N, L * F] and
+// returns d tables (each table's shape, fp32), d positions [N, D] and d stds
+// [N]; any of them may be skipped (a null pointer).
 //
 // Table layouts, all served by one addressing rule. A level's table is
 // [rows, pk * row_width] fp32 with pk logical buckets per physical row; its
@@ -29,7 +33,9 @@
 // CELL = true: row_width = 2^D * F, one row holds a cell's 2^D corner features
 // and the cell's floor coordinate is indexed. CELL = false: row_width = F and
 // each corner (floor + offset) is indexed on its own. A single array holding
-// all levels one after the other is passed as L base pointers into it.
+// all levels one after the other is passed as L base pointers into it. The
+// table gradient has the table's layout and is addressed by the same rule (the
+// JAX backward scatters into the same unpacked [rows * pk, row_width] view).
 //
 // Numbers that must match the plain version to the last bit (the lookup is a
 // gather and a fixed-order sum; there are no atomics):
@@ -51,12 +57,38 @@
 //  * the level weight is 1 / max(std * (2 * scale), 1) in fp32 and multiplies
 //    the interpolated features after their conversion to fp32.
 //
-// What bounds it: bytes. A sample-level reads one row of 2^D * F fp32 (128 B at
-// D = 3, F = 4) and writes F fp32; the arithmetic is about 100 operations. At
-// the full width of the NeuRAD field (N = 1,048,576 samples a chunk, L = 8)
-// that is 1.07 GB of rows, 0.32 ms at 3.35 TB/s, less what the two dense
-// levels (4.6 MB and 45.8 MB) keep in the 50 MB L2, plus 12.6 MB of positions
-// and 134 MB of output.
+// The backward, per (sample, level), recomputes the cell, buckets, offsets and
+// corner weights with the forward's operations (so it scatters into the rows
+// the forward read), then:
+//  * g' = g * level weight in fp32, rounded to bf16 with bf16 reads (the JAX
+//    cotangent reaching its VJP is that product in the read type);
+//  * table gradient: w_c * g'_j, with bf16 reads round_bf16(round_bf16(w_c) *
+//    g'_j) as the JAX backward builds its update rows in bf16, added in fp32
+//    with atomics (vector float4 / float2 atomics where F is 4 or 2). The order
+//    of the additions, and so the last bits of a hot row, changes from launch
+//    to launch. (The JAX package accumulates a level in bf16 when its fp32
+//    buffer exceeds 32 MiB; here every level accumulates in fp32.)
+//  * dL/dw_c = sum_j row_c,j * g'_j in fp32 from the rows in the read type
+//    (re-read here: the autograd function saves only its inputs), folded into
+//    dL/doffset_i = sum_c (+-) prod_{k != i} (offset_k or 1 - offset_k) * dL/dw_c
+//    and dL/dposition_i = scale * dL/doffset_i;
+//  * dL/dstd = -(sum_j o_j * g_j) / x^2 * 2 * scale with x = std * 2 * scale,
+//    zero where x <= 1 (the clamp), o the interpolated features before the
+//    level weight.
+// A block owns whole samples (L threads each); their position and std
+// gradients are summed over the levels in level order through shared memory
+// and written once, with no atomics.
+//
+// What bounds them: bytes. A forward sample-level reads one row of 2^D * F
+// fp32 (128 B at D = 3, F = 4) and writes F fp32; the arithmetic is about 100
+// operations. At the full width of the NeuRAD field (N = 1,048,576 samples a
+// chunk, L = 8) that is 1.07 GB of rows, 0.32 ms at 3.35 TB/s, less what the
+// two dense levels (4.6 MB and 45.8 MB) keep in the 50 MB L2, plus 12.6 MB of
+// positions and 134 MB of output. The backward's least traffic is its inputs
+// read once (positions, stds, g, and the rows a position gradient needs) and
+// the table gradient written once: with the gradient dense over the table, the
+// whole table's bytes (432 MiB at the `neurad` preset) bound it, however few
+// rows a launch touches.
 //
 // What the design does about it. One thread per (sample, level), levels
 // fastest: the L threads of a sample read the same position (a broadcast) and
@@ -65,6 +97,9 @@
 // through the read-only path (every byte of the 128-byte line it touches is
 // used) and sums the corners in registers. Layout, D, F and the read type are
 // template parameters, so the corner loops unroll and nothing branches on them.
+// The backward's row re-read is skipped when no position or std gradient is
+// asked for, and its scatter is plain atomics: the hot rows of the dense levels
+// are a question for a later pass (pre-reducing equal buckets in a warp).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -223,6 +258,196 @@ cudaError_t launch(const float* positions, const float* stds, const Levels& lv, 
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+struct LevelGrads {
+  float* dtable[MAX_LEVELS];  // null: the level's table needs no gradient
+};
+
+template <int F>
+__device__ __forceinline__ void atomic_add_row(float* p, const float (&v)[F]) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
+    (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
+  if constexpr (F == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    return;
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+    return;
+  }
+#endif
+#pragma unroll
+  for (int j = 0; j < F; ++j) atomicAdd(p + j, v[j]);
+}
+
+template <int D, int F, bool BF16, bool CELL>
+__global__ void __launch_bounds__(THREADS) hash_grid_bwd_kernel(
+    const float* __restrict__ positions, const float* __restrict__ stds, const float* __restrict__ g, Levels lv,
+    LevelGrads gr, int n_levels, int64_t n, float* __restrict__ dpos, float* __restrict__ dstd) {
+  constexpr int C = 1 << D;
+  __shared__ float red[THREADS * (D + 1)];
+  const int per_block = THREADS / n_levels;  // whole samples a block owns
+  const int t = threadIdx.x;
+  const int sl = t / n_levels;
+  const int l = t - sl * n_levels;
+  const int64_t s = (int64_t)blockIdx.x * per_block + sl;
+  const bool active = sl < per_block && s < n;
+  const bool need_rows = dpos != nullptr || dstd != nullptr;
+
+  float dp[D + 1];  // position gradient, then the std's
+#pragma unroll
+  for (int i = 0; i <= D; ++i) dp[i] = 0.0f;
+
+  if (active) {
+    const float scale = lv.scale[l];
+    int cell[D];
+    float off[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const float scaled = __fmul_rn(__ldg(positions + s * D + i), scale);
+      const float fl = floorf(scaled);
+      off[i] = __fsub_rn(scaled, fl);
+      cell[i] = (int)fl;
+    }
+    const uint32_t buckets = lv.buckets[l];
+    const int res = lv.dense_res[l];
+    size_t row[C];  // element offset of corner c's F features
+    if constexpr (CELL) {
+      const size_t base = (size_t)bucket_of<D>(cell, buckets, res) * (C * F);
+#pragma unroll
+      for (int c = 0; c < C; ++c) row[c] = base + c * F;
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        int corner[D];
+#pragma unroll
+        for (int i = 0; i < D; ++i) corner[i] = cell[i] + ((c >> i) & 1);
+        row[c] = (size_t)bucket_of<D>(corner, buckets, res) * F;
+      }
+    }
+
+    Row<F> gin;
+    gin.load(g + ((size_t)s * n_levels + l) * F);
+    float x = 0.0f, lw = 1.0f;
+    if (stds != nullptr) {
+      x = __fmul_rn(__ldg(stds + s), 2.0f * scale);
+      lw = __frcp_rn(fmaxf(x, 1.0f));
+    }
+    float gp[F];
+#pragma unroll
+    for (int j = 0; j < F; ++j) {
+      gp[j] = stds != nullptr ? __fmul_rn(gin.v[j], lw) : gin.v[j];
+      if (BF16) gp[j] = round_bf16(gp[j]);
+    }
+
+    const float* table = lv.table[l];
+    float* dtable = gr.dtable[l];
+    float dw[C];
+    float acc[F];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float w = (c & 1) ? off[0] : __fsub_rn(1.0f, off[0]);
+#pragma unroll
+      for (int i = 1; i < D; ++i) w = __fmul_rn(w, ((c >> i) & 1) ? off[i] : __fsub_rn(1.0f, off[i]));
+      if (BF16) w = round_bf16(w);
+      if (dtable != nullptr) {
+        float upd[F];
+#pragma unroll
+        for (int j = 0; j < F; ++j) {
+          upd[j] = __fmul_rn(w, gp[j]);
+          if (BF16) upd[j] = round_bf16(upd[j]);
+        }
+        atomic_add_row<F>(dtable + row[c], upd);
+      }
+      if (need_rows) {
+        Row<F> r;
+        r.load(table + row[c]);
+        float d = 0.0f;
+#pragma unroll
+        for (int j = 0; j < F; ++j) {
+          const float v = BF16 ? round_bf16(r.v[j]) : r.v[j];
+          d = j == 0 ? __fmul_rn(v, gp[0]) : __fadd_rn(d, __fmul_rn(v, gp[j]));
+          float term = __fmul_rn(v, w);
+          if (BF16) term = round_bf16(term);
+          if (c == 0) {
+            acc[j] = term;
+          } else {
+            acc[j] = __fadd_rn(acc[j], term);
+            if (BF16) acc[j] = round_bf16(acc[j]);
+          }
+        }
+        dw[c] = d;
+      }
+    }
+
+    if (dpos != nullptr) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        float doff = 0.0f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          // d w_c / d offset_i = (+-1) * prod over the other dimensions, in order
+          float p = 1.0f;
+#pragma unroll
+          for (int k = 0; k < D; ++k) {
+            if (k == i) continue;
+            p = __fmul_rn(p, ((c >> k) & 1) ? off[k] : __fsub_rn(1.0f, off[k]));
+          }
+          const float term = __fmul_rn(dw[c], p);
+          doff = ((c >> i) & 1) ? __fadd_rn(doff, term) : __fsub_rn(doff, term);
+        }
+        dp[i] = __fmul_rn(doff, scale);
+      }
+    }
+    if (dstd != nullptr && x > 1.0f) {
+      float dlw = __fmul_rn(acc[0], gin.v[0]);
+#pragma unroll
+      for (int j = 1; j < F; ++j) dlw = __fadd_rn(dlw, __fmul_rn(acc[j], gin.v[j]));
+      dp[D] = __fmul_rn(__fdiv_rn(-dlw, __fmul_rn(x, x)), 2.0f * scale);
+    }
+  }
+
+  if (need_rows) {  // uniform over the block
+#pragma unroll
+    for (int i = 0; i <= D; ++i) red[t * (D + 1) + i] = dp[i];
+    __syncthreads();
+    if (active && l == 0) {
+#pragma unroll
+      for (int i = 0; i <= D; ++i) {
+        float sum = red[t * (D + 1) + i];
+        for (int k = 1; k < n_levels; ++k) sum = __fadd_rn(sum, red[(t + k) * (D + 1) + i]);
+        if (i < D && dpos != nullptr) dpos[s * D + i] = sum;
+        if (i == D && dstd != nullptr) dstd[s] = sum;
+      }
+    }
+  }
+}
+
+template <int D, int F>
+cudaError_t launch_bwd(const float* positions, const float* stds, const float* g, const Levels& lv,
+                       const LevelGrads& gr, int n_levels, int64_t n, float* dpos, float* dstd, bool bf16,
+                       bool cell, cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  const int per_block = THREADS / n_levels;
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  if (bf16 && cell)
+    hash_grid_bwd_kernel<D, F, true, true><<<blocks, THREADS, 0, stream>>>(positions, stds, g, lv, gr, n_levels, n,
+                                                                          dpos, dstd);
+  else if (bf16)
+    hash_grid_bwd_kernel<D, F, true, false><<<blocks, THREADS, 0, stream>>>(positions, stds, g, lv, gr, n_levels, n,
+                                                                           dpos, dstd);
+  else if (cell)
+    hash_grid_bwd_kernel<D, F, false, true><<<blocks, THREADS, 0, stream>>>(positions, stds, g, lv, gr, n_levels, n,
+                                                                           dpos, dstd);
+  else
+    hash_grid_bwd_kernel<D, F, false, false><<<blocks, THREADS, 0, stream>>>(positions, stds, g, lv, gr, n_levels,
+                                                                            n, dpos, dstd);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // positions [n, d] fp32; stds [n] fp32 or null (no level weight); tables,
@@ -252,6 +477,43 @@ extern "C" int hash_grid_fwd(const float* positions, const float* stds, const vo
   else if (d == 4 && f == 1) err = launch<4, 1>(positions, stds, lv, n_levels, n, out, b, c, st);
   else if (d == 4 && f == 2) err = launch<4, 2>(positions, stds, lv, n_levels, n, out, b, c, st);
   else if (d == 4 && f == 4) err = launch<4, 4>(positions, stds, lv, n_levels, n, out, b, c, st);
+  else return -1;
+  return (int)err;
+}
+
+// The lookup's backward. positions, stds, tables, buckets, dense_res, scales,
+// n, n_levels, d, f, read_bf16, cell_packed: as hash_grid_fwd; g [n, n_levels
+// * f] fp32, the output's gradient; dtables: host array of n_levels device
+// pointers to zero-filled fp32 gradients of the tables' shapes, or null
+// entries (no gradient for that level); dpos [n, d] and dstd [n] fp32 or null
+// (written, not added to). Returns the launch's cudaError_t, or -1 for
+// arguments no kernel was built for.
+extern "C" int hash_grid_bwd(const float* positions, const float* stds, const void* const* tables, const int* buckets,
+                             const int* dense_res, const float* scales, const float* g, void* const* dtables,
+                             float* dpos, float* dstd, long long n, int n_levels, int d, int f, int read_bf16,
+                             int cell_packed, void* stream) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS || n < 0) return -1;
+  if (dstd != nullptr && stds == nullptr) return -1;
+  if ((n + THREADS / n_levels - 1) / (THREADS / n_levels) > 2147483647LL) return -1;
+  Levels lv;
+  LevelGrads gr;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.table[l] = static_cast<const float*>(tables[l]);
+    lv.buckets[l] = (uint32_t)buckets[l];
+    lv.dense_res[l] = dense_res[l];
+    lv.scale[l] = scales[l];
+    gr.dtable[l] = static_cast<float*>(dtables[l]);
+    if (buckets[l] < 1) return -1;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool b = read_bf16 != 0, c = cell_packed != 0;
+  cudaError_t err;
+  if (d == 3 && f == 1) err = launch_bwd<3, 1>(positions, stds, g, lv, gr, n_levels, n, dpos, dstd, b, c, st);
+  else if (d == 3 && f == 2) err = launch_bwd<3, 2>(positions, stds, g, lv, gr, n_levels, n, dpos, dstd, b, c, st);
+  else if (d == 3 && f == 4) err = launch_bwd<3, 4>(positions, stds, g, lv, gr, n_levels, n, dpos, dstd, b, c, st);
+  else if (d == 4 && f == 1) err = launch_bwd<4, 1>(positions, stds, g, lv, gr, n_levels, n, dpos, dstd, b, c, st);
+  else if (d == 4 && f == 2) err = launch_bwd<4, 2>(positions, stds, g, lv, gr, n_levels, n, dpos, dstd, b, c, st);
+  else if (d == 4 && f == 4) err = launch_bwd<4, 4>(positions, stds, g, lv, gr, n_levels, n, dpos, dstd, b, c, st);
   else return -1;
   return (int)err;
 }

@@ -30,6 +30,21 @@ from neurad_tpu_torch.engine.schedulers import exponential_decay_schedule
 
 DEFAULT_GROUP = "fields"
 
+# Parameter name -> group for the ray-based models, first match wins: hash tables -> "hashgrids", actor
+# trajectories -> "trajectory_opt", camera adjustments -> "camera_opt", the RGB decoder -> "cnn", the rest (the
+# field and proposal MLPs, the lidar decoder, the appearance embedding) -> "fields". The port's parameter names
+# carry the same substrings as the JAX package's flax paths, so the rules are the same.
+DEFAULT_GROUP_RULES: Tuple[Tuple[str, str], ...] = (
+    ("hash_table", "hashgrids"),
+    ("actor_positions", "trajectory_opt"),
+    ("actor_rotations_6d", "trajectory_opt"),
+    ("actor_vel_", "trajectory_opt"),
+    ("pose_adjustment", "camera_opt"),
+    ("velocity_adjustment", "camera_opt"),
+    ("time_to_center_pixel_adjustment", "camera_opt"),
+    ("rgb_decoder", "cnn"),
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerGroupConfig:
@@ -54,6 +69,16 @@ class OptimizerGroupConfig:
         if self.weight_decay > 0.0:
             return torch.optim.AdamW(params, lr=self.lr, eps=self.eps, weight_decay=self.weight_decay)
         return torch.optim.Adam(params, lr=self.lr, eps=self.eps)
+
+
+# NeuRAD's optimizer preset: five groups.
+NEURAD_OPTIMIZER_GROUPS: Dict[str, OptimizerGroupConfig] = {
+    "trajectory_opt": OptimizerGroupConfig(lr=1e-3, lr_final=1e-4, warmup_steps=2500),
+    "cnn": OptimizerGroupConfig(lr=1e-3, lr_final=1e-4, warmup_steps=2500, weight_decay=1e-6),
+    "fields": OptimizerGroupConfig(lr=1e-2, lr_final=1e-3, warmup_steps=500, weight_decay=1e-7),
+    "hashgrids": OptimizerGroupConfig(lr=1e-2, lr_final=1e-3, warmup_steps=500),
+    "camera_opt": OptimizerGroupConfig(lr=1e-4, lr_final=1e-5, warmup_steps=2500),
+}
 
 
 def label_params(

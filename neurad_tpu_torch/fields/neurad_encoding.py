@@ -64,7 +64,7 @@ def _compact_merge(features_flat, sel_feats, top_idx, flat_hit):
     inv = torch.full((n,), cap, dtype=torch.long, device=top_idx.device)
     inv[top_idx] = slot
     table = torch.cat([sel_feats, sel_feats.new_zeros((1, f_a))], dim=0)
-    actor_rows = table[inv]  # [n, f_a]
+    actor_rows = torch.index_select(table, 0, inv)  # [n, f_a]; most rows pick the zero row (atomic backward)
     if f_out > f_a:
         actor_rows = F.pad(actor_rows, (0, f_out - f_a))
     return torch.where((inv < cap)[:, None], actor_rows.to(features_flat.dtype), features_flat)
@@ -264,9 +264,9 @@ class NeuRADHashEncoding(nn.Module):
             flat_mean4 = mean4.reshape(r * s, *mean4.shape[2:])
             flat_std = actor_g.std.reshape(r * s, *actor_g.std.shape[2:])
             top_idx = first_k_set(flat_hit, cap)
-            sel_feats = self.actor_grid.encode(
-                self.actor_hash_table, GaussiansStd(mean=flat_mean4[top_idx], std=flat_std[top_idx])
-            )  # [cap, La*Fa]
+            sel = GaussiansStd(mean=torch.index_select(flat_mean4, 0, top_idx),
+                               std=torch.index_select(flat_std, 0, top_idx))
+            sel_feats = self.actor_grid.encode(self.actor_hash_table, sel)  # [cap, La*Fa]
             merged = _compact_merge(features.reshape(r * s, features.shape[-1]), sel_feats, top_idx, flat_hit)
             return merged.reshape(r, s, -1), directions
 

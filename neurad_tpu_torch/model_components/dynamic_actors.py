@@ -147,11 +147,16 @@ def edit_boxes2world(boxes2world: torch.Tensor, edits: ActorEdits, n_actors: int
 class DynamicActors(nn.Module):
     """Learnable actor trajectories. Parameters (initialised from `data`):
     `actor_positions` [T,A,3], `actor_rotations_6d` [T,A,6],
-    `actor_vel_linear` / `actor_vel_angular` [T,A,3]."""
+    `actor_vel_linear` / `actor_vel_angular` [T,A,3]. Without
+    `optimize_trajectories` the poses come from `data` and the pose
+    parameters get no gradient (they exist all the same, as in the JAX
+    package)."""
 
-    def __init__(self, data: ActorData, actor_bbox_padding: Tuple[float, float, float] = (0.25, 0.25, 0.1)):
+    def __init__(self, data: ActorData, actor_bbox_padding: Tuple[float, float, float] = (0.25, 0.25, 0.1),
+                 optimize_trajectories: bool = True):
         super().__init__()
         self.data = data
+        self.optimize_trajectories = optimize_trajectories
         bounds = np.asarray(data.sizes, dtype=np.float32) / 2.0 + np.asarray(actor_bbox_padding, dtype=np.float32)
         self.register_buffer("bounds", torch.from_numpy(bounds), persistent=False)
         poses = torch.from_numpy(np.asarray(data.poses, dtype=np.float32))
@@ -180,7 +185,11 @@ class DynamicActors(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """6D-interpolated actor poses at query times [Q] ->
         (boxes2world [Q, A, 4, 4], valid [Q, A])."""
-        poses9d = torch.cat([self.actor_rotations_6d, self.actor_positions], dim=-1)  # [T, A, 9]
+        pos, rot6d = self.actor_positions, self.actor_rotations_6d
+        if not self.optimize_trajectories:
+            poses = torch.from_numpy(np.asarray(self.data.poses, dtype=np.float32)).to(pos.device)
+            pos, rot6d = poses[..., :3, 3], pose_utils.rotmat_to_6d(poses[..., :3, :3])
+        poses9d = torch.cat([rot6d, pos], dim=-1)  # [T, A, 9]
         interp, valid = pose_utils.interpolate_trajectories_6d(
             poses9d.transpose(0, 1), self.unique_timestamps, query_times, pose_valid_mask=self.present
         )  # [Q, A, 9]

@@ -1,12 +1,13 @@
 """NeuRAD: neural feature fields for dynamic AD scenes, camera + lidar (torch
-port of `neurad_tpu/models/neurad.py`): the model's forward. The training
-losses (`compute_losses`, the per-ray interlevel / distortion / carving terms)
-are not ported yet.
+port of `neurad_tpu/models/neurad.py`): the forward, the per-ray train-time
+terms (interlevel, distortion, carving) and the training loss.
 
 The ray batch has a static layout: the first `num_cam_rays` rays are camera
 rays (B patches of D x D), the rest are lidar rays; metadata `is_lidar`, where
 present, decides per ray instead. Random draws (sampler jitter, actor flip)
 are explicit tensors; without them the forward is the deterministic eval path.
+`train=True` adds the per-ray loss terms to the outputs; it is an argument,
+never module state.
 """
 
 from __future__ import annotations
@@ -22,12 +23,32 @@ from neurad_tpu_torch.core.structs import Frustums, RayBundle, RaySamples
 from neurad_tpu_torch.fields.mlp import MLP
 from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
 from neurad_tpu_torch.fields.neurad_field import MLPProposalField, NeuRADField, NeuRADProposalField
+from neurad_tpu_torch.model_components import losses as L
 from neurad_tpu_torch.model_components.cnns import RGBDecoderCNN
 from neurad_tpu_torch.model_components.dynamic_actors import ActorData, DynamicActors
+from neurad_tpu_torch.model_components.perceptual import Vgg19Slices, vgg_perceptual_loss
 from neurad_tpu_torch.model_components.ray_samplers import power_spacing, proposal_sampler
 from neurad_tpu_torch.ops import rendering as R
 
 EPS = 1e-7
+
+
+class LossSettings(NamedTuple):
+    """Loss multipliers."""
+
+    vgg_mult: float = 0.05
+    rgb_mult: float = 5.0
+    depth_mult: float = 0.01
+    intensity_mult: float = 0.1
+    carving_mult: float = 0.01
+    carving_epsilon: float = 0.1
+    quantile_threshold: float = 0.95
+    interlevel_loss_mult: float = 0.001
+    distortion_loss_mult: float = 0.002
+    non_return_lidar_distance: float = 150.0
+    non_return_loss_mult: float = 0.1
+    ray_drop_loss_mult: float = 0.01
+    prop_lidar_loss_mult: float = 0.1
 
 
 class MLPProposalSettings(NamedTuple):
@@ -66,6 +87,7 @@ class NeuRADModel(nn.Module):
         num_sensors: int = 1,
         duration: float = 10.0,
         num_train_images: int = 1,
+        loss: LossSettings = LossSettings(),
         sampling: SamplingSettings = SamplingSettings(),
         field_static: StaticSettings = StaticSettings(),
         field_actor: ActorSettings = ActorSettings(flip_prob=0.25),
@@ -90,6 +112,7 @@ class NeuRADModel(nn.Module):
         camera_opt_mode: str = "off",
         camera_opt_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0, 1.0),
         camera_opt_trans_penalty: Tuple[float, ...] = (1e-2, 1e-2, 1e-2),
+        optimize_trajectories: bool = True,
         max_actors_per_ray: int = 4,
         # capacity divisor of the compacted actor lookup (0 disables it; outputs then do not depend on the
         # eval chunk's size)
@@ -101,6 +124,8 @@ class NeuRADModel(nn.Module):
             raise ValueError(f"unknown proposal_mode {proposal_mode!r}")
         self.static_scale = static_scale
         self.duration = duration
+        self.loss = loss
+        self.camera_opt_mode = camera_opt_mode
         self.sampling = sampling
         self.appearance_dim = appearance_dim
         self.use_temporal_appearance = use_temporal_appearance
@@ -110,7 +135,7 @@ class NeuRADModel(nn.Module):
         self.nff_out_dim = nff_out_dim
         compute_dtype = None if compute_fp32 else torch.bfloat16
 
-        self.actors = DynamicActors(actor_data)
+        self.actors = DynamicActors(actor_data, optimize_trajectories=optimize_trajectories)
         if compute_fp32:
             field_static = field_static._replace(gather_f32=True)
             field_actor = field_actor._replace(gather_f32=True)
@@ -167,11 +192,13 @@ class NeuRADModel(nn.Module):
         flip_draw: Optional[torch.Tensor] = None,
         intensity_for_cam: bool = False,
         edits=None,
+        train: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """Full forward: the feature-field render, then the modality decoders.
         The first `num_cam_rays` rays are camera rays laid out as patches of
         `patch_size`; the remainder are lidar rays."""
-        outputs = self.get_nff_outputs(ray_bundle, num_cam_rays, jitters=jitters, flip_draw=flip_draw, edits=edits)
+        outputs = self.get_nff_outputs(ray_bundle, num_cam_rays, jitters=jitters, flip_draw=flip_draw, edits=edits,
+                                       train=train)
         features = outputs.pop("features")
         rgb, intensity, ray_drop_logits = self.decode_features(
             features, patch_size, num_cam_rays, intensity_for_cam=intensity_for_cam
@@ -208,9 +235,11 @@ class NeuRADModel(nn.Module):
         jitters: Optional[Sequence[torch.Tensor]] = None,
         flip_draw: Optional[torch.Tensor] = None,
         edits=None,
+        train: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """The neural-feature-field render. Every output is per ray ([R, ...]),
-        so the method chunks over rays at the pipeline level."""
+        the train-time loss terms (`train`) included, so the method chunks
+        over rays at the pipeline level."""
         ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
         ray_bundle = self._scale_pixel_area(ray_bundle, num_cam_rays)
         ray_samples, prop_weights, prop_samples = self._get_ray_samples(ray_bundle, jitters, edits=edits)
@@ -240,6 +269,27 @@ class NeuRADModel(nn.Module):
         for i, (pw, ps) in enumerate(zip(prop_weights, prop_samples)):
             pmids = (ps.frustums.starts + ps.frustums.ends) / 2.0
             outputs[f"prop_depth_{i}"] = R.accumulate_along_rays(pw, pmids)
+
+        if train:
+            # per-ray interlevel + distortion over the sample histograms
+            weights_list = list(prop_weights) + [w_nosky]
+            sdist_list = [L.ray_samples_to_sdist(s.spacing_starts, s.spacing_ends) for s in prop_samples] + [
+                L.ray_samples_to_sdist(ray_samples.spacing_starts[..., :-1, :], ray_samples.spacing_ends[..., :-1, :])
+            ]
+            outputs["interlevel_per_ray"] = L.zipnerf_interlevel_loss(weights_list, sdist_list, per_ray=True)
+            outputs["distortion_per_ray"] = L.lossfun_distortion(sdist_list[-1], w_nosky[..., 0])
+
+            # carving: per-ray sum of the squared weights of lidar samples away from the return, without the sky
+            # sample (it would penalise weight at the sky on non-returning rays, against the non-return term)
+            is_lidar = self._is_lidar_mask(ray_bundle, num_cam_rays)
+            ranges = ray_bundle.metadata.get("directions_norm")
+            did_return = ray_bundle.metadata.get("did_return")
+            if ranges is not None:
+                mask = self._carving_mask(ray_samples, is_lidar, ranges, did_return)[..., :-1]
+                outputs["carving_per_ray"] = torch.sum((w_nosky[..., 0] * mask) ** 2, dim=-1)
+                for i, ps in enumerate(prop_samples):
+                    pmask = self._carving_mask(ps, is_lidar, ranges, did_return)
+                    outputs[f"prop_carving_per_ray_{i}"] = torch.sum((prop_weights[i][..., 0] * pmask) ** 2, dim=-1)
         return outputs
 
     def query_geometry(self, points: torch.Tensor, time: float = 0.0) -> torch.Tensor:
@@ -307,6 +357,20 @@ class NeuRADModel(nn.Module):
         )
         return ray_samples, weights_list, samples_list
 
+    def _carving_mask(
+        self, ray_samples: RaySamples, is_lidar: torch.Tensor, ranges: torch.Tensor, did_return: Optional[torch.Tensor]
+    ) -> torch.Tensor:
+        """[R, S] mask of lidar samples not close to the measured return; the
+        weights there should carve to zero."""
+        sample_dist = (ray_samples.frustums.starts + ray_samples.frustums.ends)[..., 0] * 0.5  # [R, S]
+        close_to_hit = torch.abs(ranges - sample_dist) < self.loss.carving_epsilon
+        if did_return is not None:
+            in_range = sample_dist < self.loss.non_return_lidar_distance
+            is_close = torch.where(did_return, close_to_hit, in_range)
+        else:
+            is_close = close_to_hit
+        return (~is_close) & is_lidar[:, None]
+
     def _get_appearance_embedding(self, ray_bundle: RayBundle, features: torch.Tensor) -> torch.Tensor:
         """Per-sensor appearance, interpolated in time between the sensor's embeddings."""
         sensor_idx = ray_bundle.metadata.get("sensor_idxs")
@@ -328,3 +392,87 @@ class NeuRADModel(nn.Module):
             after_embed = self.appearance_embedding((after + sensor_idx * eps_per_sensor).long())
             return before_embed * (1.0 - ratio) + after_embed * ratio
         return self.appearance_embedding(sensor_idx)
+
+    # ------------------------------------------------------------------
+    # losses & metrics
+    # ------------------------------------------------------------------
+
+    def compute_losses(
+        self, outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], num_cam_rays: int,
+        vgg: Optional[Vgg19Slices] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss -> (total, metrics: unweighted metrics and the
+        weighted losses, detached). batch: `image` [B, Hp, Wp, 3] patches; the
+        lidar rays' `distance`, `did_return`, `intensity` [N_l, 1]. `vgg`: the
+        perceptual network (the VGG term needs it and `vgg_mult` > 0)."""
+        conf = self.loss
+        loss_dict: Dict[str, torch.Tensor] = {}
+        metrics: Dict[str, torch.Tensor] = {}
+
+        if "image" in batch and "rgb" in outputs:
+            image, rgb = batch["image"], outputs["rgb"]
+            loss_dict["rgb_loss"] = torch.mean((image - rgb) ** 2) * conf.rgb_mult
+            metrics["psnr"] = L.psnr(rgb.detach(), image)
+            if conf.vgg_mult > 0.0 and vgg is not None:
+                loss_dict["vgg_loss"] = vgg_perceptual_loss(vgg, rgb, image) * conf.vgg_mult
+
+        if "distance" in batch:
+            depth = outputs["depth"][num_cam_rays:]  # [N_l, 1]
+            n_lidar = float(depth.shape[0])
+            did_return = batch["did_return"][..., 0]  # [N_l]
+            termination = batch["distance"]  # [N_l, 1]
+
+            def depth_terms(pred_depth):
+                nonret = torch.clamp_min(pred_depth.detach(), conf.non_return_lidar_distance)
+                target = torch.where(did_return[:, None], termination, nonret)
+                unred = torch.abs(target - pred_depth)
+                return torch.where(did_return[:, None], unred, unred * conf.non_return_loss_mult)
+
+            unred = depth_terms(depth)
+            quantile = L.masked_quantile(unred, torch.ones_like(unred, dtype=torch.bool), conf.quantile_threshold)
+            qmask = (unred < quantile)[..., 0]
+            metrics["depth_loss"] = L.masked_mean(unred[..., 0], qmask)
+            loss_dict["depth_loss"] = conf.depth_mult * metrics["depth_loss"]
+
+            if "intensity" in outputs:
+                qr = qmask & did_return
+                int_err = (batch["intensity"] - outputs["intensity"]) ** 2
+                metrics["intensity_loss"] = L.masked_mean(int_err[..., 0], qr)
+                loss_dict["intensity_loss"] = conf.intensity_mult * metrics["intensity_loss"]
+
+                logits = outputs["ray_drop_logits"][..., 0]
+                targets = (~did_return).to(logits.dtype)
+                bce = torch.clamp_min(logits, 0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
+                metrics["ray_drop_loss"] = torch.mean(bce)
+                loss_dict["ray_drop_loss"] = conf.ray_drop_loss_mult * metrics["ray_drop_loss"]
+                metrics["ray_drop_accuracy"] = torch.mean(
+                    ((torch.sigmoid(logits) > 0.5) == ~did_return).to(torch.float32))
+
+            metrics["depth_median_l2"] = L.masked_quantile((depth - termination) ** 2, did_return[:, None], 0.5)
+            rel = ((depth - termination) / termination.clamp_min(EPS)) ** 2
+            metrics["depth_mean_rel_l2"] = L.masked_mean(rel[..., 0], did_return)
+
+            if "carving_per_ray" in outputs:
+                metrics["carving_loss"] = torch.sum(outputs["carving_per_ray"]) / n_lidar
+                loss_dict["carving_loss"] = conf.carving_mult * metrics["carving_loss"]
+                for i in range(self.num_proposal_rounds):
+                    metrics[f"carving_loss_{i}"] = torch.sum(outputs[f"prop_carving_per_ray_{i}"]) / n_lidar
+                    loss_dict[f"carving_loss_{i}"] = (
+                        conf.prop_lidar_loss_mult * conf.carving_mult * metrics[f"carving_loss_{i}"])
+                    pd = outputs[f"prop_depth_{i}"][num_cam_rays:]
+                    metrics[f"depth_loss_{i}"] = torch.mean(depth_terms(pd))
+                    loss_dict[f"depth_loss_{i}"] = conf.prop_lidar_loss_mult * conf.depth_mult * metrics[
+                        f"depth_loss_{i}"]
+
+        if "interlevel_per_ray" in outputs:
+            loss_dict["interlevel_loss"] = conf.interlevel_loss_mult * torch.mean(outputs["interlevel_per_ray"])
+            metrics["distortion"] = torch.mean(outputs["distortion_per_ray"])
+            loss_dict["distortion_loss"] = conf.distortion_loss_mult * metrics["distortion"]
+
+        if self.camera_opt_mode != "off":
+            loss_dict["camera_opt_regularizer"] = self.camera_optimizer.regularization_loss()
+
+        total = sum(loss_dict.values(), torch.zeros((), device=outputs["depth"].device))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update({k: v.detach() for k, v in loss_dict.items()})
+        return total, metrics

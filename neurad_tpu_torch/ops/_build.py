@@ -43,7 +43,10 @@ LIBRARIES = {
     ),
     "hash_grid": (
         "hash_grid.cu",
-        {"hash_grid_fwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]},
+        {
+            "hash_grid_fwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+            "hash_grid_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+        },
     ),
     "gather_probes": (
         "gather_probes.cu",
@@ -51,6 +54,9 @@ LIBRARIES = {
             "gather_rows_coalesced": [_P, _P, _P, _L, _I, _I, _P],
             "gather_rows_onehot": [_P, _P, _P, _L, _I, _I, _P],
             "gather_rows_serial": [_P, _P, _P, _L, _I, _I, _P],
+            "scatter_rows_onehot": [_P, _P, _P, _L, _I, _I, _P],
+            "scatter_rows_blocked": [_P, _P, _P, _L, _I, _I, _P],
+            "scatter_rows_serial": [_P, _P, _P, _L, _I, _I, _P],
         },
     ),
 }

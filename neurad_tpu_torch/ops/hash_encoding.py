@@ -2,18 +2,22 @@
 `neurad_tpu/ops/hash_encoding.py`), with the lookup as a hand-written CUDA
 kernel (`csrc/hash_grid.cu`) and its plain PyTorch version beside it.
 
-  hash_grid_encode  <- `_interp_gather_cp_impl` (cell-packed rows), and the
-                       same family for the other layouts
-                       (`_gather_levels_multi_impl`, `_gather_levels_impl`),
-                       with the index and weight code of `hash_encode` around
-                       them and `gaussian_level_weights`
+  hash_grid_encode      <- `_interp_gather_cp_impl` (cell-packed rows), and
+                           the same family for the other layouts
+                           (`_gather_levels_multi_impl`, `_gather_levels_impl`),
+                           with the index and weight code of `hash_encode`
+                           around them and `gaussian_level_weights`
+  hash_grid_encode_bwd  <- `_interp_gather_cp_bwd` (K1b), `_gather_levels_multi_bwd`,
+                           `_gather_levels_bwd`, with the autodiff of that code
 
-The kernel's boundary (and the plain version's): positions [N, D] in [0, 1]^D,
-optionally one std per position, the per-level tables -> [N, L * F] fp32. One
-launch does every level of an encoding. Forward only: the backward kernel
-(table and position gradients for the same inputs) arrives with the training
-slice; until then a CUDA lookup refuses tables that require grad while grad
-mode is on. On the CPU the plain version runs and autograd differentiates it.
+The kernels' boundary (and the plain versions'): positions [N, D] in [0, 1]^D,
+optionally one std per position, the per-level tables -> [N, L * F] fp32, and
+back: the output's gradient -> the tables', the positions' and the stds'
+gradients. One launch does every level of an encoding. Under autograd the
+lookup is the `HashGridLookup` function: on CUDA tensors the forward and the
+backward kernel, on CPU tensors the two plain versions. It saves only its
+inputs; the backward recomputes indices and weights and re-reads the rows a
+position or std gradient needs (the JAX VJP saves the gathered rows instead).
 
 Table layouts (parameters are carried across from the JAX package in these):
 a level's table is [rows, pk * row_width] fp32, pk logical buckets a physical
@@ -28,7 +32,12 @@ parameters and the parameter bridge reshapes.
 Reads in bf16 (`gather_dtype`) round the fp32 master table to bf16 at the
 read (round to nearest even), round the corner weights to bf16, and interpolate
 in bf16: each product and each addition, corners in order, rounds to bf16.
-Each launch of the kernel is counted in `hash_grid_launches`.
+The backward builds the table update from the bf16 weight and gradient
+(`round(round(w) * round(g * level weight))`) as the JAX backward does and
+accumulates it in fp32 (the JAX package accumulates a level whose fp32
+gradient exceeds 32 MiB in bf16); d w is summed in fp32 from the rows in the
+read type. Launches are counted in `hash_grid_launches` and
+`hash_grid_bwd_launches`.
 """
 
 from __future__ import annotations
@@ -53,11 +62,12 @@ _FAST_GATHER_MAX_ROWS = 2**18
 
 MAX_LEVELS = 16  # of one launch (csrc/hash_grid.cu)
 hash_grid_launches = 0
+hash_grid_bwd_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global hash_grid_launches
-    hash_grid_launches = 0
+    global hash_grid_launches, hash_grid_bwd_launches
+    hash_grid_launches = hash_grid_bwd_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -235,22 +245,111 @@ def hash_grid_encode_plain(
     return torch.cat(outs, dim=-1)
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def hash_grid_encode_bwd_plain(
+    positions: torch.Tensor, stds: Optional[torch.Tensor], tables: Sequence[torch.Tensor], scales: Sequence[float],
+    buckets: Sequence[int], dense_res: Sequence[Optional[int]], f: int, read_bf16: bool, cell_packed: bool,
+    g: torch.Tensor, tables_grad: Sequence[bool] = None, positions_grad: bool = True, stds_grad: bool = True,
+    magnitude: bool = False,
+) -> Tuple[Tuple[Optional[torch.Tensor], ...], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The backward kernel's function in plain PyTorch, op by op in the
+    kernel's order: g [N, L * f], the gradient of `hash_grid_encode_plain`'s
+    output -> (the tables' gradients, each of its table's shape, fp32; d
+    positions [N, D]; d stds [N]). A gradient is None where it is not asked
+    for (`tables_grad` per level, all by default; `stds_grad` needs stds).
+
+    `magnitude`: return instead, for each entry, the sum of the absolute
+    values of the terms it adds (a scale for the error of a sum taken in
+    another order)."""
+    n, d = positions.shape
+    n_corners = 2**d
+    row_width = f * (n_corners if cell_packed else 1)
+    tables_grad = [True] * len(tables) if tables_grad is None else list(tables_grad)
+    need_rows = positions_grad or (stds_grad and stds is not None)
+    as_term = (lambda x: x.abs()) if magnitude else (lambda x: x)
+    dpos = positions.new_zeros((n, d)) if positions_grad else None
+    dstd = positions.new_zeros((n,)) if (stds_grad and stds is not None) else None
+    dtables = []
+    corner_bits = _corner_offsets(d)
+    for l, (tbl, scale, n_buckets, res) in enumerate(zip(tables, scales, buckets, dense_res)):
+        bucket, offset = level_index(positions, scale, n_buckets, res, cell_packed)
+        gl = g[:, l * f : (l + 1) * f]
+        if stds is not None:
+            x = stds * (2.0 * float(scale))
+            gp = gl * torch.reciprocal(torch.clamp_min(x, 1.0))[:, None]
+        else:
+            gp = gl
+        w = _corner_weights(offset)  # [n, C] fp32
+        if read_bf16:
+            gp, w_r = _round_bf16(gp), _round_bf16(w)
+        else:
+            w_r = w
+        if tables_grad[l]:
+            upd = w_r[:, :, None] * gp[:, None, :]  # [n, C, f]
+            if read_bf16:
+                upd = _round_bf16(upd)
+            upd = as_term(upd)
+            dt = torch.zeros((n_buckets, row_width), dtype=torch.float32, device=positions.device)
+            if cell_packed:
+                dt.index_add_(0, bucket, upd.reshape(n, row_width))
+            else:
+                dt.index_add_(0, bucket.reshape(-1), upd.reshape(n * n_corners, f))
+            dtables.append(dt.reshape(tbl.shape))
+        else:
+            dtables.append(None)
+        if not need_rows:
+            continue
+        rows = tbl.reshape(-1, row_width)[bucket].reshape(n, n_corners, f)
+        if read_bf16:
+            rows = _round_bf16(rows)
+        dw = as_term(rows[:, :, 0] * gp[:, None, 0])  # [n, C], j in order
+        for j in range(1, f):
+            dw = dw + as_term(rows[:, :, j] * gp[:, None, j])
+        if dpos is not None:
+            one_minus = 1.0 - offset
+            for i in range(d):
+                doff = None
+                for c, bits in enumerate(corner_bits):
+                    p = None
+                    for k in range(d):
+                        if k != i:
+                            fk = offset[:, k] if bits[k] else one_minus[:, k]
+                            p = fk if p is None else p * fk
+                    term = as_term(dw[:, c] * p)
+                    if doff is None:
+                        doff = term if (bits[i] or magnitude) else -term
+                    else:
+                        doff = doff + term if (bits[i] or magnitude) else doff - term
+                dpos[:, i] = dpos[:, i] + as_term(doff * float(scale))
+        if dstd is not None:
+            o = rows[:, 0] * w_r[:, 0:1]
+            if read_bf16:
+                o = _round_bf16(o)
+            o = as_term(o)
+            for c in range(1, n_corners):
+                term = rows[:, c] * w_r[:, c : c + 1]
+                if read_bf16:
+                    term = _round_bf16(term)
+                o = o + as_term(term)
+                if read_bf16:
+                    o = _round_bf16(o)
+            dlw = as_term(o[:, 0] * gl[:, 0])
+            for j in range(1, f):
+                dlw = dlw + as_term(o[:, j] * gl[:, j])
+            dx = as_term(-dlw / (x * x) * (2.0 * float(scale)))
+            dstd = dstd + torch.where(x > 1.0, dx, torch.zeros_like(dx))
+    return tuple(dtables), dpos, dstd
+
+
 # ---------------------------------------------------------------------------
 # wrapper
 # ---------------------------------------------------------------------------
 
 
-def hash_grid_encode(
-    positions: torch.Tensor, stds: Optional[torch.Tensor], tables: Sequence[torch.Tensor], scales: Sequence[float],
-    buckets: Sequence[int], dense_res: Sequence[Optional[int]], f: int, read_bf16: bool, cell_packed: bool,
-) -> torch.Tensor:
-    """Every level of one encoding: positions [N, D] (D = 3 or 4) in [0, 1]^D,
-    stds [N] or None (no level weight), L tables -> [N, L * f] fp32.
-
-    tables[l] is an fp32 tensor whose row-major memory is [buckets_l,
-    row_width] (see the module note); a view into a larger array serves the
-    legacy layout. CPU tensors go to the plain version, CUDA tensors to the
-    kernel; anything the kernel does not take raises."""
+def _check(positions, stds, tables, scales, buckets, dense_res, f, cell_packed) -> None:
     n_levels = len(tables)
     if not (len(scales) == len(buckets) == len(dense_res) == n_levels):
         raise ValueError("one scale, bucket count and dense resolution per table")
@@ -265,34 +364,122 @@ def hash_grid_encode(
             raise ValueError("tables must be contiguous float32 tensors on the positions' device")
         if tbl.numel() != n_buckets * row_width:
             raise ValueError(f"a table of {tbl.numel()} entries does not hold {n_buckets} rows of {row_width}")
+    if positions.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {positions.device}")
+    if positions.device.type == "cuda" and (f not in (1, 2, 4) or not 1 <= n_levels <= MAX_LEVELS):
+        raise ValueError(f"the kernel takes 1, 2 or 4 features a level and up to {MAX_LEVELS} levels")
+
+
+def _level_args(tables, buckets, dense_res, scales):
+    """The per-level host arrays of the kernels' C interface."""
+    n_levels = len(tables)
+    as_p = lambda arr: ctypes.cast(arr, ctypes.c_void_p)
+    return (
+        as_p((ctypes.c_void_p * n_levels)(*[t.data_ptr() for t in tables])),
+        as_p((ctypes.c_int * n_levels)(*[int(b) for b in buckets])),
+        as_p((ctypes.c_int * n_levels)(*[int(r or 0) for r in dense_res])),
+        as_p((ctypes.c_float * n_levels)(*[float(s) for s in scales])),
+    )
+
+
+def _forward(positions, stds, tables, scales, buckets, dense_res, f, read_bf16, cell_packed) -> torch.Tensor:
     if positions.device.type == "cpu":
         return hash_grid_encode_plain(positions, stds, tables, scales, buckets, dense_res, f, read_bf16, cell_packed)
-    if positions.device.type != "cuda":
-        raise ValueError(f"unsupported device {positions.device}")
-    if f not in (1, 2, 4) or not 1 <= n_levels <= MAX_LEVELS:
-        raise ValueError(f"the kernel takes 1, 2 or 4 features a level and up to {MAX_LEVELS} levels")
-    if torch.is_grad_enabled() and (positions.requires_grad or any(t.requires_grad for t in tables)):
-        raise NotImplementedError("the lookup's backward kernel is not ported yet: call under torch.no_grad()")
+    n, d = positions.shape
     positions = positions.contiguous()
     stds = None if stds is None else stds.contiguous()
-    out = torch.empty((n, n_levels * f), dtype=torch.float32, device=positions.device)
+    out = torch.empty((n, len(tables) * f), dtype=torch.float32, device=positions.device)
     lib = _build.load("hash_grid")
-    ptrs = (ctypes.c_void_p * n_levels)(*[t.data_ptr() for t in tables])
-    n_buckets = (ctypes.c_int * n_levels)(*[int(b) for b in buckets])
-    res = (ctypes.c_int * n_levels)(*[int(r or 0) for r in dense_res])
-    scl = (ctypes.c_float * n_levels)(*[float(s) for s in scales])
-    as_p = lambda arr: ctypes.cast(arr, ctypes.c_void_p)
     global hash_grid_launches
     with torch.cuda.device(positions.device):
         err = lib.hash_grid_fwd(
-            positions.data_ptr(), None if stds is None else stds.data_ptr(), as_p(ptrs), as_p(n_buckets), as_p(res),
-            as_p(scl), out.data_ptr(), n, n_levels, d, f, int(read_bf16), int(cell_packed),
-            torch.cuda.current_stream().cuda_stream,
+            positions.data_ptr(), None if stds is None else stds.data_ptr(),
+            *_level_args(tables, buckets, dense_res, scales), out.data_ptr(), n, len(tables), d, f, int(read_bf16),
+            int(cell_packed), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"hash_grid_fwd failed with CUDA error {err}")
     hash_grid_launches += 1
     return out
+
+
+def hash_grid_encode_bwd(
+    positions: torch.Tensor, stds: Optional[torch.Tensor], tables: Sequence[torch.Tensor], scales: Sequence[float],
+    buckets: Sequence[int], dense_res: Sequence[Optional[int]], f: int, read_bf16: bool, cell_packed: bool,
+    g: torch.Tensor, tables_grad: Sequence[bool] = None, positions_grad: bool = True, stds_grad: bool = True,
+) -> Tuple[Tuple[Optional[torch.Tensor], ...], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The lookup's backward (arguments and result as
+    `hash_grid_encode_bwd_plain`): CPU tensors go to the plain version, CUDA
+    tensors to the kernel; anything the kernel does not take raises."""
+    _check(positions, stds, tables, scales, buckets, dense_res, f, cell_packed)
+    n, d = positions.shape
+    if g.shape != (n, len(tables) * f) or g.dtype != torch.float32 or g.device != positions.device:
+        raise ValueError(f"g must be [{n}, {len(tables) * f}] float32 on the positions' device")
+    if positions.device.type == "cpu":
+        return hash_grid_encode_bwd_plain(positions, stds, tables, scales, buckets, dense_res, f, read_bf16,
+                                          cell_packed, g, tables_grad, positions_grad, stds_grad)
+    tables_grad = [True] * len(tables) if tables_grad is None else list(tables_grad)
+    positions, g = positions.contiguous(), g.contiguous()
+    stds = None if stds is None else stds.contiguous()
+    dtables = tuple(torch.zeros_like(t) if want else None for t, want in zip(tables, tables_grad))
+    dpos = torch.empty_like(positions) if positions_grad else None
+    dstd = torch.empty_like(stds) if (stds_grad and stds is not None) else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    dptrs = ctypes.cast((ctypes.c_void_p * len(tables))(*[ptr(t) for t in dtables]), ctypes.c_void_p)
+    lib = _build.load("hash_grid")
+    global hash_grid_bwd_launches
+    with torch.cuda.device(positions.device):
+        err = lib.hash_grid_bwd(
+            positions.data_ptr(), ptr(stds), *_level_args(tables, buckets, dense_res, scales), g.data_ptr(), dptrs,
+            ptr(dpos), ptr(dstd), n, len(tables), d, f, int(read_bf16), int(cell_packed),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"hash_grid_bwd failed with CUDA error {err}")
+    hash_grid_bwd_launches += 1
+    return dtables, dpos, dstd
+
+
+class HashGridLookup(torch.autograd.Function):
+    """The lookup under autograd: forward kernel and backward kernel on CUDA
+    tensors, the two plain versions on CPU tensors. Saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, positions, stds, layout, *tables):
+        ctx.layout = layout
+        ctx.save_for_backward(positions, stds, *tables)
+        return _forward(positions, stds, tables, *layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        positions, stds, *tables = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dtables, dpos, dstd = hash_grid_encode_bwd(
+            positions, stds, tables, *ctx.layout, g.contiguous(), tables_grad=need[3:], positions_grad=need[0],
+            stds_grad=need[1] and stds is not None,
+        )
+        return (dpos, dstd, None) + tuple(dtables)
+
+
+def hash_grid_encode(
+    positions: torch.Tensor, stds: Optional[torch.Tensor], tables: Sequence[torch.Tensor], scales: Sequence[float],
+    buckets: Sequence[int], dense_res: Sequence[Optional[int]], f: int, read_bf16: bool, cell_packed: bool,
+) -> torch.Tensor:
+    """Every level of one encoding: positions [N, D] (D = 3 or 4) in [0, 1]^D,
+    stds [N] or None (no level weight), L tables -> [N, L * f] fp32.
+
+    tables[l] is an fp32 tensor whose row-major memory is [buckets_l,
+    row_width] (see the module note); a view into a larger array serves the
+    legacy layout. CPU tensors go to the plain versions, CUDA tensors to the
+    kernels; anything the kernels do not take raises. Differentiable in the
+    positions, the stds and the tables."""
+    _check(positions, stds, tables, scales, buckets, dense_res, f, cell_packed)
+    layout = (tuple(float(s) for s in scales), tuple(int(b) for b in buckets), tuple(dense_res), f, bool(read_bf16),
+              bool(cell_packed))
+    inputs = (positions, stds, *tables)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return HashGridLookup.apply(positions, stds, layout, *tables)
+    return _forward(positions, stds, tables, *layout)
 
 
 # ---------------------------------------------------------------------------
@@ -382,3 +569,4 @@ def hash_encode_gaussians(
     if feats.shape[-2] == 1:  # the mean of one multisample is that multisample
         return feats[..., 0, :]
     return feats.mean(dim=-2)
+

@@ -6,6 +6,9 @@ this module needs neither JAX nor the JAX package. Layout changes:
   Conv kernels   flax HWIO [kh, kw, in, out] -> torch OIHW [out, in, kh, kw]
   Dense kernels  flax [in, out]              -> torch Linear [out, in]
 
+Any tree shaped like the parameters maps the same way, so the converters also
+carry the JAX package's gradients and optax's Adam moments across.
+
 Flax names convs in creation order: a BasicBlock whose input width differs
 from its output creates its 1x1 residual conv first (Conv_0), then the two
 kxk convs; otherwise the kxk convs are Conv_0 and Conv_1.
@@ -147,4 +150,15 @@ def neurad_params_from_flax(tree: Mapping, like: Mapping[str, torch.Tensor]) -> 
     sd.update(mlp_from_flax("lidar_decoder", p["lidar_decoder"]))
     for name, value in p.get("camera_optimizer", {}).items():
         sd[f"camera_optimizer.{name}"] = _t(value)
+    return sd
+
+
+def vgg_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params of `neurad_tpu.model_components.perceptual.Vgg19Slices`
+    (`conv_0` .. `conv_12`, HWIO kernels) -> state dict of the port's
+    `Vgg19Slices`."""
+    p = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {}
+    for name in sorted((k for k in p if k.startswith("conv_")), key=lambda k: int(k.split("_")[1])):
+        sd.update(_conv(name, p[name]))
     return sd

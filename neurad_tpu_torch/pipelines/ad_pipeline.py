@@ -1,18 +1,26 @@
 """AD pipeline (torch port of `neurad_tpu/pipelines/ad_pipeline.py`): builds
-the NeuRAD model from parsed data and renders full sensors chunk-wise: eval
-cameras and lidar scans, the viewer's camera frame and virtual lidar.
+the NeuRAD model from parsed data, trains it on ray batches, and renders full
+sensors chunk-wise (eval cameras and lidar scans, the viewer's camera frame
+and virtual lidar).
 
 The pipeline owns its model, and the model owns the parameters (the JAX
-pipeline carries them in a TrainState and takes it as an argument);
-`init_state` re-draws them from a seed. Training (`loss_fn`, the train step,
-VGG), the nerfacto models, the FID suite and the mesh-sharded eval branch are
-not ported yet.
+pipeline carries them in a TrainState). `init_state` makes the rest of the
+training state: the per-group optimizers, the step count and the generator of
+the step's random draws. `train_step` is the JAX package's
+`make_train_step`: the loss (`loss_fn`), the backward (the hash-grid lookup's
+backward kernel on a CUDA device), one update of every group. Random draws
+are explicit (`TrainDraws`), taken from the state's generator unless a caller
+passes them. Checkpoints hold the model, the optimizers, the step and both
+generators' states, for an exact resume. The nerfacto models, the FID suite,
+the mesh-sharded eval and the batched multi-host steps are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import math
+from pathlib import Path
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,12 +30,43 @@ from neurad_tpu_torch.cameras.cameras import CameraType, Cameras, full_image_coo
 from neurad_tpu_torch.core.structs import RayBundle, map_tensors
 from neurad_tpu_torch.data.datamanager import ADDataManager, ADDataManagerConfig
 from neurad_tpu_torch.data.dataparsers.base import ADDataparserOutputs
+from neurad_tpu_torch.engine.optimizers import (
+    DEFAULT_GROUP_RULES,
+    NEURAD_OPTIMIZER_GROUPS,
+    OptimizerGroupConfig,
+    Optimizers,
+)
+from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
 from neurad_tpu_torch.model_components.dynamic_actors import (
     ActorEdits,
     actor_data_from_trajectories,
     empty_actor_data,
 )
-from neurad_tpu_torch.models.neurad import NeuRADModel
+from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
+from neurad_tpu_torch.models.neurad import LossSettings, MLPProposalSettings, NeuRADModel, SamplingSettings
+
+CHECKPOINT_PATTERN = "step-*.pt"
+VGG_SEED = 1234
+# the settings types a model override may hold, by name (config.json stores them as dicts)
+_SETTINGS = {t.__name__: t for t in (LossSettings, SamplingSettings, MLPProposalSettings, StaticSettings,
+                                      ActorSettings)}
+
+
+def _encode(value):
+    if isinstance(value, tuple) and hasattr(value, "_fields"):
+        return {"__settings__": type(value).__name__, **{k: _encode(v) for k, v in value._asdict().items()}}
+    if isinstance(value, (tuple, list)):
+        return {"__tuple__": [_encode(v) for v in value]}
+    return value
+
+
+def _decode(value):
+    if isinstance(value, dict) and "__settings__" in value:
+        fields = {k: _decode(v) for k, v in value.items() if k != "__settings__"}
+        return _SETTINGS[value["__settings__"]](**fields)
+    if isinstance(value, dict) and "__tuple__" in value:
+        return tuple(_decode(v) for v in value["__tuple__"])
+    return value
 
 
 @dataclasses.dataclass
@@ -35,9 +74,52 @@ class ADPipelineConfig:
     datamanager: ADDataManagerConfig = dataclasses.field(default_factory=ADDataManagerConfig)
     model: str = "neurad"
     model_overrides: dict = dataclasses.field(default_factory=dict)
+    optimizer_groups: dict = dataclasses.field(default_factory=lambda: dict(NEURAD_OPTIMIZER_GROUPS))
     # rays per chunk of a full-sensor render: bounds the hash-lookup intermediates
     eval_chunk: int = 1 << 15
+    # rays per chunk of the train step's feature-field render (0: no chunking)
+    train_ray_chunk: int = 8192
     seed: int = 0
+
+    def to_dict(self) -> dict:
+        """Plain nested dict (json-serialisable), the inverse of `from_dict`."""
+        return dict(
+            datamanager=dataclasses.asdict(self.datamanager), model=self.model,
+            model_overrides={k: _encode(v) for k, v in self.model_overrides.items()},
+            optimizer_groups={k: dataclasses.asdict(v) for k, v in self.optimizer_groups.items()},
+            eval_chunk=self.eval_chunk, train_ray_chunk=self.train_ray_chunk, seed=self.seed,
+        )
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ADPipelineConfig":
+        return cls(
+            datamanager=ADDataManagerConfig(**d["datamanager"]), model=d["model"],
+            model_overrides={k: _decode(v) for k, v in d["model_overrides"].items()},
+            optimizer_groups={k: OptimizerGroupConfig(**v) for k, v in d["optimizer_groups"].items()},
+            eval_chunk=d["eval_chunk"], train_ray_chunk=d["train_ray_chunk"], seed=d["seed"],
+        )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What training carries besides the model's parameters."""
+
+    step: int
+    optimizers: Optimizers
+    generator: torch.Generator  # the step's random draws
+
+
+class ChunkDraws(NamedTuple):
+    """One feature-field render's random draws: the sampler's uniform jitter
+    per round ([R, 1] with single jitter, else [R, S + 1]) and the actor flip's
+    uniform draw per ray [R]."""
+
+    jitters: Tuple[torch.Tensor, ...]
+    flip: torch.Tensor
+
+
+# a train step's draws: one ChunkDraws per chunk of `train_ray_chunk` rays (one when the batch is not chunked)
+TrainDraws = List[ChunkDraws]
 
 
 class ADPipeline:
@@ -49,8 +131,15 @@ class ADPipeline:
         if self.config.model != "neurad":
             raise NotImplementedError(f"model {self.config.model!r} is not ported; only 'neurad' is")
         self.outputs = outputs
-        self.datamanager = ADDataManager(outputs, self.config.datamanager, device=self.device)
+        self.datamanager = ADDataManager(outputs, self.config.datamanager, device=self.device, seed=self.config.seed)
         self.model = self._build_model(self.config.seed)
+        self.num_cam_rays = self.datamanager.num_cam_rays
+        self.patch_size = self.datamanager.patch_shape
+        # the perceptual network, loaded once (pretrained weights from NEURAD_TPU_VGG19_WEIGHTS when that file
+        # exists, else a fixed random network)
+        self.vgg = None
+        if self.model.loss.vgg_mult > 0.0:
+            self.vgg = load_vgg19_params(torch.Generator().manual_seed(VGG_SEED), device=self.device)
 
     def _build_model(self, seed: int) -> NeuRADModel:
         outputs = self.outputs
@@ -74,12 +163,130 @@ class ADPipeline:
             model = NeuRADModel(generator=generator, **model_kwargs)
         return model.to(self.device).eval()
 
-    def init_state(self, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """Re-draw the model's parameters from a seed (the configuration's by
-        default) and return them (the model's state dict)."""
-        fresh = self._build_model(self.config.seed if seed is None else seed)
-        self.model.load_state_dict(fresh.state_dict())
-        return self.model.state_dict()
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """The training state around the model's parameters. As in the JAX
+        package, one training batch is drawn first (and dropped), so that the
+        batches that follow are the JAX package's."""
+        self.datamanager.next_train()
+        generator = torch.Generator(device=self.device).manual_seed(self.config.seed if seed is None else seed)
+        optimizers = Optimizers(self.model.named_parameters(), self.config.optimizer_groups, DEFAULT_GROUP_RULES)
+        return TrainState(step=0, optimizers=optimizers, generator=generator)
+
+    def _chunks(self, n_rays: int) -> List[int]:
+        """Ray counts of the train step's feature-field renders."""
+        chunk = self.config.train_ray_chunk
+        if chunk and n_rays > chunk:
+            return [chunk] * math.ceil(n_rays / chunk)
+        return [n_rays]
+
+    def draw(self, generator: torch.Generator, n_rays: int) -> TrainDraws:
+        """A train step's draws from `generator`, chunk by chunk: per proposal
+        round and the field's round one uniform jitter tensor, then the flip."""
+        sampling = self.model.sampling
+        counts = list(sampling.num_proposal_samples) + [sampling.num_nerf_samples]
+        draws = []
+        for r in self._chunks(n_rays):
+            jitters = tuple(
+                torch.rand((r, 1 if sampling.single_jitter else s + 1), generator=generator, device=self.device)
+                for s in counts
+            )
+            draws.append(ChunkDraws(jitters, torch.rand((r,), generator=generator, device=self.device)))
+        return draws
+
+    def loss_fn(self, bundle: RayBundle, batch: Dict[str, torch.Tensor], draws: TrainDraws
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of one batch. Above `train_ray_chunk` rays the
+        feature-field render runs chunk by chunk (modality from the rays'
+        `is_lidar`; the last chunk padded by repeating the last ray) and the
+        features are decoded once; otherwise `get_outputs` runs on the batch."""
+        model = self.model
+        n = bundle.origins.shape[0]
+        chunks = self._chunks(n)
+        if len(draws) != len(chunks):
+            raise ValueError(f"{len(draws)} sets of draws for {len(chunks)} chunks")
+        if len(chunks) > 1:
+            chunk = chunks[0]
+            total = chunk * len(chunks)
+            padded = map_tensors(lambda x: torch.cat([x, x[-1:].expand((total - n,) + x.shape[1:])], dim=0), bundle)
+            outs = []
+            for i, d in enumerate(draws):
+                piece = map_tensors(lambda x: x[i * chunk:(i + 1) * chunk], padded)
+                outs.append(model.get_nff_outputs(piece, 0, jitters=d.jitters, flip_draw=d.flip, train=True))
+            out = {k: torch.cat([o[k] for o in outs], dim=0)[:n] for k in outs[0]}
+            features = out.pop("features")
+            rgb, intensity, ray_drop_logits = model.decode_features(features, self.patch_size, self.num_cam_rays)
+            out["rgb"] = rgb
+            if intensity is not None:
+                out["intensity"] = intensity
+                out["ray_drop_logits"] = ray_drop_logits
+        else:
+            d = draws[0]
+            out = model.get_outputs(bundle, self.patch_size, self.num_cam_rays, jitters=d.jitters, flip_draw=d.flip,
+                                    train=True)
+        return model.compute_losses(out, batch, self.num_cam_rays, vgg=self.vgg)
+
+    def train_step(self, state: TrainState, bundle: RayBundle, batch: Dict[str, torch.Tensor],
+                   draws: Optional[TrainDraws] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One optimizer update: loss, backward, every group's step. Metrics
+        are detached tensors on the model's device."""
+        if draws is None:
+            draws = self.draw(state.generator, bundle.origins.shape[0])
+        total, metrics = self.loss_fn(bundle, batch, draws)
+        state.optimizers.zero_grad()
+        total.backward()
+        state.optimizers.step()
+        state.step += 1
+        metrics = dict(metrics)
+        metrics["total_loss"] = total.detach()
+        return state, metrics
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, state: TrainState, checkpoint_dir) -> Path:
+        """Write `step-<step>.pt`: the model's state dict, the optimizers'
+        state, the step, the generator's and the datamanager sampler's state."""
+        checkpoint_dir = Path(checkpoint_dir)
+        checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        path = checkpoint_dir / f"step-{state.step:09d}.pt"
+        tmp = path.with_suffix(".tmp")
+        torch.save(
+            {
+                "step": state.step,
+                "model": self.model.state_dict(),
+                "optimizers": state.optimizers.state_dict(),
+                "generator": state.generator.get_state(),
+                "datamanager_rng": self.datamanager.rng_state(),
+            },
+            tmp,
+        )
+        tmp.replace(path)
+        return path
+
+    @staticmethod
+    def latest_checkpoint(checkpoint_dir) -> Path:
+        found = sorted(Path(checkpoint_dir).glob(CHECKPOINT_PATTERN))
+        if not found:
+            raise FileNotFoundError(f"no checkpoint ({CHECKPOINT_PATTERN}) in {checkpoint_dir}")
+        return found[-1]
+
+    def load_checkpoint(self, checkpoint_dir, state: Optional[TrainState] = None) -> Optional[TrainState]:
+        """Load the newest checkpoint of `checkpoint_dir` into the model and,
+        when a training state is given, into it and the datamanager's sampler."""
+        ckpt = torch.load(self.latest_checkpoint(checkpoint_dir), map_location=self.device, weights_only=True)
+        self.model.load_state_dict(ckpt["model"])
+        if state is None:
+            return None
+        state.step = int(ckpt["step"])
+        state.optimizers.load_state_dict(ckpt["optimizers"])
+        state.generator.set_state(ckpt["generator"].cpu())
+        self.datamanager.set_rng_state(ckpt["datamanager_rng"])
+        return state
 
     # ------------------------------------------------------------------
     # chunked feature-field render

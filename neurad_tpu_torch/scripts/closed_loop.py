@@ -11,14 +11,14 @@ http.server (threaded; renders run under a lock):
 `ClosedLoopState` serves a pipeline (a `SplatADPipeline` or an `ADPipeline`
 with a NeuRAD model) and, optionally, a state dict for its model (for example
 one bridged from JAX params by `params_from_jax`);
-`ClosedLoopState.from_run_dir` rebuilds the pipeline of a SplatAD training run
-(`scripts/train.py`) and loads its newest checkpoint.
+`ClosedLoopState.from_run_dir` rebuilds the pipeline of a training run
+(`scripts/train.py`, SplatAD or NeuRAD) and loads its newest checkpoint.
 
     python -m neurad_tpu_torch.scripts.closed_loop --port 8000 [--method splatad|neurad|neurad-tiny]
         [--load-dir outputs/<run>] [--state-dict model.pt] [--seed 0] [--device cuda]
 
-serves the run's scene, or the synthetic scene without `--load-dir`. A NeuRAD
-state is built from `--seed` (there are no NeuRAD training runs to load yet).
+serves the run's scene, or the synthetic scene without `--load-dir` (a NeuRAD
+model then drawn from `--seed`).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from neurad_tpu_torch import resolve_device
+from neurad_tpu_torch.configs.method_configs import neurad_tiny_overrides
 from neurad_tpu_torch.core import poses as pose_utils
 from neurad_tpu_torch.model_components.dynamic_actors import actor_data_from_trajectories
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
@@ -159,23 +160,6 @@ def make_handler(cls_state: ClosedLoopState):
             pass
 
     return Handler
-
-
-def neurad_tiny_overrides() -> dict:
-    """Model overrides of the JAX package's `neurad-tiny` preset (CPU smoke widths)."""
-    from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
-    from neurad_tpu_torch.models.neurad import SamplingSettings
-
-    proposal = StaticSettings(num_levels=2, base_res=16, max_res=128, log2_hashmap_size=11, hashgrid_dim=1)
-    return dict(
-        sampling=SamplingSettings(num_proposal_samples=(12, 8), num_nerf_samples=6, sky_distance=1000.0),
-        field_static=StaticSettings(num_levels=4, base_res=16, max_res=256, log2_hashmap_size=13, hashgrid_dim=4),
-        field_actor=ActorSettings(num_levels=2, base_res=16, max_res=64, log2_hashmap_size=11, hashgrid_dim=4),
-        proposal_static=(proposal, proposal),
-        proposal_actor=ActorSettings(num_levels=2, base_res=16, max_res=64, log2_hashmap_size=9, hashgrid_dim=1),
-        appearance_dim=4,
-        max_actors_per_ray=1,
-    )
 
 
 def build_state(method: str = "splatad", device="cuda", seed: int = 0, outputs=None) -> ClosedLoopState:

@@ -1,14 +1,19 @@
 """Train a method on a dataset (torch port of `neurad_tpu/scripts/train.py`,
-the SplatAD branch on the synthetic scene).
+on the synthetic scene): the ray-based NeuRAD methods and SplatAD.
 
-    python -m neurad_tpu_torch.scripts.train splatad-tiny --max-iterations 100 --output-dir outputs
+    python -m neurad_tpu_torch.scripts.train neurad-tiny --device cpu --max-iterations 40 --output-dir outputs
+    python -m neurad_tpu_torch.scripts.train neurad --max-iterations 2000 --output-dir outputs
     python -m neurad_tpu_torch.scripts.train splatad --set pipeline.cap_max=200000 --dp-set image_height=480
-    python -m neurad_tpu_torch.scripts.train splatad --load-dir outputs/<run>      # resume
+    python -m neurad_tpu_torch.scripts.train neurad --load-dir outputs/<run>      # resume
 
 Runs on a CUDA device unless `--device cpu` is given. A run directory holds
 `config.json` (method, dataparser settings, the pipeline's configuration) and
-`checkpoints/step-<step>.pt`; `load_run` rebuilds a pipeline from it. The
-viewer, the periodic eval and the ray-based methods are not ported yet.
+`checkpoints/step-<step>.pt`; `load_run` rebuilds either pipeline from it. The
+presets live in `neurad_tpu_torch/configs/method_configs.py`. A NeuRAD run
+takes its batches from the datamanager's prefetch threads (`iter_train`), or
+from `next_train` when `prefetch` is 0; its log lines carry the train rays
+per second over the steps since the last line. The viewer, the periodic eval
+and TensorBoard are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,54 +23,19 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple, Union
+
+import torch
 
 from neurad_tpu_torch import resolve_device
+from neurad_tpu_torch.configs.method_configs import METHODS, TrainerConfig
 from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
-from neurad_tpu_torch.data.full_image_datamanager import FullImageLidarDataManagerConfig
-from neurad_tpu_torch.model_components.strategy import MCMCStrategyConfig
-from neurad_tpu_torch.models.splatad import SplatADConfig
-from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig, TrainState
+from neurad_tpu_torch.pipelines import ad_pipeline, splatad_pipeline
+from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
+from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
 
-
-@dataclasses.dataclass
-class TrainerConfig:
-    max_num_iterations: int = 30001
-    steps_per_save: int = 2000
-    steps_per_log: int = 100
-
-
-@dataclasses.dataclass
-class MethodConfig:
-    method_name: str
-    trainer: TrainerConfig
-    pipeline: SplatADPipelineConfig
-    dataparser: str = "synthetic"
-
-
-def _splatad(strategy: str = "mcmc") -> MethodConfig:
-    name = "splatad" if strategy == "mcmc" else "splatad-default"
-    return MethodConfig(name, TrainerConfig(), SplatADPipelineConfig(strategy=strategy))
-
-
-def _splatad_tiny() -> MethodConfig:
-    return MethodConfig(
-        "splatad-tiny",
-        TrainerConfig(max_num_iterations=100, steps_per_save=10**9, steps_per_log=10),
-        SplatADPipelineConfig(
-            datamanager=FullImageLidarDataManagerConfig(max_lidar_points=512),
-            model=SplatADConfig(num_downscales=0, feature_dim=8, appearance_dim=4, max_per_tile=64, lidar_max_per_tile=32),
-            mcmc=MCMCStrategyConfig(cap_max=2048, refine_start_iter=10, refine_every=25),
-            cap_max=2048,
-        ),
-    )
-
-
-METHODS: Dict[str, Callable[[], MethodConfig]] = {
-    "splatad": _splatad,
-    "splatad-default": lambda: _splatad("default"),
-    "splatad-tiny": _splatad_tiny,
-}
+Pipeline = Union[ADPipeline, SplatADPipeline]
+TrainState = Union[ad_pipeline.TrainState, splatad_pipeline.TrainState]
 
 
 def _parse(value: str, current):
@@ -90,8 +60,8 @@ def _with_override(obj, dotted: str, value: str):
     return obj
 
 
-def write_run_config(run_dir, method: str, dp_cfg: SyntheticDataParserConfig, pipeline_cfg: SplatADPipelineConfig,
-                     seed: int, overrides=()) -> Path:
+def write_run_config(run_dir, method: str, dp_cfg: SyntheticDataParserConfig,
+                     pipeline_cfg: Union[ADPipelineConfig, SplatADPipelineConfig], seed: int, overrides=()) -> Path:
     """Start a run directory: `config.json` holds what `load_run` needs to
     rebuild the scene and the pipeline."""
     run_dir = Path(run_dir)
@@ -103,21 +73,87 @@ def write_run_config(run_dir, method: str, dp_cfg: SyntheticDataParserConfig, pi
     return run_dir
 
 
-def load_run(run_dir, device="cuda", with_state: bool = False) -> Tuple[SplatADPipeline, Optional[TrainState]]:
+def _pipeline_classes(method: str):
+    """(pipeline class, its config class) of a method."""
+    if METHODS[method]().pipeline_type == "ad":
+        return ADPipeline, ADPipelineConfig
+    return SplatADPipeline, SplatADPipelineConfig
+
+
+def load_run(run_dir, device="cuda", with_state: bool = False) -> Tuple[Pipeline, Optional[TrainState]]:
     """Rebuild the pipeline of a run directory and load its newest checkpoint
     (and, with `with_state`, the training state to resume from)."""
+    device = resolve_device(device)
     run_dir = Path(run_dir)
     meta = json.loads((run_dir / "config.json").read_text())
     if meta["dataparser"] != "synthetic":
         raise NotImplementedError(f"dataparser {meta['dataparser']!r} is not ported")
+    if meta["method"] not in METHODS:
+        raise NotImplementedError(f"method {meta['method']!r} is not ported")
+    pipeline_cls, cfg_cls = _pipeline_classes(meta["method"])
     outputs = SyntheticDataParserConfig(**meta["dataparser_config"]).setup().get_dataparser_outputs()
-    pipeline = SplatADPipeline(outputs, SplatADPipelineConfig.from_dict(meta["pipeline"]), device=device)
+    pipeline = pipeline_cls(outputs, cfg_cls.from_dict(meta["pipeline"]), device=device)
     state = pipeline.init_state() if with_state else None
     pipeline.load_checkpoint(run_dir / "checkpoints", state)
     return pipeline, state
 
 
-def entrypoint(argv=None) -> Tuple[SplatADPipeline, TrainState]:
+def _log_step(i: int, metrics: Dict[str, torch.Tensor], extra: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+    out = {k: float(v) for k, v in metrics.items()}
+    out.update(extra or {})
+    print(f"[train] step {i}: " + ", ".join(f"{k}={v:.5g}" for k, v in out.items()), flush=True)
+    return out
+
+
+def train_batches(pipeline: Pipeline) -> Iterator[Tuple[tuple, Optional[int]]]:
+    """The training batches of a pipeline: (`train_step`'s arguments after the
+    state, the batch's ray count). A NeuRAD batch comes from the
+    datamanager's prefetch threads (`iter_train`), or from `next_train` when
+    `prefetch` is 0, and counts its rays; a SplatAD sample is a frame or a
+    scan and counts none. Closing the iterator stops the threads."""
+    dm = pipeline.datamanager
+    if not isinstance(pipeline, ADPipeline):
+        while True:
+            yield (dm.next_train(),), None
+    source = dm.iter_train() if dm.config.prefetch > 0 else iter(dm.next_train, None)
+    try:
+        for bundle, batch in source:
+            yield (bundle, batch), bundle.origins.shape[0]
+    finally:
+        dm.close()
+
+
+def train_loop(pipeline: Pipeline, state: TrainState, trainer: TrainerConfig,
+               ckpt_dir: Path) -> Tuple[TrainState, List[Dict[str, float]]]:
+    """Steps from `state.step` up to `trainer.max_num_iterations`: one
+    `train_step` a batch, a log line every `steps_per_log` steps and at the
+    last (with the train rays per second since the previous line, where the
+    batches count rays), a checkpoint every `steps_per_save`. Returns the
+    final state and the metrics of every log line."""
+    batches = train_batches(pipeline)
+    history: List[Dict[str, float]] = []
+    rays, t_window = 0, time.perf_counter()
+    try:
+        for i in range(state.step, trainer.max_num_iterations):
+            args, n_rays = next(batches)
+            state, m = pipeline.train_step(state, *args)
+            rays += n_rays or 0
+            if i % trainer.steps_per_log == 0 or i == trainer.max_num_iterations - 1:
+                extra = {}
+                if n_rays is not None:
+                    if pipeline.device.type == "cuda":
+                        torch.cuda.synchronize(pipeline.device)
+                    extra["train_rays_per_sec"] = rays / max(time.perf_counter() - t_window, 1e-9)
+                history.append(_log_step(i, m, extra))
+                rays, t_window = 0, time.perf_counter()
+            if i > 0 and i % trainer.steps_per_save == 0:
+                pipeline.save_checkpoint(state, ckpt_dir)
+    finally:
+        batches.close()
+    return state, history
+
+
+def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
     parser = argparse.ArgumentParser(description="Train a neurad_tpu_torch method")
     parser.add_argument("method", help=f"method name ({', '.join(METHODS)})")
     parser.add_argument("--dataparser", default=None, help="dataparser name (only 'synthetic' is ported)")
@@ -128,7 +164,7 @@ def entrypoint(argv=None) -> Tuple[SplatADPipeline, TrainState]:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--load-dir", default=None, help="run directory of a previous run to resume from")
     parser.add_argument("--set", action="append", default=[], metavar="PATH=VALUE",
-                        help="config override, e.g. trainer.steps_per_log=50 or pipeline.model.tile_size=8")
+                        help="config override, e.g. trainer.steps_per_log=50 or pipeline.train_ray_chunk=4096")
     parser.add_argument("--dp-set", action="append", default=[], metavar="KEY=VALUE",
                         help="dataparser config override (e.g. image_height=480)")
     args = parser.parse_args(argv)
@@ -158,22 +194,16 @@ def entrypoint(argv=None) -> Tuple[SplatADPipeline, TrainState]:
         exp_name = args.experiment_name or f"{args.method}-{time.strftime('%Y%m%d-%H%M%S')}"
         run_dir = write_run_config(Path(args.output_dir) / exp_name, args.method, dp_cfg, cfg.pipeline, args.seed,
                                    args.set)
-        pipeline = SplatADPipeline(dp_cfg.setup().get_dataparser_outputs(), cfg.pipeline, device=device)
+        pipeline_cls, _ = _pipeline_classes(args.method)
+        pipeline = pipeline_cls(dp_cfg.setup().get_dataparser_outputs(), cfg.pipeline, device=device)
         state = pipeline.init_state()
     ckpt_dir = run_dir / "checkpoints"
     print(f"[train] {args.method} on {dataparser}: {cfg.trainer.max_num_iterations} iterations from step "
           f"{state.step}, device={device}, run dir {run_dir}")
 
-    metrics: Dict[str, float] = {}
-    for i in range(state.step, cfg.trainer.max_num_iterations):
-        state, m = pipeline.train_step(state, pipeline.datamanager.next_train())
-        if i % cfg.trainer.steps_per_log == 0:
-            metrics = {k: float(v) for k, v in m.items()}
-            print(f"[train] step {i}: " + ", ".join(f"{k}={v:.5g}" for k, v in metrics.items()), flush=True)
-        if i > 0 and i % cfg.trainer.steps_per_save == 0:
-            pipeline.save_checkpoint(state, ckpt_dir)
+    state, history = train_loop(pipeline, state, cfg.trainer, ckpt_dir)
     pipeline.save_checkpoint(state, ckpt_dir)
-    print(f"[train] done: {json.dumps(metrics)}")
+    print(f"[train] done: {json.dumps(history[-1] if history else {})}")
     return pipeline, state
 
 

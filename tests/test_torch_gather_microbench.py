@@ -1,6 +1,7 @@
-"""The gather probes on the CPU: the shared plain version, the wrappers'
-argument checks and the script's `--device cpu` run at a tiny size. The
-kernels themselves run only on the card (`tests/test_torch_kernels_cuda.py`)."""
+"""The gather and scatter-add probes on the CPU: the shared plain versions,
+the wrappers' argument checks, the bounds' arithmetic and the script's
+`--device cpu` run at a tiny size. The kernels themselves run only on the card
+(`tests/test_torch_kernels_cuda.py`)."""
 
 import json
 
@@ -70,13 +71,68 @@ def test_script_runs_on_the_cpu_at_a_tiny_size(tmp_path, capsys):
     out = tmp_path / "gather.json"
     records = GM.entrypoint(["--device", "cpu", "--queries", "64", "--json", str(out)])
     names = [(r["name"], r["T"]) for r in records]
-    assert len(records) == 11, "three probes at four shapes, the one-hot product left out above 131072 rows"
+    assert len(records) == 22, "six probes at four shapes, the one-hot products left out above 131072 rows"
     assert ("onehot", 524288) not in names and ("onehot", 131072) in names and ("serial", 524288) in names
+    assert ("scatter_onehot", 524288) not in names and ("scatter_onehot", 131072) in names
+    assert ("scatter_blocked", 524288) in names and ("scatter_serial", 524288) in names
     for r in records:
         assert r["max_abs_err"] == 0.0 and r["ms"] > 0 and r["library_ms"] > 0 and r["bound_by"] == "bytes"
-        assert ("mechanism_ops_ms" in r) == (r["name"] == "onehot")
+        assert ("mechanism_ops_ms" in r) == (r["name"] in ("onehot", "scatter_onehot"))
     assert json.loads(out.read_text())[0]["name"] == "coalesced"
     assert "M rows/s" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GM.entrypoint(["--queries", "64"])
+
+
+@pytest.mark.parametrize("t_rows,f", [(64, 8), (256, 32), (100, 16), (7, 1)])
+def test_scatter_plain_version_is_a_row_scatter_add(t_rows, f):
+    rng = np.random.default_rng(t_rows)
+    idx = rng.integers(0, t_rows, 500).astype(np.int32)
+    g = rng.normal(size=(500, f)).astype(np.float32)
+    want = np.zeros((t_rows, f), np.float64)
+    np.add.at(want, idx, g.astype(np.float64))
+    ti, tg = torch.from_numpy(idx), torch.from_numpy(g)
+    got = GM.scatter_rows_plain(ti, tg, t_rows)
+    assert got.dtype == torch.float32 and got.shape == (t_rows, f)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    # the one-hot product's inputs are bf16: g is rounded before the fp32 sum
+    g16 = tg.to(torch.bfloat16).float().numpy()
+    assert np.abs(g16 - g).max() > 0
+    want16 = np.zeros((t_rows, f), np.float64)
+    np.add.at(want16, idx, g16.astype(np.float64))
+    np.testing.assert_allclose(GM.scatter_rows_plain(ti, tg, t_rows, round_bf16=True).numpy(), want16, atol=1e-5,
+                               rtol=1e-5)
+    if f in (8, 16, 32):
+        onehot = torch.nn.functional.one_hot(ti.long(), t_rows).float()
+        np.testing.assert_allclose((onehot.T @ torch.from_numpy(g16)).numpy(), want16, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(GM.scatter_rows_onehot(ti, tg, t_rows),
+                                   GM.scatter_rows_plain(ti, tg, t_rows, round_bf16=True), rtol=0, atol=0)
+        torch.testing.assert_close(GM.scatter_rows_blocked(ti, tg, t_rows), got, rtol=0, atol=0)
+    torch.testing.assert_close(GM.scatter_rows_serial(ti, tg, t_rows), got, rtol=0, atol=0)
+
+
+def test_scatter_wrappers_launch_nothing_on_the_cpu_and_check_arguments():
+    idx = torch.zeros(10, dtype=torch.int32)
+    g = torch.ones((10, 8))
+    GM.reset_launch_counts()
+    out = [fn(idx, g, 4) for fn in (GM.scatter_rows_onehot, GM.scatter_rows_blocked, GM.scatter_rows_serial)]
+    assert all(float(o[0, 0]) == 10.0 and float(o[1:].abs().sum()) == 0.0 for o in out)
+    assert (GM.scatter_onehot_launches, GM.scatter_blocked_launches, GM.scatter_serial_launches) == (0, 0, 0)
+    with pytest.raises(ValueError, match="float32"):
+        GM.scatter_rows_serial(idx, g.double(), 4)
+    with pytest.raises(ValueError, match="int32"):
+        GM.scatter_rows_blocked(idx.long(), g, 4)
+    with pytest.raises(ValueError, match="int32"):
+        GM.scatter_rows_onehot(idx[:5], g, 4)
+    with pytest.raises(ValueError, match="positive"):
+        GM.scatter_rows_serial(idx, g, 0)
+
+
+def test_scatter_bound_is_the_functions_bytes():
+    ms, by = GM.scatter_bound_ms(1 << 20, 131072, 32)
+    assert by == "bytes"
+    assert ms == pytest.approx(((1 << 20) * 4 + (1 << 20) * 32 * 4 + 131072 * 32 * 4) / 3.35e12 * 1e3)
+    assert GM.scatter_bound_ms(16, 64, 8)[0] == pytest.approx((64 + 16 * 32 + 64 * 32) / 3.35e12 * 1e3)
+    # the one-hot scatter's own product is the gather's transposed: the same operation count, far above the bound
+    assert GM.onehot_mechanism_ops_ms(1 << 20, 131072, 32) > 100 * ms

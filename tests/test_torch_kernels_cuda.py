@@ -229,10 +229,18 @@ def test_hash_grid_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         HE.hash_grid_encode(pos.double(), None, tables, *args)
     leaf = [t.clone().requires_grad_(True) for t in tables]
-    with pytest.raises(NotImplementedError, match="backward"):
-        HE.hash_grid_encode(pos, None, leaf, *args)
     with torch.no_grad():
         assert HE.hash_grid_encode(pos, None, leaf, *args).shape == (16, 16)
+    # under grad the lookup is the autograd function: forward and backward kernel, no plain fallback
+    before = (HE.hash_grid_launches, HE.hash_grid_bwd_launches)
+    out = HE.hash_grid_encode(pos, None, leaf, *args)
+    assert out.requires_grad
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (HE.hash_grid_launches, HE.hash_grid_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None and t.grad.device.type == "cuda" for t in leaf)
+    with pytest.raises(ValueError, match="g must be"):
+        HE.hash_grid_encode_bwd(pos, None, tables, *args, torch.zeros((16, 16), device="cuda").double())
 
 
 @pytest.mark.cuda
@@ -265,3 +273,143 @@ def test_gather_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         GM.gather_rows_onehot(table, idx.cpu())
     with pytest.raises(ValueError, match="16 bytes"):
         GM.gather_rows_coalesced(torch.zeros((64, 4), dtype=torch.bfloat16, device="cuda"), idx)
+
+
+# ---------------------------------------------------------------------------
+# the lookup's backward (K1b) and the scatter-add probes (P3, P4, P6): sums in
+# an order that atomics choose anew at every launch, so each entry is held to
+# BWD_TOL_SUM times the sum of the absolute values of its terms (the plain
+# versions' `magnitude`), and two launches may differ in the last bits.
+# ---------------------------------------------------------------------------
+
+BWD_TOL_SUM = 1e-5
+
+
+def _close_to_terms(got, want, magnitude, what):
+    if got is None or want is None:
+        assert got is None and want is None, what
+        return
+    err = (got - want).abs()
+    assert bool((err <= BWD_TOL_SUM * magnitude + 1e-30).all()), (what, float((err / (magnitude + 1e-30)).max()))
+
+
+def _bwd_case(d, f, cell_packed, read_bf16, seed, force_hash=False, n=5000, levels=4, max_rows=2**12):
+    scales, dense, packs, tables, gen = _grid(d, f, cell_packed, force_hash, seed, levels=levels, max_rows=max_rows)
+    pos = torch.rand((n, d), generator=gen, device="cuda")
+    pos[:64] = torch.round(pos[:64] * 8) / 8  # on cell faces of the coarse levels
+    pos[64:72] = torch.tensor([0.0, 1.0] * 4, device="cuda")[:, None]  # the box's faces
+    pos[72:200] = pos[72:73]  # one hot cell: many atomics on the same rows
+    std = torch.rand((n,), generator=gen, device="cuda") * (4.0 / float(scales[0]))  # clamped and not
+    g = torch.randn((n, len(tables) * f), generator=gen, device="cuda")
+    buckets = [t.shape[0] * pk for t, pk in zip(tables, packs)]
+    layout = ([float(s) for s in scales], buckets, dense, f, read_bf16, cell_packed)
+    return pos, std, tables, layout, g
+
+
+def _check_bwd(pos, std, tables, layout, g, **need):
+    before = HE.hash_grid_bwd_launches
+    got = HE.hash_grid_encode_bwd(pos, std, tables, *layout, g, **need)
+    again = HE.hash_grid_encode_bwd(pos, std, tables, *layout, g, **need)
+    torch.cuda.synchronize()
+    assert HE.hash_grid_bwd_launches == before + 2
+    want = HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g, **need)
+    mag = HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g, magnitude=True, **need)
+    for what, a, b, w, m in zip(("tables", "positions", "stds"), got, again, want, mag):
+        if what == "tables":
+            for l, (ta, tb, tw, tm) in enumerate(zip(a, b, w, m)):
+                _close_to_terms(ta, tw, tm, f"table {l}")
+                _close_to_terms(tb, tw, tm, f"table {l}, second launch")
+        else:
+            _close_to_terms(a, w, m, what)
+            _close_to_terms(b, w, m, f"{what}, second launch")
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 4])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("cell_packed", [True, False])
+@pytest.mark.parametrize("read_bf16", [True, False])
+def test_hash_grid_bwd_kernel_matches_plain(cuda, d, f, cell_packed, read_bf16):
+    pos, std, tables, layout, g = _bwd_case(d, f, cell_packed, read_bf16, seed=d * 10 + f)
+    got, want = _check_bwd(pos, std, tables, layout, g)
+    assert all(float(t.abs().max()) > 0 for t in want[0]) and float(want[1].abs().max()) > 0
+    assert bool((want[2] == 0).any()) and bool((want[2] != 0).any()), "clamped and unclamped level weights"
+    _check_bwd(pos, None, tables, layout, g)  # no level weight
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("read_bf16", [True, False])
+def test_hash_grid_bwd_kernel_packing_legacy_and_skipped_gradients(cuda, read_bf16):
+    # a level stored two buckets a row (D = 3 and 4)
+    for d in (3, 4):
+        pos, std, tables, layout, g = _bwd_case(d, 1, True, read_bf16, seed=d, levels=2, max_rows=2**19)
+        assert 2 in [t.shape[1] // (2**d) for t in tables]
+        _check_bwd(pos, std, tables, layout, g)
+    # the legacy single array: views into one array, one row per corner, hashed
+    table = HE.init_hash_table(torch.Generator(device="cuda").manual_seed(5), 3, 1024, 2, scale=1.0)
+    scales = HE.level_scales(3, 8, 64)
+    views = [table[i * 1024:(i + 1) * 1024] for i in range(3)]
+    layout = ([float(s) for s in scales], [1024] * 3, [None] * 3, 2, read_bf16, False)
+    pos = torch.rand((3000, 3), device="cuda")
+    g = torch.randn((3000, 6), device="cuda")
+    _check_bwd(pos, None, views, layout, g)
+    # gradients not asked for are skipped: no table gradient for level 0, no position gradient (no row re-read)
+    pos, std, tables, layout, g = _bwd_case(3, 4, True, read_bf16, seed=7)
+    got, _ = _check_bwd(pos, std, tables, layout, g, tables_grad=[False, True, True, True], positions_grad=False)
+    assert got[0][0] is None and got[1] is None and got[2] is not None
+    got, _ = _check_bwd(pos, std, tables, layout, g, positions_grad=False, stds_grad=False)
+    assert got[1] is None and got[2] is None
+
+
+@pytest.mark.cuda
+def test_hash_grid_autograd_function_runs_both_kernels(cuda):
+    pos, std, tables, layout, g = _bwd_case(3, 4, True, True, seed=11)
+    leaf = [t.clone().requires_grad_(True) for t in tables]
+    p = pos.clone().requires_grad_(True)
+    s = std.clone().requires_grad_(True)
+    before = (HE.hash_grid_launches, HE.hash_grid_bwd_launches)
+    HE.hash_grid_encode(p, s, leaf, *layout).backward(g)
+    torch.cuda.synchronize()
+    assert (HE.hash_grid_launches, HE.hash_grid_bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g)
+    mag = HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g, magnitude=True)
+    for t, w, m in zip(leaf, want[0], mag[0]):
+        _close_to_terms(t.grad, w, m, "table")
+    _close_to_terms(p.grad, want[1], mag[1], "positions")
+    _close_to_terms(s.grad, want[2], mag[2], "stds")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_rows,f", [(4096, 8), (4096, 16), (8192, 32), (1000, 32), (30000, 8)])
+@pytest.mark.parametrize("n", [1, 200, 40099])
+def test_scatter_probes_match_plain(cuda, t_rows, f, n):
+    gen = torch.Generator(device="cuda").manual_seed(n + f)
+    idx = torch.randint(0, t_rows, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    idx[0] = t_rows - 1
+    g = torch.randn((n, f), generator=gen, device="cuda")
+    magnitude = GM.scatter_rows_plain(idx, g.abs(), t_rows)
+    before = (GM.scatter_onehot_launches, GM.scatter_blocked_launches, GM.scatter_serial_launches)
+    for fn, rounded in ((GM.scatter_rows_onehot, True), (GM.scatter_rows_blocked, False),
+                        (GM.scatter_rows_serial, False)):
+        got = fn(idx, g, t_rows)
+        torch.cuda.synchronize()
+        want = GM.scatter_rows_plain(idx, g, t_rows, round_bf16=rounded)
+        assert got.dtype == torch.float32 and got.shape == (t_rows, f)
+        _close_to_terms(got, want, magnitude, fn.__name__)
+    assert (GM.scatter_onehot_launches, GM.scatter_blocked_launches, GM.scatter_serial_launches) == tuple(
+        b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_scatter_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    idx = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    g = torch.zeros((4, 8), device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        GM.scatter_rows_serial(idx, g.to(torch.bfloat16), 16)
+    with pytest.raises(ValueError, match="int32"):
+        GM.scatter_rows_blocked(idx.long(), g, 16)
+    with pytest.raises(ValueError, match="device"):
+        GM.scatter_rows_onehot(idx.cpu(), g, 16)
+    with pytest.raises(ValueError, match="columns"):
+        GM.scatter_rows_onehot(idx, torch.zeros((4, 4), device="cuda"), 16)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import neurad_tpu_torch
+from neurad_tpu_torch.configs.method_configs import neurad_tiny_overrides
 from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
 from neurad_tpu_torch.scripts import closed_loop, train
@@ -37,6 +38,7 @@ def test_importing_every_module_loads_no_jax():
             "neurad_tpu_torch.fields.neurad_field", "neurad_tpu_torch.model_components.ray_samplers",
             "neurad_tpu_torch.models.neurad", "neurad_tpu_torch.data.datamanager",
             "neurad_tpu_torch.pipelines.ad_pipeline", "neurad_tpu_torch.benchmarks.gather_microbench"} <= set(mods)
+    assert {"neurad_tpu_torch.configs.method_configs", "neurad_tpu_torch.model_components.perceptual"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -109,7 +111,7 @@ def test_neurad_entry_points_need_cuda_unless_asked_for_cpu():
 
     outputs = SyntheticDataParserConfig(num_frames=2, image_height=12, image_width=18, lidar_channels=4,
                                         lidar_azimuths=12).setup().get_dataparser_outputs()
-    cfg = ADPipelineConfig(model_overrides=closed_loop.neurad_tiny_overrides())
+    cfg = ADPipelineConfig(model_overrides=neurad_tiny_overrides())
     for refused in (lambda: ADPipeline(outputs, cfg), lambda: ADDataManager(outputs),
                     lambda: closed_loop.build_state("neurad-tiny", outputs=outputs),
                     lambda: closed_loop.entrypoint(["--port", "0", "--method", "neurad-tiny"]),
@@ -133,3 +135,29 @@ def test_neurad_entry_points_need_cuda_unless_asked_for_cpu():
     assert all(torch.equal(mine[k], again[k]) for k in mine)
     assert any(not torch.equal(mine[k], other[k]) for k in mine if "hash_table" in k)
     assert not any(k.count("actors.") > 1 or ".hashgrid.actors." in k for k in mine), "actors are registered once"
+
+
+def test_neurad_train_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
+    """The NeuRAD train path: the train script, `load_run` and the server of a
+    NeuRAD run refuse without CUDA unless asked for the CPU; the backward of
+    a lookup on CPU tensors is the plain version (no kernel launch)."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
+    from neurad_tpu_torch.ops import hash_encoding as HE
+
+    argv = ["neurad-tiny", "--max-iterations", "1", "--output-dir", str(tmp_path), "--experiment-name", "r",
+            "--dp-set", "num_frames=2", "--dp-set", "image_height=18", "--dp-set", "image_width=24"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.entrypoint(argv)
+    assert not (tmp_path / "r").exists(), "refused before anything was written"
+    HE.reset_launch_counts()
+    pipeline, state = train.entrypoint(argv + ["--device", "cpu"])
+    assert state.step == 1 and pipeline.device.type == "cpu" and pipeline.datamanager.device.type == "cpu"
+    assert (HE.hash_grid_launches, HE.hash_grid_bwd_launches) == (0, 0)
+    for refused in (lambda: train.load_run(tmp_path / "r"), lambda: closed_loop.ClosedLoopState.from_run_dir(tmp_path / "r"),
+                    lambda: closed_loop.entrypoint(["--port", "0", "--load-dir", str(tmp_path / "r")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            refused()
+    assert closed_loop.ClosedLoopState.from_run_dir(tmp_path / "r", device="cpu").pipeline.device.type == "cpu"
+    assert next(load_vgg19_params().parameters()).device.type == "cpu"
