@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Builds every CUDA kernel from `neurad_tpu_torch/csrc/` (nvcc, sm_90a; one
-   nvcc per source, started together).
+   nvcc per source, started together) and prints ptxas's report of every
+   kernel instantiation (registers, stack frame, spills, static shared
+   memory); the lookup's backward must keep no stack frame.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the full-width shapes of the main paths (camera tile composite and
    its backward: T=8160 tiles x P=256 pixels x K=256 slots, C=16; lidar tile
@@ -44,9 +46,10 @@
    under torch.profiler; the lookup kernel must launch twice per chunk of
    32,768 rays. Before it, the lookup's backward (K1b) at a train chunk's full
    width (static grid: 8,192 rays x 32 samples from the scene's cameras, bf16
-   and fp32 reads; actor grid: N=32,768, D=4; the unpacked layout of
-   `neurad-parity`) is held against its plain version, and the probe run
-   includes the three scatter-add probes beside index_add_.
+   and fp32 reads; the same N in one cell of the coarsest level; actor grid:
+   N=32,768, D=4; the unpacked layout of `neurad-parity`) is held against its
+   plain version, and the probe run includes the three scatter-add probes
+   beside index_add_.
 6. NeuRAD train phase: the `neurad` preset at full width (57,344 rays a batch
    in 7 chunks of 8,192, VGG on, five Adam groups), livened weights, 5 steps
    through `ADPipeline.train_step` (K1f and K1b twice a chunk), 4 more through
@@ -389,6 +392,39 @@ def kernel_phase(rng):
 
 
 
+def ptxas_report():
+    """ptxas's report of every kernel instantiation, from the build logs in
+    `_build/<library>.log`: [{library, kernel (name<template arguments>),
+    registers, stack, spill_stores, spill_loads, smem}] (smem: static shared
+    memory; dynamic shared memory is set at the launch)."""
+    import re
+
+    from neurad_tpu_torch.ops import _build
+
+    rows = []
+    for lib in sorted(_build.LIBRARIES):
+        path = _build.BUILD_DIR / f"{lib}.log"
+        if not path.exists():
+            continue
+        cur = None
+        for line in path.read_text().splitlines():
+            m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'", line)
+            if m:
+                name, rest = m[2][:int(m[1])], m[2][int(m[1]):]
+                args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0] + "E") if rest.startswith("I") else []
+                cur = dict(library=lib, kernel=f"{name}<{','.join(args)}>" if args else name)
+                rows.append(cur)
+            elif cur is not None:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    cur.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    smem = re.search(r"(\d+) bytes smem", line)
+                    cur.update(registers=int(m[1]), smem=int(smem[1]) if smem else 0)
+    return rows
+
+
 def _hash_grid_case(label, settings, d, n, gen, results):
     """One full-width lookup: the grid of `settings` with random O(1) tables,
     n seeded positions and stds, kernel against plain (must be equal), times,
@@ -541,18 +577,24 @@ def _hash_grid_bwd_case(label, settings, d, pos, std, gen, results, modes=(True,
 
 def hash_grid_bwd_phase(outputs, rng):
     """K1b at a train chunk's full width: the `neurad` preset's static grid on
-    positions from the scene's cameras (bf16 and fp32 reads), its actor grid
-    (N = the compacted lookup's capacity, D = 4), and the unpacked layout of
-    `neurad-parity` (fp32 reads)."""
+    positions from the scene's cameras (bf16 and fp32 reads) and on as many
+    positions in one cell of its coarsest level (bf16: every update of a
+    level lands on one row), its actor grid (N = the compacted lookup's
+    capacity, D = 4), and the unpacked layout of `neurad-parity` (fp32
+    reads)."""
     import torch
 
-    from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
+    from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, HashGrid, StaticSettings
 
     gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
     pos, std = _train_chunk_gaussians(outputs, gen)
     require(bool(((pos >= 0) & (pos <= 1)).all()), "contracted positions lie in [0, 1]^3")
     results = {}
     _hash_grid_bwd_case("hash_grid_bwd_static", StaticSettings(), 3, pos, std, gen, results)
+    scale0 = float(HashGrid(StaticSettings(), 3).scales[0])
+    cell = torch.randint(0, int(scale0), (3,), generator=gen, device=DEVICE)
+    hot = (cell + torch.rand(pos.shape, generator=gen, device=DEVICE)) / scale0
+    _hash_grid_bwd_case("hash_grid_bwd_hot_cell", StaticSettings(), 3, hot, std, gen, results, modes=(True,))
     n_actor = pos.shape[0] // 8
     pos4 = torch.cat([0.35 + 0.3 * torch.rand((n_actor, 3), generator=gen, device=DEVICE),
                       torch.zeros((n_actor, 1), device=DEVICE)], dim=-1)  # inside an actor's box, actor 0
@@ -801,7 +843,12 @@ def train_phase(outputs):
     for kind, sample in (("camera", cam_sample), ("lidar", lid_sample)):
         while should_refine(state.step + 1, cfg.mcmc):  # keep the refine out of the profiled step
             state, _ = pipeline.train_step(state, sample)
-        profile[kind] = profiled(f"{kind} train step", lambda: pipeline.train_step(state, sample), rows=22)
+        bwd_kernel = f"{kind}_bwd_kernel"
+        profile[kind] = profiled(f"{kind} train step", lambda: pipeline.train_step(state, sample), rows=22,
+                                 match=bwd_kernel)
+        log(f"[train] profiled {kind} step: {bwd_kernel} {profile[kind]['matched_ms']:.3f} ms in "
+            f"{profile[kind]['matched_launches']} launch(es) of {profile[kind]['device_busy_ms']:.2f} ms busy")
+        require(profile[kind]["matched_launches"] == 1, f"the profiled {kind} step launched its backward kernel once")
 
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         run_dir = write_run_config(Path(tmp) / "run", "splatad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
@@ -1350,12 +1397,14 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name in libs:
-        log_path = _build.BUILD_DIR / f"{name}.log"
-        if log_path.exists():
-            for line in log_path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
+    ptxas = ptxas_report()
+    for r in ptxas:
+        log(f"[ptxas] {r['library']}: {r['kernel']}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+            f"frame, {r.get('spill_stores')}/{r.get('spill_loads')} bytes spill stores/loads, {r.get('smem')} bytes "
+            f"static shared memory")
+    k1b_ptxas = [r for r in ptxas if r["kernel"].startswith(HASH_BWD_KERNEL + "<")]
+    require(len(k1b_ptxas) == 24 and all(r.get("stack") == 0 for r in k1b_ptxas),
+            "every instantiation of the lookup's backward (D, F, read type, layout) keeps no stack frame")
 
     rng = np.random.default_rng(SEED)
     kernels = kernel_phase(rng)
@@ -1437,7 +1486,7 @@ def main() -> int:
     require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 12,
             "all twelve kernels were launched on their main path")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
-                  hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res,
+                  hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res, ptxas=ptxas,
                   neurad_train=neurad_train_res, train=train_res, reference=ref,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

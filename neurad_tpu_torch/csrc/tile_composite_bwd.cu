@@ -37,27 +37,42 @@
 // cotangents (0.15 GB) plus the atomic traffic into d_table (up to
 // T*K*26*4 B = 0.22 GB, read and written), about 0.25 ms at 3.35 TB/s. So
 // fp32 arithmetic binds, and after it the reduction over a block's pixels
-// (shuffles) and the atomics on hot rows. This kernel walks the pairs twice
-// (once for G, once for the gradients), so it evaluates alpha and the payload
-// gradient a second time: about 220 operations a pair, the second pass being
-// its own overhead and no part of the bound.
+// (shuffles) and the atomics on hot rows.
 //
-// What the design does about it. One block per tile, one thread per pixel or
-// query slot, 256 slots staged in shared memory at a time (the stage and the
-// gated alpha are shared with the forward kernels, so both take the same side
-// of the 1/255 step). The thread holds its cotangents in registers. Pass 1 is
-// the forward loop again, accumulating G. Pass 2 walks the slots in the same
-// order carrying T_k and P_k; for each slot a warp whose 32 pixels all have
-// alpha 0 skips it (every term is then zero), the others reduce their 10 + C
-// per-pixel terms over the warp with a transposing butterfly (31 shuffles for
-// 32 columns instead of 5 each: after it lane l holds column l's sum), and
-// lane l adds column l to d_table with one global atomicAdd (a reduction at
-// the L2: the warp's 10 + C lanes hit consecutive addresses of one row). So a
-// row receives one add per warp that touches it: up to P / 32 per tile. A
+// What the designs share. One block per tile, one thread per pixel or query
+// slot (a tile with more is walked in rounds of 256); the thread holds its
+// cotangents in registers and walks the slots front to back, carrying T_k and
+// P_k; for each slot a warp whose 32 pixels all have alpha 0 skips it (every
+// term is then zero), the others reduce their 10 + C per-pixel terms over the
+// warp with a transposing butterfly (31 shuffles for 32 columns instead of 5
+// each: after it lane l holds column l's sum), and lane l adds column l to
+// d_table with one global atomicAdd (a reduction at the L2: the warp's 10 + C
+// lanes hit consecutive addresses of one row). So a row receives one add per
+// warp that touches it: up to P / 32 per tile. The gated alpha is the
+// forward's `slot_terms`, so both take the same side of the 1/255 step. A
 // first version summed the warps of a block in shared memory before going to
 // global memory; shared-memory float atomics on addresses that eight warps
 // share took most of the kernel's time. Atomics make the order of these fp32
 // sums vary from run to run.
+//
+// K3 (camera) walks the pairs once. G is not recomputed: the forward kernel
+// writes the raw sums feat = sum_k w_k f_k, depth = sum_k w_k d_k and
+// alpha = sum_k w_k (no early termination, no normalisation), so
+//   G = <gF, feat> + gD depth + gA alpha
+// per pixel, and the autograd function hands the forward's outputs to the
+// backward. That removes a second walk of every pair (the forward loop again,
+// about 70 of the ~220 operations a pair). The slots stream through two
+// shared-memory buffers of CAM_CHUNK slots: the next chunk's packed
+// attributes, validity and index entries are copied with cp.async while the
+// current chunk is composited. The carry stays front to back: a back-to-front
+// walk (gsplat's order) needs T_k = T_{k+1} / (1 - a_k) from T_final =
+// 1 - alpha, which is lost once T_final underflows (0.001^13 is below fp32's
+// normal range); front to back, the cancellation in G - P_k is rounding of
+// sums of the same |w_j g_j| terms the tolerance is stated in.
+//
+// K5 (lidar) keeps two passes (pass 1 is the forward loop again, for G,
+// which then includes the line-of-sight term) over a 256-slot stage loaded
+// between rounds.
 
 #include "tile_composite_common.cuh"
 
@@ -66,6 +81,7 @@ namespace {
 using namespace tile_composite;
 
 constexpr int MAX_THREADS = 256;  // a tile with more pixels is walked in rounds of 256
+constexpr int CAM_CHUNK = 128;    // slots in each of K3's two stage buffers
 
 // One step of the transposing butterfly: lanes whose bit S is set keep the
 // upper S of the 2 S remaining columns and send the lower S, the others the
@@ -93,11 +109,191 @@ __device__ __forceinline__ float warp_sum_columns(float (&v)[32], int lane) {
   return v[0];
 }
 
-// LIDAR = false: coords = pix [T, P, 2], aux = times [T, P], g_until unused.
-// LIDAR = true:  coords = pts [T, P, 4] (azimuth, elevation, gt depth, time),
-//                aux = vmask [T, P].
-template <int CMAX, bool LIDAR>
-__global__ void __launch_bounds__(MAX_THREADS) composite_bwd_kernel(
+// The 10 + C column terms of one (pixel, slot) pair whose alpha passed the
+// gate, given the pair's payload gradient g; carries the pixel's P_k (prefix)
+// and T_k (trans) past the slot.
+template <int CMAX, int ROUNDS>
+__device__ __forceinline__ void pair_terms(const float* __restrict__ a, const SlotTerms& st, float g, float t,
+                                           float gd, const float (&gf)[CMAX], float total, float& prefix,
+                                           float& trans, float (&v)[ROUNDS][32]) {
+  const float w = st.alpha * trans;
+  prefix += w * g;
+  const bool flat = !(st.alpha_pre < 0.999f) || !(st.sigma_raw > 0.f) || !(st.sigma_raw < 50.f);
+  const float d_alpha = flat ? 0.f : trans * g - (total - prefix) / (1.f - st.alpha);
+  const float d_sigma = -st.alpha * d_alpha;
+  const float ddx = d_sigma * (a[4] * st.dx + a[5] * st.dy);
+  const float ddy = d_sigma * (a[6] * st.dy + a[5] * st.dx);
+  const float w_gd = w * gd;
+  v[0][0] = -ddx;
+  v[0][1] = -ddy;
+  v[0][2] = -ddx * t;
+  v[0][3] = -ddy * t;
+  v[0][4] = 0.5f * st.dx * st.dx * d_sigma;
+  v[0][5] = st.dx * st.dy * d_sigma;
+  v[0][6] = 0.5f * st.dy * st.dy * d_sigma;
+  v[0][7] = d_alpha * st.exp_neg;
+  v[0][8] = w_gd;
+  v[0][9] = w_gd * t;
+#pragma unroll
+  for (int ci = 0; ci < CMAX; ++ci) v[(ATTR + ci) / 32][(ATTR + ci) % 32] = w * gf[ci];
+  trans *= (1.f - st.alpha);
+}
+
+// Sum the pair terms over the warp and add column l (lane l) to the slot's row.
+template <int ROUNDS>
+__device__ __forceinline__ void add_columns(float (&v)[ROUNDS][32], int lane, int width, int row,
+                                            float* __restrict__ d_table) {
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    float sum = warp_sum_columns(v[r], lane);
+    const int col = r * 32 + lane;
+    if (col < width && row >= 0 && sum != 0.f) atomicAdd(&d_table[(int64_t)row * width + col], sum);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: camera, one pass, the stage double-buffered with cp.async
+// ---------------------------------------------------------------------------
+
+// CAM_CHUNK slots of one tile in shared memory
+template <int CMAX>
+struct CamStage {
+  float attr[CAM_CHUNK * ATTR];
+  float feat[CAM_CHUNK * CMAX];
+  float valid[CAM_CHUNK];
+  int gauss[CAM_CHUNK];  // the index list's entries as given (unclamped)
+};
+
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Start the copy of slots [k0, k0 + n) of the tile whose index list starts at
+// `base` into s: every thread issues its share and commits one group.
+template <int CMAX>
+__device__ __forceinline__ void issue_chunk(CamStage<CMAX>& s, const float* __restrict__ table, int n_gauss, int c,
+                                            const int* __restrict__ tile_gauss, const float* __restrict__ tile_valid,
+                                            int64_t base, int k0, int n) {
+  const int width = ATTR + c;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    cp_async4(&s.gauss[j], tile_gauss + base + k0 + j);
+    cp_async4(&s.valid[j], tile_valid + base + k0 + j);
+  }
+  for (int e = threadIdx.x; e < n * width; e += blockDim.x) {
+    const int j = e / width;
+    const int col = e - j * width;
+    const int g = min(max(__ldg(tile_gauss + base + k0 + j), 0), n_gauss - 1);
+    float* dst = col < ATTR ? &s.attr[j * ATTR + col] : &s.feat[j * CMAX + col - ATTR];
+    cp_async4(dst, table + (int64_t)g * width + col);
+  }
+  cp_async_commit();
+}
+
+template <int CMAX>
+__global__ void __launch_bounds__(MAX_THREADS) camera_bwd_kernel(
+    const float* __restrict__ table, int n_gauss, int c, const int* __restrict__ tile_gauss,
+    const float* __restrict__ tile_valid, const float* __restrict__ pix, const float* __restrict__ times, int p,
+    int k, const float* __restrict__ feat_out, const float* __restrict__ depth_out,
+    const float* __restrict__ alpha_out, const float* __restrict__ g_feat, const float* __restrict__ g_depth,
+    const float* __restrict__ g_alpha, float* __restrict__ d_table) {
+  constexpr int ROUNDS = (ATTR + CMAX + 31) / 32;  // 32-column groups of the 10 + C terms
+  __shared__ CamStage<CMAX> stage[2];
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int width = ATTR + c;
+  const int64_t base = (int64_t)tile * k;
+  const int n_chunks = (k + CAM_CHUNK - 1) / CAM_CHUNK;
+
+  // feature columns c .. CMAX - 1 stay zero in both buffers: the copies never write them (made visible to
+  // every thread by the first chunk's barrier)
+  const int pad = CMAX - c;
+  for (int e = threadIdx.x; e < 2 * CAM_CHUNK * pad; e += blockDim.x) {
+    const int b = e / (CAM_CHUNK * pad);
+    const int r = e - b * (CAM_CHUNK * pad);
+    const int j = r / pad;
+    stage[b].feat[j * CMAX + c + (r - j * pad)] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < p; q0 += blockDim.x) {
+    issue_chunk<CMAX>(stage[0], table, n_gauss, c, tile_gauss, tile_valid, base, 0, min(CAM_CHUNK, k));
+    const int q = q0 + threadIdx.x;
+    const bool active = q < p;
+    const int64_t slot = (int64_t)tile * p + q;
+    float x = 0.f, y = 0.f, t = 0.f, gd = 0.f, ga = 0.f, total = 0.f;
+    float gf[CMAX];
+#pragma unroll
+    for (int ci = 0; ci < CMAX; ++ci) gf[ci] = 0.f;
+    if (active) {
+      x = pix[slot * 2];
+      y = pix[slot * 2 + 1];
+      t = times[slot];
+      gd = g_depth[slot];
+      ga = g_alpha[slot];
+      // G = sum_k w_k g_k from the forward's raw sums
+      total = ga * alpha_out[slot] + gd * depth_out[slot];
+#pragma unroll
+      for (int ci = 0; ci < CMAX; ++ci) {
+        if (ci < c) {
+          gf[ci] = g_feat[slot * c + ci];
+          total += gf[ci] * feat_out[slot * c + ci];
+        }
+      }
+    }
+
+    float prefix = 0.f, trans = 1.f;
+    for (int r = 0; r < n_chunks; ++r) {
+      if (r + 1 < n_chunks) {
+        const int k1 = (r + 1) * CAM_CHUNK;
+        issue_chunk<CMAX>(stage[(r + 1) & 1], table, n_gauss, c, tile_gauss, tile_valid, base, k1,
+                          min(CAM_CHUNK, k - k1));
+        cp_async_wait<1>();  // this thread's copies of chunk r have landed ...
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // ... and every thread's
+      const CamStage<CMAX>& s = stage[r & 1];
+      const int n = min(CAM_CHUNK, k - r * CAM_CHUNK);
+      for (int j = 0; j < n; ++j) {
+        if (!(s.valid[j] > 0.f)) continue;  // same j in every thread
+        const float* a = &s.attr[j * ATTR];
+        SlotTerms st = slot_terms(a, true, x, y, t, false, active);
+        if (!__any_sync(0xffffffffu, st.alpha > 0.f)) continue;  // every term of this warp is zero
+        float v[ROUNDS][32];
+#pragma unroll
+        for (int rr = 0; rr < ROUNDS; ++rr) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) v[rr][i] = 0.f;
+        }
+        if (st.alpha > 0.f) {
+          const float* f = &s.feat[j * CMAX];
+          float g = ga + gd * slot_depth(a, t);
+#pragma unroll
+          for (int ci = 0; ci < CMAX; ++ci) g += gf[ci] * f[ci];
+          pair_terms<CMAX, ROUNDS>(a, st, g, t, gd, gf, total, prefix, trans, v);
+        }
+        const int gauss = s.gauss[j];
+        add_columns<ROUNDS>(v, lane, width, (gauss >= 0 && gauss < n_gauss) ? gauss : -1, d_table);
+      }
+      __syncthreads();  // buffer r & 1 is free for chunk r + 2
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: lidar, two passes over a 256-slot stage
+// ---------------------------------------------------------------------------
+
+// coords = pts [T, P, 4] (azimuth, elevation, gt depth, time), aux = vmask [T, P].
+template <int CMAX>
+__global__ void __launch_bounds__(MAX_THREADS) lidar_bwd_kernel(
     const float* __restrict__ table, int n_gauss, int c, const int* __restrict__ tile_gauss,
     const float* __restrict__ tile_valid, const float* __restrict__ coords, const float* __restrict__ aux,
     int p, int k, int wrap, float depth_eps, const float* __restrict__ g_feat, const float* __restrict__ g_depth,
@@ -119,18 +315,12 @@ __global__ void __launch_bounds__(MAX_THREADS) composite_bwd_kernel(
 #pragma unroll
     for (int ci = 0; ci < CMAX; ++ci) gf[ci] = 0.f;
     if (active) {
-      if (LIDAR) {
-        x = coords[slot * 4];
-        y = coords[slot * 4 + 1];
-        gt = coords[slot * 4 + 2];
-        t = coords[slot * 4 + 3];
-        slot_ok = aux[slot] > 0.f;
-        gu = g_until[slot];
-      } else {
-        x = coords[slot * 2];
-        y = coords[slot * 2 + 1];
-        t = aux[slot];
-      }
+      x = coords[slot * 4];
+      y = coords[slot * 4 + 1];
+      gt = coords[slot * 4 + 2];
+      t = coords[slot * 4 + 3];
+      slot_ok = aux[slot] > 0.f;
+      gu = g_until[slot];
       gd = g_depth[slot];
       ga = g_alpha[slot];
 #pragma unroll
@@ -139,7 +329,7 @@ __global__ void __launch_bounds__(MAX_THREADS) composite_bwd_kernel(
       }
     }
     const float before_depth = __fsub_rn(gt, depth_eps);
-    const bool do_wrap = LIDAR && wrap != 0;
+    const bool do_wrap = wrap != 0;
 
     // pass 1: the forward loop again, for G = sum_k w_k g_k
     float total = 0.f, trans = 1.f;
@@ -155,7 +345,7 @@ __global__ void __launch_bounds__(MAX_THREADS) composite_bwd_kernel(
         float d = slot_depth<CMAX>(s, j, t);
         const float* f = &s.feat[j * CMAX];
         float g = ga + gd * d;
-        if (LIDAR && d < before_depth) g += gu;
+        if (d < before_depth) g += gu;
 #pragma unroll
         for (int ci = 0; ci < CMAX; ++ci) g += gf[ci] * f[ci];
         total += alpha * trans * g;
@@ -190,77 +380,45 @@ __global__ void __launch_bounds__(MAX_THREADS) composite_bwd_kernel(
           float d = slot_depth<CMAX>(s, j, t);
           const float* f = &s.feat[j * CMAX];
           float g = ga + gd * d;
-          if (LIDAR && d < before_depth) g += gu;
+          if (d < before_depth) g += gu;
 #pragma unroll
           for (int ci = 0; ci < CMAX; ++ci) g += gf[ci] * f[ci];
-          const float w = st.alpha * trans;
-          prefix += w * g;
-          const bool flat = !(st.alpha_pre < 0.999f) || !(st.sigma_raw > 0.f) || !(st.sigma_raw < 50.f);
-          const float d_alpha = flat ? 0.f : trans * g - (total - prefix) / (1.f - st.alpha);
-          const float d_sigma = -st.alpha * d_alpha;
-          const float ddx = d_sigma * (a[4] * st.dx + a[5] * st.dy);
-          const float ddy = d_sigma * (a[6] * st.dy + a[5] * st.dx);
-          const float w_gd = w * gd;
-          v[0][0] = -ddx;
-          v[0][1] = -ddy;
-          v[0][2] = -ddx * t;
-          v[0][3] = -ddy * t;
-          v[0][4] = 0.5f * st.dx * st.dx * d_sigma;
-          v[0][5] = st.dx * st.dy * d_sigma;
-          v[0][6] = 0.5f * st.dy * st.dy * d_sigma;
-          v[0][7] = d_alpha * st.exp_neg;
-          v[0][8] = w_gd;
-          v[0][9] = w_gd * t;
-#pragma unroll
-          for (int ci = 0; ci < CMAX; ++ci) v[(ATTR + ci) / 32][(ATTR + ci) % 32] = w * gf[ci];
-          trans *= (1.f - st.alpha);
+          pair_terms<CMAX, ROUNDS>(a, st, g, t, gd, gf, total, prefix, trans, v);
         }
-#pragma unroll
-        for (int r = 0; r < ROUNDS; ++r) {
-          float sum = warp_sum_columns(v[r], lane);
-          const int col = r * 32 + lane;
-          if (col < width && row[j] >= 0 && sum != 0.f) atomicAdd(&d_table[(int64_t)row[j] * width + col], sum);
-        }
+        add_columns<ROUNDS>(v, lane, width, row[j], d_table);
       }
     }
   }
 }
 
-template <bool LIDAR>
-int launch(const float* table, int n_gauss, int c, const int* tile_gauss, const float* tile_valid,
-           const float* coords, const float* aux, int n_tiles, int p, int k, int wrap, float depth_eps,
-           const float* g_feat, const float* g_depth, const float* g_alpha, const float* g_until, float* d_table,
-           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_tiles), block(p < MAX_THREADS ? round_up_to_warp(p) : MAX_THREADS);
-  if (c <= 8) {
-    composite_bwd_kernel<8, LIDAR><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, coords, aux, p,
-                                                           k, wrap, depth_eps, g_feat, g_depth, g_alpha, g_until,
-                                                           d_table);
-  } else if (c <= 16) {
-    composite_bwd_kernel<16, LIDAR><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, coords, aux,
-                                                            p, k, wrap, depth_eps, g_feat, g_depth, g_alpha, g_until,
-                                                            d_table);
-  } else {
-    composite_bwd_kernel<32, LIDAR><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, coords, aux,
-                                                            p, k, wrap, depth_eps, g_feat, g_depth, g_alpha, g_until,
-                                                            d_table);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+dim3 block_for(int p) { return dim3(p < MAX_THREADS ? round_up_to_warp(p) : MAX_THREADS); }
 
 }  // namespace
 
-// C interface (loaded with ctypes). Inputs as tile_composite_camera_fwd plus the
-// cotangents g_feat [n_tiles, p, c], g_depth / g_alpha [n_tiles, p]; adds into
-// d_table [n_gauss, 10 + c], which the caller has zero-filled. c <= 32.
-// Returns cudaGetLastError() after the launch; the caller raises on non-zero.
+// C interface (loaded with ctypes). Inputs as tile_composite_camera_fwd, its
+// outputs feat [n_tiles, p, c], depth / alpha [n_tiles, p] on the same inputs,
+// and the cotangents g_feat [n_tiles, p, c], g_depth / g_alpha [n_tiles, p];
+// adds into d_table [n_gauss, 10 + c], which the caller has zero-filled.
+// c <= 32. Returns cudaGetLastError() after the launch; the caller raises on
+// non-zero.
 extern "C" int tile_composite_camera_bwd(const float* table, int n_gauss, int c, const int* tile_gauss,
                                          const float* tile_valid, const float* pix, const float* times,
-                                         int n_tiles, int p, int k, const float* g_feat, const float* g_depth,
+                                         int n_tiles, int p, int k, const float* feat, const float* depth,
+                                         const float* alpha, const float* g_feat, const float* g_depth,
                                          const float* g_alpha, float* d_table, void* stream) {
-  return launch<false>(table, n_gauss, c, tile_gauss, tile_valid, pix, times, n_tiles, p, k, 0, 0.f, g_feat,
-                       g_depth, g_alpha, nullptr, d_table, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_tiles), block = block_for(p);
+  if (c <= 8) {
+    camera_bwd_kernel<8><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pix, times, p, k, feat,
+                                                 depth, alpha, g_feat, g_depth, g_alpha, d_table);
+  } else if (c <= 16) {
+    camera_bwd_kernel<16><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pix, times, p, k, feat,
+                                                  depth, alpha, g_feat, g_depth, g_alpha, d_table);
+  } else {
+    camera_bwd_kernel<32><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pix, times, p, k, feat,
+                                                  depth, alpha, g_feat, g_depth, g_alpha, d_table);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Inputs as tile_composite_lidar_fwd plus g_feat [n_tiles, p, c] and g_depth /
@@ -270,6 +428,17 @@ extern "C" int tile_composite_lidar_bwd(const float* table, int n_gauss, int c, 
                                         int n_tiles, int p, int k, int wrap, float depth_eps, const float* g_feat,
                                         const float* g_depth, const float* g_alpha, const float* g_until,
                                         float* d_table, void* stream) {
-  return launch<true>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, n_tiles, p, k, wrap, depth_eps, g_feat,
-                      g_depth, g_alpha, g_until, d_table, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_tiles), block = block_for(p);
+  if (c <= 8) {
+    lidar_bwd_kernel<8><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
+                                                depth_eps, g_feat, g_depth, g_alpha, g_until, d_table);
+  } else if (c <= 16) {
+    lidar_bwd_kernel<16><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
+                                                 depth_eps, g_feat, g_depth, g_alpha, g_until, d_table);
+  } else {
+    lidar_bwd_kernel<32><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
+                                                 depth_eps, g_feat, g_depth, g_alpha, g_until, d_table);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -95,12 +95,16 @@ __device__ __forceinline__ float slot_alpha(const Stage<CMAX>& s, int j, float x
   return slot_terms(&s.attr[j * ATTR], s.valid[j] > 0.f, x, y, t, wrap, slot_ok).alpha;
 }
 
-// rolling-shutter-corrected depth of slot j, rounded like the plain version
-// (it meets a comparison in the lidar line-of-sight sum)
+// rolling-shutter-corrected depth of the slot whose packed attributes are at
+// a, rounded like the plain version (it meets a comparison in the lidar
+// line-of-sight sum)
+__device__ __forceinline__ float slot_depth(const float* __restrict__ a, float t) {
+  return __fadd_rn(a[8], __fmul_rn(a[9], t));
+}
+
 template <int CMAX>
 __device__ __forceinline__ float slot_depth(const Stage<CMAX>& s, int j, float t) {
-  const float* a = &s.attr[j * ATTR];
-  return __fadd_rn(a[8], __fmul_rn(a[9], t));
+  return slot_depth(&s.attr[j * ATTR], t);
 }
 
 inline int round_up_to_warp(int p) { return ((p + 31) / 32) * 32; }

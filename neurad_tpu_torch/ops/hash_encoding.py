@@ -418,6 +418,9 @@ def hash_grid_encode_bwd(
     if positions.device.type == "cpu":
         return hash_grid_encode_bwd_plain(positions, stds, tables, scales, buckets, dense_res, f, read_bf16,
                                           cell_packed, g, tables_grad, positions_grad, stds_grad)
+    if cell_packed and any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("the backward kernel reads cell-packed rows as float4s: tables must start on a 16-byte "
+                         "boundary")
     tables_grad = [True] * len(tables) if tables_grad is None else list(tables_grad)
     positions, g = positions.contiguous(), g.contiguous()
     stds = None if stds is None else stds.contiguous()

@@ -24,7 +24,9 @@ written in the two `.cu` sources.
 
 `tile_composite_camera` / `tile_composite_lidar` go through the
 `TileCompositeCamera` / `TileCompositeLidar` autograd functions, so rendering
-and training share one path. Dispatch is by device: tensors on the CPU go to
+and training share one path. The camera's saves its outputs too: its
+backward takes the total G = sum_k w_k g_k from them (`payload_total`), where
+K5 sums it in a pass of its own. Dispatch is by device: tensors on the CPU go to
 the plain versions (forward and backward), tensors on a CUDA device to the
 kernels; anything else raises. Each launch is counted in `camera_launches` /
 `lidar_launches` / `camera_bwd_launches` / `lidar_bwd_launches`.
@@ -181,12 +183,14 @@ def tile_composite_lidar_plain(
 
 
 def _bwd_chunk(d_table, table, tile_gauss, tile_valid, x, y, t, wrap, vmask, before_depth, g_feat, g_depth, g_alpha,
-               g_until, magnitude=False):
+               g_until, magnitude=False, total=None):
     """The fused backward's formula for a chunk of tiles, added into d_table.
     x, y, t, g_depth, g_alpha [t, P, 1]; g_feat [t, P, C]; vmask [t, P] bool or
-    None; before_depth, g_until [t, P, 1] or None (camera). With `magnitude`
-    every sum (over features, slots and pixels) adds the absolute values of its
-    terms and the suffix sum G - P_k is replaced by the sum over all slots."""
+    None; before_depth, g_until [t, P, 1] or None (camera); total [t, P, 1]
+    or None: G = sum_k w_k g_k given (from the forward's outputs) instead of
+    summed here. With `magnitude` every sum (over features, slots and pixels)
+    adds the absolute values of its terms and the suffix sum G - P_k is
+    replaced by the sum over all slots."""
     g = _gather(table, tile_gauss)
     valid = tile_valid > 0
     pair_valid = valid[:, None, :] if vmask is None else valid[:, None, :] & vmask[:, :, None]
@@ -201,10 +205,12 @@ def _bwd_chunk(d_table, table, tile_gauss, tile_valid, x, y, t, wrap, vmask, bef
     if g_until is not None:
         payload = payload + (depth < before_depth).to(payload.dtype) * mag(g_until)
     prefix = torch.cumsum(w * payload, dim=-1)  # inclusive
+    if total is None:
+        total = prefix[..., -1:]
     if magnitude:  # G and P_k are both sums of the w * payload terms: of every slot's between them
         d_alpha = (trans * payload + prefix[..., -1:] / (1.0 - alpha)) * dgate
     else:
-        d_alpha = (trans * payload - (prefix[..., -1:] - prefix) / (1.0 - alpha)) * dgate
+        d_alpha = (trans * payload - (total - prefix) / (1.0 - alpha)) * dgate
     d_sigma = -alpha * d_alpha
     con_a, con_b, con_c = g[:, None, :, 4], g[:, None, :, 5], g[:, None, :, 6]
     ddx = d_sigma * (mag(con_a * dx) + mag(con_b * dy))
@@ -220,20 +226,34 @@ def _bwd_chunk(d_table, table, tile_gauss, tile_valid, x, y, t, wrap, vmask, bef
     d_table.index_add_(0, idx[keep], d_slots[keep])
 
 
+def payload_total(feat, depth, alpha, g_feat, g_depth, g_alpha):
+    """G = sum_k w_k g_k per pixel from the camera composite's outputs, which
+    are the raw sums feat = sum_k w_k f_k, depth = sum_k w_k d_k and
+    alpha = sum_k w_k: <g_feat, feat> + g_depth depth + g_alpha alpha
+    [..., 1] (K3 forms the same sum per pixel in fp32)."""
+    return g_alpha * alpha + g_depth * depth + torch.sum(g_feat * feat, dim=-1, keepdim=True)
+
+
 def tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, g_feat, g_depth, g_alpha,
-                                    tile_chunk: int = 128, magnitude: bool = False):
+                                    tile_chunk: int = 128, magnitude: bool = False, outputs=None):
     """K3's function in plain PyTorch: the gradient of the packed table
     [N, 10 + C] for cotangents g_feat [T, P, C], g_depth, g_alpha [T, P, 1] of
-    `tile_composite_camera_plain`'s outputs. With `magnitude` every sum in the
-    formula adds the absolute values of its terms instead (G - P_k, which the
-    division by 1 - a_k >= 0.001 amplifies, becomes the sum over all slots):
-    the scale of an entry's fp32 rounding error, whatever cancels in the entry
-    itself. A comparison of two implementations measures their difference by it."""
+    `tile_composite_camera_plain`'s outputs. `outputs`: those outputs (feat,
+    depth, alpha) on the same inputs, from which G = sum_k w_k g_k is taken as
+    K3 takes it (`payload_total`); without them G is the sum over the slots.
+    With `magnitude` every sum in the formula adds the absolute values of its
+    terms instead (G - P_k, which the division by 1 - a_k >= 0.001 amplifies,
+    becomes the sum over all slots): the scale of an entry's fp32 rounding
+    error, whatever cancels in the entry itself. A comparison of two
+    implementations measures their difference by it."""
     d_table = torch.zeros_like(table)
     for s in range(0, pix.shape[0], tile_chunk):
         e = min(pix.shape[0], s + tile_chunk)
+        total = None
+        if outputs is not None:
+            total = payload_total(*(x[s:e] for x in outputs), g_feat[s:e], g_depth[s:e], g_alpha[s:e])
         _bwd_chunk(d_table, table, tile_gauss[s:e], tile_valid[s:e], pix[s:e, :, 0:1], pix[s:e, :, 1:2], times[s:e],
-                   False, None, None, g_feat[s:e], g_depth[s:e], g_alpha[s:e], None, magnitude)
+                   False, None, None, g_feat[s:e], g_depth[s:e], g_alpha[s:e], None, magnitude, total)
     return d_table
 
 
@@ -324,14 +344,18 @@ def _camera_forward(table, tile_gauss, tile_valid, pix, times):
     return feat, depth, alpha
 
 
-def _camera_backward(table, tile_gauss, tile_valid, pix, times, g_feat, g_depth, g_alpha):
-    """K3 on a CUDA device, its plain version on the CPU -> d_table [N, 10 + C]."""
+def _camera_backward(table, tile_gauss, tile_valid, pix, times, feat, depth, alpha, g_feat, g_depth, g_alpha):
+    """K3 on a CUDA device, its plain version on the CPU -> d_table [N, 10 + C].
+    feat, depth, alpha: the forward's outputs on the same inputs (G follows
+    from them)."""
     global camera_bwd_launches
-    dev = _device_of(table, tile_gauss, tile_valid, pix, times, g_feat, g_depth, g_alpha)
-    t_total, p, k, c = _check(table, tile_gauss, tile_valid, (pix, times, g_feat, g_depth, g_alpha),
-                              ((2,), (1,), (table.shape[1] - ATTR,), (1,), (1,)))
+    per_slot = (pix, times, feat, depth, alpha, g_feat, g_depth, g_alpha)
+    dev = _device_of(table, tile_gauss, tile_valid, *per_slot)
+    c = table.shape[1] - ATTR
+    t_total, p, k, c = _check(table, tile_gauss, tile_valid, per_slot, ((2,), (1,), (c,), (1,), (1,), (c,), (1,), (1,)))
     if dev.type == "cpu":
-        return tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, g_feat, g_depth, g_alpha)
+        return tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, g_feat, g_depth, g_alpha,
+                                               outputs=(feat, depth, alpha))
     d_table = torch.zeros_like(table)
     if t_total == 0:
         return d_table
@@ -339,7 +363,7 @@ def _camera_backward(table, tile_gauss, tile_valid, pix, times, g_feat, g_depth,
     with torch.cuda.device(dev):
         rc = lib.tile_composite_camera_bwd(
             table.data_ptr(), table.shape[0], c, tile_gauss.data_ptr(), tile_valid.data_ptr(),
-            pix.data_ptr(), times.data_ptr(), t_total, p, k,
+            pix.data_ptr(), times.data_ptr(), t_total, p, k, feat.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
             g_feat.data_ptr(), g_depth.data_ptr(), g_alpha.data_ptr(), d_table.data_ptr(), _stream(dev),
         )
     if rc != 0:
@@ -402,12 +426,14 @@ def _lidar_backward(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_
 
 class TileCompositeCamera(torch.autograd.Function):
     """Camera tile composite: forward K2, backward K3 (plain versions on the
-    CPU). Only the packed table gets a gradient."""
+    CPU). Only the packed table gets a gradient. Saves its outputs beside its
+    inputs: the backward takes G from them."""
 
     @staticmethod
     def forward(ctx, table, tile_gauss, tile_valid, pix, times):
-        ctx.save_for_backward(table, tile_gauss, tile_valid, pix, times)
-        return _camera_forward(table, tile_gauss, tile_valid, pix, times)
+        out = _camera_forward(table, tile_gauss, tile_valid, pix, times)
+        ctx.save_for_backward(table, tile_gauss, tile_valid, pix, times, *out)
+        return out
 
     @staticmethod
     def backward(ctx, g_feat, g_depth, g_alpha):

@@ -133,6 +133,44 @@ def test_camera_bwd_kernel_matches_plain(cuda, c, k, p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [40, 300])
+def test_camera_bwd_kernel_on_opaque_empty_and_masked_tiles(cuda, k):
+    """K3 takes G from the forward's outputs: held against the plain backward
+    that sums G itself, at P = 256 (300 slots: three rounds of the stage), on
+    a near-opaque tile (every pixel's alpha above 0.99), a tile whose slots
+    all lie far from its pixels (alpha 0 everywhere) and a tile whose slots
+    are all invalid."""
+    t, p, n, c = 20, 256, 500, 16
+    args = _inputs(7, t=t, p=p, k=k, n=n, c=c, lidar=False)
+    table, tile_gauss, tile_valid, pix, times = args
+    rng = np.random.default_rng(8)
+    front = np.zeros((16, table.shape[1]), np.float32)  # wide, dense, in front of every other slot
+    front[:, 0:2] = pix[0].mean(0).cpu().numpy() + 0.37 + rng.uniform(-0.5, 0.5, (16, 2))
+    front[:, 4] = front[:, 6] = 1.0 / 30.0**2
+    front[:, 7] = rng.uniform(0.85, 0.95, 16)
+    front[:, 8] = np.linspace(1.0, 1.9, 16)
+    front[:, 10:] = rng.uniform(size=(16, c))
+    # tiles 1 and 2 get rows of their own (copies of others), so that what they add shows
+    own = torch.arange(n + 16, n + 16 + 2 * k, dtype=torch.int32, device="cuda").reshape(2, k)
+    table = torch.cat([table, torch.from_numpy(front).cuda(), table[tile_gauss[1:3].clamp(0, n - 1).long().reshape(-1)]])
+    tile_gauss[0, :16] = torch.arange(n, n + 16, dtype=torch.int32, device="cuda")
+    tile_valid[0, :16] = 1.0
+    tile_gauss[1:3] = own
+    pix[1] = pix[1] + 1e4  # tile 1: no slot reaches its pixels
+    tile_valid[2] = 0.0  # tile 2: every slot invalid
+    args = [table, tile_gauss, tile_valid, pix, times]
+    cots = _cotangents(9, t, p, c, 2)
+    leaf = table.clone().requires_grad_(True)
+    outs = TC.tile_composite_camera(leaf, *args[1:])
+    acc = outs[2].detach()
+    assert float(acc[0].min()) > 0.99 and float(acc[1].abs().max()) == 0.0 and float(acc[2].max()) == 0.0
+    (got,) = torch.autograd.grad(outs, leaf, cots)
+    torch.cuda.synchronize()
+    _assert_columns_close(got, lambda **kw: TC.tile_composite_camera_bwd_plain(*args, *cots, **kw))
+    assert float(got[n + 16:].abs().max()) == 0.0, "the empty and the masked tile add nothing"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c", [3, 16, 32])
 @pytest.mark.parametrize("k", [40, 300])
 @pytest.mark.parametrize("wrap", [True, False])
@@ -293,12 +331,26 @@ def _close_to_terms(got, want, magnitude, what):
     assert bool((err <= BWD_TOL_SUM * magnitude + 1e-30).all()), (what, float((err / (magnitude + 1e-30)).max()))
 
 
-def _bwd_case(d, f, cell_packed, read_bf16, seed, force_hash=False, n=5000, levels=4, max_rows=2**12):
+def _bwd_case(d, f, cell_packed, read_bf16, seed, force_hash=False, n=5000, levels=4, max_rows=2**12,
+              positions="mixed"):
+    """positions: "mixed" (random, on cell faces, on the box's faces, 128 in
+    one point), "one_cell" (every position in one cell of the coarsest
+    level) or "rays" (rays of 32 consecutive samples, a train chunk's order)."""
     scales, dense, packs, tables, gen = _grid(d, f, cell_packed, force_hash, seed, levels=levels, max_rows=max_rows)
-    pos = torch.rand((n, d), generator=gen, device="cuda")
-    pos[:64] = torch.round(pos[:64] * 8) / 8  # on cell faces of the coarse levels
-    pos[64:72] = torch.tensor([0.0, 1.0] * 4, device="cuda")[:, None]  # the box's faces
-    pos[72:200] = pos[72:73]  # one hot cell: many atomics on the same rows
+    if positions == "one_cell":
+        cell = torch.randint(0, int(scales[0]), (d,), generator=gen, device="cuda")
+        pos = (cell + torch.rand((n, d), generator=gen, device="cuda")) / float(scales[0])
+    elif positions == "rays":
+        n_rays = -(-n // 32)
+        direction = torch.randn((n_rays, 1, d), generator=gen, device="cuda")
+        direction = direction / direction.norm(dim=-1, keepdim=True)
+        t = torch.rand((n_rays, 32, 1), generator=gen, device="cuda").sort(dim=1).values * 0.3
+        pos = (0.35 + 0.3 * torch.rand((n_rays, 1, d), generator=gen, device="cuda") + t * direction).reshape(-1, d)[:n]
+    else:
+        pos = torch.rand((n, d), generator=gen, device="cuda")
+        pos[:64] = torch.round(pos[:64] * 8) / 8  # on cell faces of the coarse levels
+        pos[64:72] = torch.tensor([0.0, 1.0] * 4, device="cuda")[:, None]  # the box's faces
+        pos[72:200] = pos[72:73]  # one hot cell: many atomics on the same rows
     std = torch.rand((n,), generator=gen, device="cuda") * (4.0 / float(scales[0]))  # clamped and not
     g = torch.randn((n, len(tables) * f), generator=gen, device="cuda")
     buckets = [t.shape[0] * pk for t, pk in zip(tables, packs)]
@@ -319,9 +371,11 @@ def _check_bwd(pos, std, tables, layout, g, **need):
             for l, (ta, tb, tw, tm) in enumerate(zip(a, b, w, m)):
                 _close_to_terms(ta, tw, tm, f"table {l}")
                 _close_to_terms(tb, tw, tm, f"table {l}, second launch")
+                _close_to_terms(ta, tb, tm, f"table {l}, one launch against the other")
         else:
             _close_to_terms(a, w, m, what)
-            _close_to_terms(b, w, m, f"{what}, second launch")
+            # summed over the levels in level order, without atomics: the same bits at every launch
+            assert (a is None and b is None) or torch.equal(a, b), f"{what}: two launches differ"
     return got, want
 
 
@@ -336,6 +390,22 @@ def test_hash_grid_bwd_kernel_matches_plain(cuda, d, f, cell_packed, read_bf16):
     assert all(float(t.abs().max()) > 0 for t in want[0]) and float(want[1].abs().max()) > 0
     assert bool((want[2] == 0).any()) and bool((want[2] != 0).any()), "clamped and unclamped level weights"
     _check_bwd(pos, None, tables, layout, g)  # no level weight
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", ["one_cell", "rays"])
+@pytest.mark.parametrize("d", [3, 4])
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("cell_packed", [True, False])
+@pytest.mark.parametrize("read_bf16", [True, False])
+def test_hash_grid_bwd_kernel_on_hot_cells(cuda, positions, d, f, cell_packed, read_bf16):
+    """The warps' pre-reduction of equal rows where it does the most: every
+    position in one coarse cell, and rays of 32 samples; N = 4,999 leaves the
+    last warp part-empty."""
+    pos, std, tables, layout, g = _bwd_case(d, f, cell_packed, read_bf16, seed=100 + d * 10 + f, n=4999,
+                                            positions=positions)
+    got, want = _check_bwd(pos, std, tables, layout, g)
+    assert float(want[1].abs().max()) > 0 and all(float(t.abs().max()) > 0 for t in want[0])
 
 
 @pytest.mark.cuda

@@ -86,8 +86,8 @@ def _camera_bwd_case(seed=0):
     return (table, tile_gauss, tile_valid, pix, times), cots
 
 
-def test_camera_bwd_plain_matches_pallas_bwd():
-    (table, tile_gauss, tile_valid, pix, times), (gf, gd, ga) = _camera_bwd_case()
+def _pallas_camera_bwd(table, tile_gauss, tile_valid, pix, times, gf, gd, ga):
+    """JAX's K3 in interpret mode, scattered into the packed table's layout."""
     means, vel, con, opac, feats, depth, dvel = _gathered(table, tile_gauss)
     j = _run_bwd(
         jnp.asarray(pix), jnp.asarray(times), jnp.asarray(means), jnp.asarray(vel), jnp.asarray(con),
@@ -95,11 +95,61 @@ def test_camera_bwd_plain_matches_pallas_bwd():
         jnp.asarray(dvel[..., None]), jnp.asarray(tile_valid[..., None]),
         jnp.asarray(gf), jnp.asarray(gd), jnp.asarray(ga),
     )
-    want = _scatter(table.shape, tile_gauss, tile_valid, j)
+    return _scatter(table.shape, tile_gauss, tile_valid, j)
+
+
+def test_camera_bwd_plain_matches_pallas_bwd():
+    (table, tile_gauss, tile_valid, pix, times), (gf, gd, ga) = _camera_bwd_case()
+    want = _pallas_camera_bwd(table, tile_gauss, tile_valid, pix, times, gf, gd, ga)
     got = TC.tile_composite_camera_bwd_plain(
         *map(torch.from_numpy, (table, tile_gauss, tile_valid, pix, times, gf, gd, ga))
     )
     _assert_grads_close(got.numpy(), want)
+
+
+def _opaque_tile(table, tile_gauss, tile_valid, pix, seed, n_front=16):
+    """Put n_front wide, dense gaussians in front of tile 0's slots, centred
+    near the tile's middle (off the pixel centres): every pixel of the tile
+    ends with an accumulated alpha above 0.99."""
+    rng = np.random.default_rng(seed)
+    centre = pix[0].mean(0)
+    rows = np.zeros((n_front, table.shape[1]), np.float32)
+    rows[:, 0:2] = centre + 0.37 + rng.uniform(-0.5, 0.5, (n_front, 2))
+    rows[:, 2:4] = rng.normal(size=(n_front, 2))
+    rows[:, 4] = rows[:, 6] = 1.0 / 20.0**2
+    rows[:, 5] = rng.uniform(-0.2, 0.2, n_front) / 20.0**2
+    rows[:, 7] = rng.uniform(0.85, 0.95, n_front)
+    rows[:, 8] = np.linspace(1.0, 1.9, n_front)  # in front of every other slot (depths from 2 m)
+    rows[:, 9] = rng.normal(size=n_front)
+    rows[:, TC.ATTR:] = rng.uniform(size=(n_front, table.shape[1] - TC.ATTR))
+    table = np.concatenate([table, rows])
+    tile_gauss, tile_valid = tile_gauss.copy(), tile_valid.copy()
+    tile_gauss[0, :n_front] = np.arange(n_front) + table.shape[0] - n_front
+    tile_valid[0, :n_front] = 1.0
+    return table, tile_gauss, tile_valid
+
+
+@pytest.mark.parametrize("tiles", ["random", "opaque"])
+def test_camera_bwd_plain_with_total_from_outputs_matches_pallas_bwd(tiles):
+    """K3 takes G = sum_k w_k g_k from the forward's outputs: the plain
+    backward given them equals the plain backward that sums G itself (to 1e-5
+    of each entry's terms' magnitude, the card's tolerance) and JAX's kernel,
+    also where a tile's pixels are near-opaque (the cancellation in G - P_k
+    behind the opaque front is rounding of the same terms)."""
+    (table, tile_gauss, tile_valid, pix, times), (gf, gd, ga) = _camera_bwd_case(9)
+    if tiles == "opaque":
+        table, tile_gauss, tile_valid = _opaque_tile(table, tile_gauss, tile_valid, pix, 10)
+        tile_valid = _away_from_gate(table, tile_gauss, tile_valid, pix[..., 0], pix[..., 1], times[..., 0], False)
+    args = list(map(torch.from_numpy, (table, tile_gauss, tile_valid, pix, times)))
+    cots = list(map(torch.from_numpy, (gf, gd, ga)))
+    outputs = TC.tile_composite_camera_plain(*args)
+    if tiles == "opaque":
+        assert float(outputs[2][0].min()) >= 0.99, "tile 0 is near-opaque"
+    got = TC.tile_composite_camera_bwd_plain(*args, *cots, outputs=outputs)
+    own = TC.tile_composite_camera_bwd_plain(*args, *cots)
+    mag = TC.tile_composite_camera_bwd_plain(*args, *cots, magnitude=True)
+    assert float(((got - own).abs() / mag.clamp_min(1e-30)).max()) <= 1e-5
+    _assert_grads_close(got.numpy(), _pallas_camera_bwd(table, tile_gauss, tile_valid, pix, times, gf, gd, ga))
 
 
 def _lidar_bwd_case(seed, wrap, until_cotangent):
@@ -165,7 +215,8 @@ def test_lidar_bwd_plain_matches_autograd_of_plain_forward(wrap):
 
 def test_functions_route_cpu_tensors_to_the_plain_backward():
     """`tile_composite_camera/lidar` are differentiable in the table only, give
-    the plain backward on CPU tensors and launch no kernel there."""
+    the plain backward on CPU tensors (the camera's given G from the forward's
+    outputs, as K3 takes it) and launch no kernel there."""
     arrays, cots = _camera_bwd_case(5)
     table, tile_gauss, tile_valid, pix, times = map(torch.from_numpy, arrays)
     before = (TC.camera_bwd_launches, TC.lidar_bwd_launches)
@@ -174,7 +225,9 @@ def test_functions_route_cpu_tensors_to_the_plain_backward():
     outs = TC.tile_composite_camera(leaf, tile_gauss, tile_valid, pix_leaf, times)
     d_table, d_pix = torch.autograd.grad(outs, (leaf, pix_leaf), tuple(map(torch.from_numpy, cots)), allow_unused=True)
     assert d_pix is None
-    want = TC.tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, *map(torch.from_numpy, cots))
+    fwd = TC.tile_composite_camera_plain(table, tile_gauss, tile_valid, pix, times)
+    want = TC.tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, *map(torch.from_numpy, cots),
+                                              outputs=fwd)
     torch.testing.assert_close(d_table, want, rtol=0, atol=0)
 
     arrays, cots = _lidar_bwd_case(6, True, True)
