@@ -20,7 +20,8 @@
    levels) must equal its plain version bit for bit. The six gather and
    scatter-add probes run through their own entry point at every table shape
    against table[idx] (bit for bit) and index_add_ (1e-5 of the terms'
-   magnitude), beside torch.index_select and index_add_.
+   magnitude), beside torch.index_select and index_add_; the bucketed one-hot
+   scatter must give the same bits on a second launch.
 3. Serving phase: builds the SplatAD pipeline on the synthetic scene at
    1920x1080 with 500,000 gaussians and a 64x1024-beam lidar, starts the
    closed-loop HTTP server on localhost, answers two /render_image requests at
@@ -608,8 +609,11 @@ def hash_grid_bwd_phase(outputs, rng):
 def probe_phase():
     """The gather and scatter-add probes through their own entry point: every
     table shape, each kernel against its plain version (the run raises on any
-    difference beyond the scatter-adds' SCATTER_TOL), times beside
-    torch.index_select and index_add_. The counts are read around this one run."""
+    difference beyond the scatter-adds' SCATTER_TOL, and on a one-hot scatter
+    that gives other bits on a second launch), times beside
+    torch.index_select and index_add_, the one-hot probes' scratch. The counts
+    are read around this one run; then the one-hot probes' device time by
+    kernel (`GM.profile_onehot`)."""
     from neurad_tpu_torch.benchmarks import gather_microbench as GM
 
     GM.reset_launch_counts()
@@ -626,9 +630,15 @@ def probe_phase():
     require(names >= {(n, t, f) for t, f in GM.TABLE_SHAPES
                       for n in ("coalesced", "serial", "scatter_blocked", "scatter_serial")},
             "the copies and the atomic scatter-adds ran at every table shape")
-    require(sum(r["name"] == "onehot" for r in records) == 3 and sum(r["name"] == "scatter_onehot" for r in records) == 3,
-            "the one-hot products ran at the three shapes up to 131072 rows")
-    return dict(records=records, launches=launches)
+    require(names >= {(n, t, f) for t, f in GM.TABLE_SHAPES for n in ("onehot", "scatter_onehot")},
+            "the bucketed one-hot products ran at every table shape")
+    require(all(r["relaunch_equal"] for r in scatters if r["name"] == "scatter_onehot" and (r["T"], r["F"]) ==
+                (131072, 32)), "the one-hot scatter gave the same bits on a second launch at (131072, 32)")
+    for r in records:
+        if r["name"] in ("onehot", "scatter_onehot"):
+            log(f"[gather] {r['name']} T={r['T']} F={r['F']}: the bucketing pass's scratch {r['scratch_bytes']} bytes")
+    # after the counts: where a one-hot probe's time goes, kernel by kernel
+    return dict(records=records, launches=launches, onehot_profile=GM.profile_onehot(DEVICE, log=log))
 
 
 # ---------------------------------------------------------------------------
@@ -1469,7 +1479,7 @@ def main() -> int:
         "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": None,
         "other_shapes": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "max_rel_err")}
                          for k, v in hash_bwd.items() if k != "hash_grid_bwd_static_bf16"}})
-    # the probes' line entries are the (131072, 32) table, the largest all six run at; every shape is in the report
+    # the probes' line entries are the (131072, 32) table; every shape is in the report
     probe_names = {"coalesced": ("gather_rows_coalesced", "benchmarks/pallas_gather_microbench.py:54"),
                    "onehot": ("gather_rows_onehot", "benchmarks/pallas_gather_microbench.py:91"),
                    "serial": ("gather_rows_serial", "benchmarks/pallas_gather_microbench2.py:100"),

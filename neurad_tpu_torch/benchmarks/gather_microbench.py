@@ -13,14 +13,21 @@ row, a resident accumulator per range of rows, or the tensor cores).
   scatter_rows_blocked   <- `make_vmem_scatter_probe` a shared-memory accumulator per range of rows
   scatter_rows_serial    <- `make_scalar_scatter`     one thread adds one row with atomics
 
+The two one-hot probes first sort the indices by range of `BUCKET_ROWS` rows
+(a counting sort in three hand-written launches) and multiply each range of
+the table (or of the output) only with the queries (or updates) that name it:
+the one-hot product on the tensor cores that the TPU kernels compute, without
+the products over rows no query names. The one-hot scatter has one owner per
+output row and no atomics: two launches on the same inputs give the same bits.
+
 The gathers share one plain version, `gather_rows_plain` (`table[idx]`), the
 scatter-adds another, `scatter_rows_plain` (`index_add_` in fp32; with the
 one-hot product's bf16 rounding of g for P3), taken for CPU tensors; CUDA
 tensors go to the kernels or raise. The coalesced and serial gathers equal
 their plain version bit for bit, the one-hot gather equals it as fp32; the
 scatter-adds sum in another order (atomics, or the product's), and are held
-to 1e-5 of the sum of the absolute values of an entry's terms. Launches are
-counted in `coalesced_launches`, `onehot_launches`, `serial_launches`,
+to 1e-5 of the sum of the absolute values of an entry's terms. No query or
+update (N = 0) launches nothing. Launches are counted in `coalesced_launches`, `onehot_launches`, `serial_launches`,
 `scatter_onehot_launches`, `scatter_blocked_launches`,
 `scatter_serial_launches`.
 
@@ -32,15 +39,18 @@ launches after 2 warm-ups) and rate in M rows/s, beside `torch.index_select`
 and `index_add_` (yardsticks that no path of the port calls) and the least
 time the card could take for the function (its bytes over the memory rate:
 neither function needs arithmetic to speak of). The one-hot products' own
-2 * N * T * F operations over the bf16 tensor-core rate are printed beside
-them as `mechanism_ops_ms`: the cost of that mechanism, not of the function.
+2 * N * BUCKET_ROWS * F operations over the bf16 tensor-core rate are printed
+beside them as `mechanism_ops_ms` (the cost of that mechanism, not of the
+function), with the bucketing pass's scratch in bytes.
 On the CPU (`--device cpu`) the plain versions run, timed on the host clock.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import re
 import statistics
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -53,7 +63,7 @@ from neurad_tpu_torch.ops import _build
 # (rows, bf16 columns): 256 KB, 4 MB, 8 MB and 32 MB tables
 TABLE_SHAPES = ((16384, 8), (65536, 32), (131072, 32), (524288, 32))
 NUM_QUERIES = 1 << 20
-ONEHOT_MAX_ROWS = 131072  # the dense product's cost grows with T: larger tables are left out
+BUCKET_ROWS = 128  # rows of a bucket of the one-hot probes' counting sort (`R` in csrc/gather_probes.cu)
 # H100 SXM data-sheet peaks: HBM3 bandwidth, dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12
 PEAK_BF16_OPS = 989e12
@@ -89,14 +99,34 @@ def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {table.device}")
 
 
-def _launch(fn_name: str, table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def _launch(fn_name: str, table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor, *extra) -> torch.Tensor:
+    """Launch `fn_name` on the current stream; nothing for N = 0. `extra`:
+    pointers passed after the shape (the one-hot gather's scratch)."""
+    if idx.shape[0] == 0:
+        return out
     lib = _build.load("gather_probes")
     with torch.cuda.device(table.device):
         err = getattr(lib, fn_name)(table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], table.shape[0],
-                                    table.shape[1], torch.cuda.current_stream().cuda_stream)
+                                    table.shape[1], *extra, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed with CUDA error {err} (T={table.shape[0]}, F={table.shape[1]})")
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def onehot_scratch_ints(n: int, t_rows: int) -> int:
+    """The int32s of scratch the one-hot probes' bucketing pass needs at N = n
+    queries against t_rows rows (its offsets table and permutation), from the
+    built library: the layout is the kernel's."""
+    ints = _build.load("gather_probes").onehot_scratch_ints(n, t_rows)
+    if ints < 0:
+        raise ValueError(f"the one-hot probes take 1 <= N < 2^25 and T <= {51200 * BUCKET_ROWS} rows, "
+                         f"got N={n}, T={t_rows}")
+    return ints
+
+
+def _onehot_scratch(n: int, t_rows: int, device: torch.device) -> torch.Tensor:
+    return torch.empty((onehot_scratch_ints(n, t_rows),), dtype=torch.int32, device=device)
 
 
 def gather_rows_coalesced(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -110,7 +140,7 @@ def gather_rows_coalesced(table: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
     global coalesced_launches
     out = _launch("gather_rows_coalesced", table, idx, torch.empty((idx.shape[0], table.shape[1]),
                                                                    dtype=table.dtype, device=table.device))
-    coalesced_launches += 1
+    coalesced_launches += int(idx.shape[0] > 0)
     return out
 
 
@@ -124,22 +154,29 @@ def gather_rows_serial(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     global serial_launches
     out = _launch("gather_rows_serial", table, idx, torch.empty((idx.shape[0], table.shape[1]),
                                                                 dtype=table.dtype, device=table.device))
-    serial_launches += 1
+    serial_launches += int(idx.shape[0] > 0)
     return out
 
 
 def gather_rows_onehot(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] as onehot(idx) @ table on the tensor cores: bf16 inputs, fp32
-    sum and result [N, F]. F is 8, 16 or 32."""
+    """table[idx] as onehot(idx) @ table on the tensor cores, range of
+    `BUCKET_ROWS` rows by range after a counting sort of idx: bf16 inputs, fp32
+    sum and result [N, F]. F is 8, 16 or 32. The scratch of the sort is
+    allocated here."""
     _check(table, idx)
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx).float()
     if table.shape[1] not in (8, 16, 32):
         raise ValueError("the one-hot gather takes 8, 16 or 32 columns")
+    if table.data_ptr() % 16:
+        raise ValueError("the one-hot gather copies 16-byte pieces: the table must start on a 16-byte boundary")
     global onehot_launches
-    out = _launch("gather_rows_onehot", table, idx, torch.empty((idx.shape[0], table.shape[1]),
-                                                                dtype=torch.float32, device=table.device))
-    onehot_launches += 1
+    n = idx.shape[0]
+    out = torch.empty((n, table.shape[1]), dtype=torch.float32, device=table.device)
+    if n:
+        scratch = _onehot_scratch(n, table.shape[0], table.device)
+        _launch("gather_rows_onehot", table, idx, out, scratch.data_ptr())
+        onehot_launches += 1
     return out
 
 
@@ -162,26 +199,43 @@ def _check_scatter(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> None:
         raise ValueError(f"unsupported device {g.device}")
 
 
-def _launch_scatter(fn_name: str, idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
-    out = torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+def _launch_scatter(fn_name: str, idx: torch.Tensor, g: torch.Tensor, t_rows: int, out: torch.Tensor = None,
+                    *extra) -> torch.Tensor:
+    """Launch `fn_name` into `out` (by default a zero-filled [t_rows, F] fp32
+    tensor); nothing for N = 0. `extra`: pointers passed after the shape."""
+    if out is None:
+        out = torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    if idx.shape[0] == 0:
+        return out
     lib = _build.load("gather_probes")
     with torch.cuda.device(g.device):
         err = getattr(lib, fn_name)(idx.data_ptr(), g.data_ptr(), out.data_ptr(), idx.shape[0], t_rows, g.shape[1],
-                                    torch.cuda.current_stream().cuda_stream)
+                                    *extra, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed with CUDA error {err} (T={t_rows}, F={g.shape[1]})")
     return out
 
 
 def scatter_rows_onehot(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
-    """P3: onehot(idx)^T @ bf16(g) on the tensor cores, fp32 sum -> [t_rows, F]. F is 8, 16 or 32."""
+    """P3: onehot(idx)^T @ bf16(g) on the tensor cores, range of `BUCKET_ROWS`
+    output rows by range after a counting sort of idx, fp32 sum -> [t_rows,
+    F]. F is 8, 16 or 32. One owner per output row, no atomics: the same
+    inputs give the same bits. The kernel writes every row, so `out` is not
+    zero-filled; the scratch of the sort is allocated here."""
     _check_scatter(idx, g, t_rows)
     if g.device.type == "cpu":
         return scatter_rows_plain(idx, g, t_rows, round_bf16=True)
     if g.shape[1] not in (8, 16, 32):
         raise ValueError("the one-hot scatter takes 8, 16 or 32 columns")
+    if g.data_ptr() % 16:
+        raise ValueError("the one-hot scatter copies 16-byte pieces: g must start on a 16-byte boundary")
     global scatter_onehot_launches
-    out = _launch_scatter("scatter_rows_onehot", idx, g, t_rows)
+    n = idx.shape[0]
+    if n == 0:
+        return torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    out = torch.empty((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    scratch = _onehot_scratch(n, t_rows, g.device)
+    _launch_scatter("scatter_rows_onehot", idx, g, t_rows, out, scratch.data_ptr())
     scatter_onehot_launches += 1
     return out
 
@@ -196,7 +250,7 @@ def scatter_rows_blocked(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> tor
         raise ValueError("the blocked scatter takes 8, 16 or 32 columns")
     global scatter_blocked_launches
     out = _launch_scatter("scatter_rows_blocked", idx, g, t_rows)
-    scatter_blocked_launches += 1
+    scatter_blocked_launches += int(idx.shape[0] > 0)
     return out
 
 
@@ -207,7 +261,7 @@ def scatter_rows_serial(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torc
         return scatter_rows_plain(idx, g, t_rows)
     global scatter_serial_launches
     out = _launch_scatter("scatter_rows_serial", idx, g, t_rows)
-    scatter_serial_launches += 1
+    scatter_serial_launches += int(idx.shape[0] > 0)
     return out
 
 
@@ -251,12 +305,13 @@ def scatter_bound_ms(n: int, t_rows: int, f: int) -> Tuple[float, str]:
     return (n * 4 + n * f * 4 + t_rows * f * 4) / PEAK_BYTES * 1e3, "bytes"
 
 
-def onehot_mechanism_ops_ms(n: int, t_rows: int, f: int) -> float:
+def onehot_mechanism_ops_ms(n: int, f: int) -> float:
     """What a one-hot probe's mechanism (gather or scatter) costs at the least:
-    the dense product's 2 * N * T * F operations at the bf16 tensor-core peak.
-    Not the function's bound (`bounds_ms`, `scatter_bound_ms`): the function
-    needs none of them."""
-    return 2.0 * n * t_rows * f / PEAK_BF16_OPS * 1e3
+    the bucketed product's 2 * N * BUCKET_ROWS * F operations (each query or
+    update against the rows of its bucket) at the bf16 tensor-core peak. Not
+    the function's bound (`bounds_ms`, `scatter_bound_ms`): the function needs
+    none of them."""
+    return 2.0 * n * BUCKET_ROWS * f / PEAK_BF16_OPS * 1e3
 
 
 def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: int = 0, reps: int = 10,
@@ -265,9 +320,11 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
     (shape, probe): name, T, F, ms, rows_per_s, max_abs_err against the plain
     version, plain_ms, library_ms (`torch.index_select` for the gathers,
     `index_add_` for the scatter-adds), bound_ms, bound_by; the one-hot probes'
-    records also hold mechanism_ops_ms, the scatter-adds' max_rel_err (error
-    over the sum of the absolute values of the entry's terms). Raises where a
-    probe disagrees with its plain version."""
+    records also hold mechanism_ops_ms and, on the card, scratch_bytes (the
+    bucketing pass's); the scatter-adds' hold max_rel_err (error over the sum
+    of the absolute values of the entry's terms) and relaunch_equal (a second
+    launch on the same inputs gave the same bits). Raises where a probe
+    disagrees with its plain version, or the one-hot scatter with itself."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     probes = (("coalesced", gather_rows_coalesced), ("onehot", gather_rows_onehot), ("serial", gather_rows_serial))
@@ -283,8 +340,6 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
         if log:
             log(f"[gather] T={t_rows} F={f} N={queries}: table[idx] {plain_ms:.4f} ms, index_select {library_ms:.4f} ms")
         for name, fn in probes:
-            if name == "onehot" and t_rows > ONEHOT_MAX_ROWS:
-                continue
             got = fn(table, idx)
             want = ref.float() if name == "onehot" else ref
             if got.dtype != want.dtype or got.shape != want.shape:
@@ -297,15 +352,26 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
                        max_abs_err=err, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[name][0],
                        bound_by=bound[name][1])
             if name == "onehot":
-                rec["mechanism_ops_ms"] = onehot_mechanism_ops_ms(queries, t_rows, f)
+                rec["mechanism_ops_ms"] = onehot_mechanism_ops_ms(queries, f)
+                rec["scratch_bytes"] = _scratch_bytes(queries, t_rows, dev)
             records.append(rec)
             if log:
                 log(f"[gather]   {name:10s} {ms:10.4f} ms  {rec['rows_per_s'] / 1e6:10.1f} M rows/s  "
                     f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
-                    + (f", its dense product's operations {rec['mechanism_ops_ms']:.4f} ms" if name == "onehot" else "")
+                    + (_onehot_note(rec) if name == "onehot" else "")
                     + "  exact")
         records += _run_scatter(dev, gen, idx, t_rows, f, reps, log)
     return records
+
+
+def _scratch_bytes(n: int, t_rows: int, device: torch.device) -> Optional[int]:
+    """The one-hot probes' scratch on the card; None where the plain versions run."""
+    return 4 * onehot_scratch_ints(n, t_rows) if device.type == "cuda" and n else None
+
+
+def _onehot_note(rec: dict) -> str:
+    note = f", its bucketed product's operations {rec['mechanism_ops_ms']:.4f} ms"
+    return note + (f", scratch {rec['scratch_bytes']} bytes" if rec["scratch_bytes"] is not None else "")
 
 
 def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
@@ -324,10 +390,10 @@ def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
               ("scatter_serial", scatter_rows_serial))
     records = []
     for name, fn in probes:
-        if name == "scatter_onehot" and t_rows > ONEHOT_MAX_ROWS:
-            continue
         want = scatter_rows_plain(idx, g, t_rows, round_bf16=name == "scatter_onehot")
         got = fn(idx, g, t_rows)
+        again = fn(idx, g, t_rows)  # the first warm-up launch
+        relaunch_equal = torch.equal(got, again)
         if got.dtype != torch.float32 or got.shape != want.shape:
             raise RuntimeError(f"{name} returned {got.dtype} {tuple(got.shape)}")
         diff = (got - want).abs()
@@ -336,19 +402,71 @@ def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
         if not bool((diff <= SCATTER_TOL * magnitude).all()):
             raise RuntimeError(f"{name} differs from its plain version at T={t_rows}, F={f}: max error over the "
                                f"magnitude of the entry's terms {rel:.3e}")
-        ms = _time_ms(lambda: fn(idx, g, t_rows), dev, 2, reps)
+        if name == "scatter_onehot" and not relaunch_equal:
+            raise RuntimeError(f"{name} gave other bits on a second launch at T={t_rows}, F={f}")
+        ms = _time_ms(lambda: fn(idx, g, t_rows), dev, 1, reps)
         rec = dict(name=name, T=t_rows, F=f, N=n, ms=ms, rows_per_s=n / (ms * 1e-3) if ms else 0.0,
-                   max_abs_err=err, max_rel_err=rel, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
-                   bound_by=bound[1])
+                   max_abs_err=err, max_rel_err=rel, relaunch_equal=relaunch_equal, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
         if name == "scatter_onehot":
-            rec["mechanism_ops_ms"] = onehot_mechanism_ops_ms(n, t_rows, f)
+            rec["mechanism_ops_ms"] = onehot_mechanism_ops_ms(n, f)
+            rec["scratch_bytes"] = _scratch_bytes(n, t_rows, dev)
         records.append(rec)
         if log:
             log(f"[scatter]  {name:16s} {ms:10.4f} ms  {rec['rows_per_s'] / 1e6:10.1f} M rows/s  "
                 f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
-                + (f", its dense product's operations {rec['mechanism_ops_ms']:.4f} ms" if name == "scatter_onehot"
-                   else "")
-                + f"  max err {rel:.2e} of the terms' magnitude")
+                + (_onehot_note(rec) if name == "scatter_onehot" else "")
+                + f"  max err {rel:.2e} of the terms' magnitude, "
+                + ("bit-equal on a second launch" if relaunch_equal else "other bits on a second launch"))
+    return records
+
+
+def profile_onehot(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: int = 0, reps: int = 5,
+                   log: Optional[Callable[[str], None]] = print) -> List[dict]:
+    """Where a one-hot probe's time goes, per call, at every table shape: the
+    device time of each of its kernels (the bucketing pass's count, scan and
+    place, then the product) from torch.profiler over `reps` calls, and the
+    host time a call takes to return (checks, allocations, launches; no
+    synchronisation), the median of 20. Card only: it reads device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("profile_onehot reads device time: it needs the card")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    records = []
+    for t_rows, f in shapes:
+        table = torch.randn((t_rows, f), generator=gen, device=dev).to(torch.bfloat16)
+        idx = torch.randint(0, t_rows, (queries,), generator=gen, device=dev, dtype=torch.int32)
+        g = torch.randn((queries, f), generator=gen, device=dev)
+        for name, call in (("onehot", lambda: gather_rows_onehot(table, idx)),
+                           ("scatter_onehot", lambda: scatter_rows_onehot(idx, g, t_rows))):
+            call()
+            torch.cuda.synchronize()
+            enqueue = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                call()
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    call()
+                torch.cuda.synchronize()
+            device_ms = {}
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA:
+                    m = re.search(r"(\w+_kernel)(<\d+>)?", e.key)
+                    key = m[1] if m else e.key[:60]
+                    device_ms[key] = device_ms.get(key, 0.0) + e.self_device_time_total / 1e3 / reps
+            rec = dict(name=name, T=t_rows, F=f, N=queries, enqueue_ms=statistics.median(enqueue),
+                       device_ms=device_ms, device_total_ms=sum(device_ms.values()))
+            records.append(rec)
+            if log:
+                log(f"[profile] {name:14s} T={t_rows} F={f}: device {rec['device_total_ms']:.4f} ms a call ("
+                    + ", ".join(f"{k} {v:.4f}" for k, v in device_ms.items())
+                    + f"), host {rec['enqueue_ms']:.4f} ms to return")
     return records
 
 

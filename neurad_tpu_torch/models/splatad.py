@@ -270,7 +270,7 @@ class SplatADConfig:
     lidar_raster_mode: str = "tiled"
     lidar_pts_per_tile: int = 128
     # the port's compositor is the fp32 Pallas composite ("pallas"); "hybrid"
-    # and "xla" (XLA's bf16 composite, a TPU trade-off) raise on CUDA
+    # and "xla" (XLA's bf16 composite, a TPU trade-off) raise on every device
     rasterize_backend: str = "pallas"
 
 

@@ -52,9 +52,10 @@ LIBRARIES = {
         "gather_probes.cu",
         {
             "gather_rows_coalesced": [_P, _P, _P, _L, _I, _I, _P],
-            "gather_rows_onehot": [_P, _P, _P, _L, _I, _I, _P],
+            "onehot_scratch_ints": [_L, _I],
+            "gather_rows_onehot": [_P, _P, _P, _L, _I, _I, _P, _P],
             "gather_rows_serial": [_P, _P, _P, _L, _I, _I, _P],
-            "scatter_rows_onehot": [_P, _P, _P, _L, _I, _I, _P],
+            "scatter_rows_onehot": [_P, _P, _P, _L, _I, _I, _P, _P],
             "scatter_rows_blocked": [_P, _P, _P, _L, _I, _I, _P],
             "scatter_rows_serial": [_P, _P, _P, _L, _I, _I, _P],
         },

@@ -6,9 +6,10 @@ Static caps as in the JAX package: every gaussian emits up to
 grouped by tile, and each tile keeps its first `max_per_tile` gaussians. The
 per-tile compositing is `ops/tile_composite.py`: the hand-written kernels on a
 CUDA device, their plain versions on the CPU, forward and backward. Both
-compute the JAX package's fp32 Pallas composites (`backend="pallas"`), which
-is the only backend on CUDA: "hybrid" and "xla" there mean XLA's bf16
-composite, a TPU trade-off with no counterpart in the port.
+compute the JAX package's fp32 Pallas composites (`backend="pallas"`), the
+port's only backend: "hybrid" and "xla" mean XLA's bf16 composite in the JAX
+package, a TPU trade-off with no counterpart in the port, and raise on every
+device.
 
 Both rasterizers are differentiable in the projected means, velocities,
 conics, depths, compensations, the opacities and the features. Binning and
@@ -155,12 +156,12 @@ def _packed_table(projected: Projected, opac: torch.Tensor, features: torch.Tens
     ).contiguous()
 
 
-def _check_backend(backend: str, device: torch.device) -> None:
+def _check_backend(backend: str) -> None:
     if backend not in ("pallas", "hybrid", "xla"):
         raise ValueError(f"unknown rasterize backend {backend!r}")
-    if device.type == "cuda" and backend != "pallas":
+    if backend != "pallas":
         raise NotImplementedError(
-            f"rasterize backend {backend!r} on CUDA: the port's kernels compute the fp32 'pallas' composite; "
+            f"rasterize backend {backend!r}: the port computes the fp32 'pallas' composite on every device; "
             "'hybrid' and 'xla' are the JAX package's bf16 XLA composite, a TPU trade-off that is not ported"
         )
 
@@ -226,7 +227,7 @@ def rasterize_camera(
 ):
     """Rasterize projected gaussians to (features [H,W,C], depth [H,W,1],
     alpha [H,W,1]) (+ the binning when `return_binning`)."""
-    _check_backend(backend, features.device)
+    _check_backend(backend)
     binning, table, tile_valid, pix, times = camera_tile_inputs(
         projected, features, opacities, width, height, tile_size, max_per_tile, max_tiles_per_gaussian,
         rolling_shutter_time, rs_direction, max_visible,
@@ -329,7 +330,7 @@ def rasterize_lidar_points_tiled(
     (azim_deg, elev_deg, gt_depth, time), grouped by tile. Returns per-point
     features/depth/alpha, alpha accumulated in front of the gt depth, median
     depth and the overflow counters."""
-    _check_backend(backend, features.device)
+    _check_backend(backend)
     ti = lidar_tile_inputs(
         projected, features, opacities, raster_pts, azim_range, elev_range, tile_size_azim, tile_size_elev,
         max_per_tile, max_tiles_per_gaussian, pts_per_tile,

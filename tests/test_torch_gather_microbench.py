@@ -1,10 +1,16 @@
 """The gather and scatter-add probes on the CPU: the shared plain versions,
 the wrappers' argument checks, the bounds' arithmetic and the script's
-`--device cpu` run at a tiny size. The kernels themselves run only on the card
-(`tests/test_torch_kernels_cuda.py`)."""
+`--device cpu` run at a tiny size, and the one-hot probes' plain versions
+against the JAX package's Pallas kernels themselves
+(`benchmarks/pallas_gather_microbench.py`, run in interpret mode). The
+kernels themselves run only on the card (`tests/test_torch_kernels_cuda.py`)."""
 
+import functools
+import importlib.util
 import json
+from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -60,8 +66,10 @@ def test_bounds_are_the_functions_bytes_and_the_dense_products_operations_stand_
     # the one-hot gather is the same function with an fp32 result: bytes too, not its product's operations
     assert b["onehot"][1] == "bytes"
     assert b["onehot"][0] == pytest.approx(((1 << 20) * 4 + 131072 * 64 + (1 << 20) * 128) / 3.35e12 * 1e3)
-    assert GM.onehot_mechanism_ops_ms(1 << 20, 131072, 32) == pytest.approx(2 * (1 << 20) * 131072 * 32 / 989e12 * 1e3)
-    assert GM.onehot_mechanism_ops_ms(1 << 20, 131072, 32) > 100 * b["onehot"][0]
+    # the bucketed product: each query against the 128 rows of its bucket, whatever T
+    assert GM.BUCKET_ROWS == 128
+    assert GM.onehot_mechanism_ops_ms(1 << 20, 32) == pytest.approx(2 * (1 << 20) * 128 * 32 / 989e12 * 1e3)
+    assert GM.onehot_mechanism_ops_ms(1 << 20, 32) < b["onehot"][0] / 4, "the bytes, not the product, bound it"
     small = GM.bounds_ms(16, 64, 8)  # fewer queries than rows: only the rows named are read
     assert small["serial"][0] == pytest.approx((16 * 4 + 16 * 16 + 16 * 16) / 3.35e12 * 1e3)
     assert [s for s in GM.TABLE_SHAPES] == [(16384, 8), (65536, 32), (131072, 32), (524288, 32)]
@@ -71,18 +79,23 @@ def test_script_runs_on_the_cpu_at_a_tiny_size(tmp_path, capsys):
     out = tmp_path / "gather.json"
     records = GM.entrypoint(["--device", "cpu", "--queries", "64", "--json", str(out)])
     names = [(r["name"], r["T"]) for r in records]
-    assert len(records) == 22, "six probes at four shapes, the one-hot products left out above 131072 rows"
-    assert ("onehot", 524288) not in names and ("onehot", 131072) in names and ("serial", 524288) in names
-    assert ("scatter_onehot", 524288) not in names and ("scatter_onehot", 131072) in names
+    assert len(records) == 24, "six probes at four shapes: the bucketed one-hot products at every shape too"
+    assert ("onehot", 524288) in names and ("onehot", 131072) in names and ("serial", 524288) in names
+    assert ("scatter_onehot", 524288) in names and ("scatter_onehot", 131072) in names
     assert ("scatter_blocked", 524288) in names and ("scatter_serial", 524288) in names
     for r in records:
         assert r["max_abs_err"] == 0.0 and r["ms"] > 0 and r["library_ms"] > 0 and r["bound_by"] == "bytes"
         assert ("mechanism_ops_ms" in r) == (r["name"] in ("onehot", "scatter_onehot"))
+        assert ("relaunch_equal" in r) == r["name"].startswith("scatter_")
+        if r["name"] in ("onehot", "scatter_onehot"):
+            assert r["scratch_bytes"] is None, "the plain versions need no scratch"
     assert json.loads(out.read_text())[0]["name"] == "coalesced"
     assert "M rows/s" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GM.entrypoint(["--queries", "64"])
+    with pytest.raises(RuntimeError, match="needs the card"):
+        GM.profile_onehot("cpu", queries=64)
 
 
 @pytest.mark.parametrize("t_rows,f", [(64, 8), (256, 32), (100, 16), (7, 1)])
@@ -134,5 +147,81 @@ def test_scatter_bound_is_the_functions_bytes():
     assert by == "bytes"
     assert ms == pytest.approx(((1 << 20) * 4 + (1 << 20) * 32 * 4 + 131072 * 32 * 4) / 3.35e12 * 1e3)
     assert GM.scatter_bound_ms(16, 64, 8)[0] == pytest.approx((64 + 16 * 32 + 64 * 32) / 3.35e12 * 1e3)
-    # the one-hot scatter's own product is the gather's transposed: the same operation count, far above the bound
-    assert GM.onehot_mechanism_ops_ms(1 << 20, 131072, 32) > 100 * ms
+    # the one-hot scatter's own product is the gather's transposed: the same operation count, below the bound
+    assert GM.onehot_mechanism_ops_ms(1 << 20, 32) < ms / 4
+
+
+def test_no_queries_give_empty_and_zero_results_and_launch_nothing():
+    table, _ = _case(64, 8, 1)
+    idx = torch.zeros((0,), dtype=torch.int32)
+    g = torch.zeros((0, 8))
+    GM.reset_launch_counts()
+    for fn in (GM.gather_rows_coalesced, GM.gather_rows_serial, GM.gather_rows_onehot):
+        assert fn(table, idx).shape == (0, 8)
+    for fn in (GM.scatter_rows_onehot, GM.scatter_rows_blocked, GM.scatter_rows_serial):
+        out = fn(idx, g, 64)
+        assert out.shape == (64, 8) and float(out.abs().sum()) == 0.0
+    assert (GM.coalesced_launches, GM.onehot_launches, GM.serial_launches, GM.scatter_onehot_launches,
+            GM.scatter_blocked_launches, GM.scatter_serial_launches) == (0,) * 6
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's one-hot probes (P2, P3) themselves, in interpret mode
+
+JAX_QUERIES = 1024  # the module's N (queries per call), cut from 2^20
+
+
+@pytest.fixture
+def pallas_probes(monkeypatch):
+    """`benchmarks/pallas_gather_microbench.py`, imported by path, with N cut
+    to JAX_QUERIES and every `pl.pallas_call` run in interpret mode."""
+    path = Path(__file__).resolve().parent.parent / "benchmarks" / "pallas_gather_microbench.py"
+    spec = importlib.util.spec_from_file_location("pallas_gather_microbench_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(mod, "N", JAX_QUERIES)
+    monkeypatch.setattr(mod.pl, "pallas_call", functools.partial(mod.pl.pallas_call, interpret=True))
+    return mod
+
+
+def _probe_inputs(seed, t_rows, f, hot):
+    """Seeded table (bf16), indices and updates; `hot` puts half the indices
+    in one row and a quarter in the table's last 16 rows."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(t_rows, f)).astype(np.float32)
+    idx = rng.integers(0, t_rows, JAX_QUERIES).astype(np.int32)
+    if hot:
+        idx[: JAX_QUERIES // 2] = t_rows // 3
+        idx[JAX_QUERIES // 2: 3 * JAX_QUERIES // 4] = rng.integers(t_rows - 16, t_rows, JAX_QUERIES // 4)
+        rng.shuffle(idx)
+    g = rng.normal(size=(JAX_QUERIES, f)).astype(np.float32)
+    return torch.from_numpy(table).to(torch.bfloat16), idx, g
+
+
+@pytest.mark.parametrize("t_rows,f,hot", [(64, 8, False), (64, 8, True), (128, 32, False)])
+def test_onehot_gather_plain_equals_the_jax_pallas_kernel(pallas_probes, t_rows, f, hot):
+    """P2: the TPU kernel's one-hot product has one non-zero term per output,
+    so it equals the bf16 row exactly, as the plain version does: bit for bit."""
+    table, idx, _ = _probe_inputs(t_rows + f, t_rows, f, hot)
+    jtable = jax.numpy.asarray(table.float().numpy()).astype(jax.numpy.bfloat16)
+    want = np.asarray(pallas_probes.make_onehot_gather(t_rows, f, 256, 32)(jtable, jax.numpy.asarray(idx)))
+    got = GM.gather_rows_onehot(table, torch.from_numpy(idx))
+    assert want.dtype == np.float32 and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("t_rows,f,hot", [(64, 8, False), (64, 8, True), (128, 32, False)])
+def test_onehot_scatter_plain_matches_the_jax_pallas_kernel(pallas_probes, t_rows, f, hot):
+    """P3: the TPU kernel rounds g to bf16 and sums onehot^T @ g in fp32 on its
+    matrix unit, in another order than `index_add_`: within SCATTER_TOL of the
+    sum of the absolute values of an entry's terms."""
+    _, idx, g = _probe_inputs(t_rows + f + 1, t_rows, f, hot)
+    want = np.asarray(pallas_probes.make_onehot_scatter(t_rows, f, 256, 32)(jax.numpy.asarray(idx),
+                                                                           jax.numpy.asarray(g)))
+    ti, tg = torch.from_numpy(idx), torch.from_numpy(g)
+    got = GM.scatter_rows_onehot(ti, tg, t_rows).numpy()
+    magnitude = GM.scatter_rows_plain(ti, tg.abs(), t_rows).numpy()
+    assert want.shape == got.shape == (t_rows, f)
+    assert (np.abs(got - want) <= GM.SCATTER_TOL * magnitude).all(), float(np.abs(got - want).max())
+    if hot:
+        assert magnitude[t_rows // 3].min() > 100 * np.median(magnitude), "one row holds half the updates"

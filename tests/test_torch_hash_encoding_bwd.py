@@ -307,3 +307,57 @@ def test_backward_wrapper_checks_its_arguments_and_counts_no_cpu_launch():
         TH.hash_grid_encode_bwd(pos, None, c.ttab, *layout, torch.from_numpy(c.g[:5]))
     with pytest.raises(ValueError, match="g must be"):
         TH.hash_grid_encode_bwd(pos, None, c.ttab, *layout, torch.from_numpy(c.g).double())
+
+
+BIG_MAX_ROWS = 2**19  # one hashed cell-packed level: 2^19 buckets x 8 corners x 4 features, fp32: 64 MiB
+
+
+@pytest.mark.parametrize("read_bf16", [False, True], ids=["fp32", "bf16"])
+def test_plain_backward_matches_jax_above_the_fp32_accumulation_limit(read_bf16):
+    """A table gradient above `_FP32_ACCUM_MAX_BYTES` (32 MiB): JAX's
+    `_interp_gather_cp_bwd` then adds the level's updates into a bf16
+    accumulator, one bf16 rounding a term, where the port adds in fp32.
+
+    Bound, per entry, relative to the sum of the absolute values of its terms
+    (`magnitude=True`): the bf16 recursive sum of an entry's k terms is within
+    gamma_k = k * 2^-8 / (1 - k * 2^-8) of it (k - 1 rounded additions of unit
+    roundoff 2^-8, and with fp32 reads one more rounding of each term to
+    bf16), plus 2^-7 + 2^-8 for a corner weight within an ulp of a bf16
+    rounding tie (bf16 reads; as in the hot-cell cases above). Hot rows are in
+    the case: 32 cells of 32 positions each (a ray's samples in one cell)
+    beside 3072 uniform positions."""
+    d, f = 3, 4
+    scales = JH.level_scales(1, 96, 96)
+    _, dense, packs = JH.level_layout(scales, d, BIG_MAX_ROWS, True)
+    assert dense == (None,) and packs == (2,)
+    (jtab,) = JH.init_hash_tables(jax.random.PRNGKey(7), scales, d, BIG_MAX_ROWS, f, scale=0.5, cell_packed=True)
+    assert jtab.size * 4 > JH._FP32_ACCUM_MAX_BYTES, "JAX accumulates this level's gradient in bf16"
+    rng = np.random.default_rng(8)
+    cells = rng.integers(0, 96, (32, 1, d))
+    hot = (cells + rng.uniform(0.05, 0.95, (32, 32, d))) / scales[0]
+    pos = np.concatenate([rng.uniform(0.0, 1.0, (3072, d)), hot.reshape(-1, d)]).astype(np.float32)
+    g = rng.normal(size=(pos.shape[0], f)).astype(np.float32)
+
+    kw = dict(cell_packed=True, dense_res=dense, bucket_pack=packs, gather_dtype=jnp.bfloat16 if read_bf16 else None)
+    _, vjp = jax.vjp(lambda t: JH.hash_encode(jnp.asarray(pos), (t,), jnp.asarray(scales), **kw), jtab)
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+
+    ttab = torch.from_numpy(np.array(jtab))
+    buckets = ttab.shape[0] * packs[0]
+    layout = ([float(scales[0])], [buckets], list(dense), f, read_bf16, True)
+    tpos, tg = torch.from_numpy(pos), torch.from_numpy(g)
+    (got,), _, _ = TH.hash_grid_encode_bwd_plain(tpos, None, [ttab], *layout, tg, positions_grad=False)
+    (mag,), _, _ = TH.hash_grid_encode_bwd_plain(tpos, None, [ttab], *layout, tg, positions_grad=False,
+                                                 magnitude=True)
+    bucket, _ = TH.level_index(tpos, float(scales[0]), buckets, None, True)
+    terms = np.repeat(np.bincount(bucket.numpy(), minlength=buckets), 2**d * f).reshape(got.shape)
+    assert terms.max() >= 32 and terms.max() * 2.0**-8 < 0.5
+    gamma = terms * 2.0**-8 / (1.0 - terms * 2.0**-8)
+    err, mag = np.abs(got.numpy() - want), mag.numpy()
+    assert got.shape == want.shape and ((terms == 0) == (mag == 0)).all()
+    assert (err <= (gamma + 2.0**-7 + 2.0**-8) * mag + 1e-9).all(), float((err / (mag + 1e-30)).max())
+    shared = terms >= 2
+    assert (err[shared] > 2.0**-12 * mag[shared]).any(), "JAX's bf16 sums differ from fp32 ones where rows meet"
+    ratio = err / np.maximum(mag, 1e-30)
+    print(f"bf16 against fp32 table-gradient sums (read_bf16={read_bf16}): at most {ratio[shared].max():.2e} of the "
+          f"terms' magnitude where rows meet (up to {terms.max()} terms), {ratio[terms == 1].max():.2e} on one-term rows")

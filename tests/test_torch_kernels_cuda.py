@@ -281,14 +281,32 @@ def test_hash_grid_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         HE.hash_grid_encode_bwd(pos, None, tables, *args, torch.zeros((16, 16), device="cuda").double())
 
 
+SPREADS = ["uniform", "one_bucket", "one_row"]
+
+
+def _probe_indices(gen, n, t_rows, spread):
+    """n int32 indices into t_rows rows: uniform (the last row among them),
+    all in the table's last bucket of GM.BUCKET_ROWS rows (cut short where
+    t_rows is not a multiple of it), or all one row."""
+    if spread == "uniform":
+        idx = torch.randint(0, t_rows, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        idx[:1] = t_rows - 1
+    elif spread == "one_bucket":
+        first = (t_rows - 1) // GM.BUCKET_ROWS * GM.BUCKET_ROWS
+        idx = torch.randint(first, t_rows, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    else:
+        idx = torch.full((n,), t_rows // 3, dtype=torch.int32, device="cuda")
+    return idx
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t_rows,f", [(4096, 8), (4096, 16), (8192, 32), (1000, 32)])
-@pytest.mark.parametrize("n", [1, 200, 4099])
-def test_gather_probes_equal_plain(cuda, t_rows, f, n):
+@pytest.mark.parametrize("t_rows,f", [(4096, 8), (4096, 16), (8192, 32), (1000, 32), (30000, 16)])
+@pytest.mark.parametrize("n", [0, 1, 200, 4099])
+@pytest.mark.parametrize("spread", SPREADS)
+def test_gather_probes_equal_plain(cuda, t_rows, f, n, spread):
     gen = torch.Generator(device="cuda").manual_seed(n)
     table = torch.randn((t_rows, f), generator=gen, device="cuda").to(torch.bfloat16)
-    idx = torch.randint(0, t_rows, (n,), generator=gen, device="cuda", dtype=torch.int32)
-    idx[0] = t_rows - 1
+    idx = _probe_indices(gen, n, t_rows, spread)
     want = GM.gather_rows_plain(table, idx)
     before = (GM.coalesced_launches, GM.onehot_launches, GM.serial_launches)
     assert torch.equal(GM.gather_rows_coalesced(table, idx), want)
@@ -296,7 +314,7 @@ def test_gather_probes_equal_plain(cuda, t_rows, f, n):
     onehot = GM.gather_rows_onehot(table, idx)
     torch.cuda.synchronize()
     assert onehot.dtype == torch.float32 and torch.equal(onehot, want.float())
-    assert (GM.coalesced_launches, GM.onehot_launches, GM.serial_launches) == tuple(b + 1 for b in before)
+    assert (GM.coalesced_launches, GM.onehot_launches, GM.serial_launches) == tuple(b + (n > 0) for b in before)
 
 
 @pytest.mark.cuda
@@ -315,9 +333,11 @@ def test_gather_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 # ---------------------------------------------------------------------------
 # the lookup's backward (K1b) and the scatter-add probes (P3, P4, P6): sums in
-# an order that atomics choose anew at every launch, so each entry is held to
-# BWD_TOL_SUM times the sum of the absolute values of its terms (the plain
-# versions' `magnitude`), and two launches may differ in the last bits.
+# another order than the plain versions' (an order that atomics choose anew at
+# every launch, or for P3 the fixed order of its sort and products), so each
+# entry is held to BWD_TOL_SUM times the sum of the absolute values of its
+# terms (the plain versions' `magnitude`); two launches of K1b, P4 or P6 may
+# differ in the last bits, two of P3 may not.
 # ---------------------------------------------------------------------------
 
 BWD_TOL_SUM = 1e-5
@@ -452,11 +472,13 @@ def test_hash_grid_autograd_function_runs_both_kernels(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_rows,f", [(4096, 8), (4096, 16), (8192, 32), (1000, 32), (30000, 8)])
-@pytest.mark.parametrize("n", [1, 200, 40099])
-def test_scatter_probes_match_plain(cuda, t_rows, f, n):
+@pytest.mark.parametrize("n", [0, 1, 200, 40099])
+@pytest.mark.parametrize("spread", SPREADS)
+def test_scatter_probes_match_plain(cuda, t_rows, f, n, spread):
+    """The one-hot scatter has one owner per output row and no atomics: a
+    second launch on the same inputs gives the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(n + f)
-    idx = torch.randint(0, t_rows, (n,), generator=gen, device="cuda", dtype=torch.int32)
-    idx[0] = t_rows - 1
+    idx = _probe_indices(gen, n, t_rows, spread)
     g = torch.randn((n, f), generator=gen, device="cuda")
     magnitude = GM.scatter_rows_plain(idx, g.abs(), t_rows)
     before = (GM.scatter_onehot_launches, GM.scatter_blocked_launches, GM.scatter_serial_launches)
@@ -468,7 +490,9 @@ def test_scatter_probes_match_plain(cuda, t_rows, f, n):
         assert got.dtype == torch.float32 and got.shape == (t_rows, f)
         _close_to_terms(got, want, magnitude, fn.__name__)
     assert (GM.scatter_onehot_launches, GM.scatter_blocked_launches, GM.scatter_serial_launches) == tuple(
-        b + 1 for b in before)
+        b + (n > 0) for b in before)
+    first = GM.scatter_rows_onehot(idx, g, t_rows)
+    assert torch.equal(GM.scatter_rows_onehot(idx, g, t_rows), first)
 
 
 @pytest.mark.cuda
@@ -483,3 +507,7 @@ def test_scatter_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         GM.scatter_rows_onehot(idx.cpu(), g, 16)
     with pytest.raises(ValueError, match="columns"):
         GM.scatter_rows_onehot(idx, torch.zeros((4, 4), device="cuda"), 16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        GM.scatter_rows_onehot(idx, torch.zeros((4 * 8 + 1,), device="cuda")[1:].view(4, 8), 16)
+    with pytest.raises(ValueError, match="T <="):
+        GM.scatter_rows_onehot(idx, g, 51200 * GM.BUCKET_ROWS + 1)

@@ -217,3 +217,18 @@ def test_rasterize_lidar_tiled_matches_jax_pallas():
         np.testing.assert_allclose(t[key].numpy(), np.asarray(j[key]), atol=ATOL, err_msg=key)
     for key in ("depth", "median_depth"):
         np.testing.assert_allclose(t[key].numpy(), np.asarray(j[key]), rtol=RTOL_DEPTH, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("backend", ["hybrid", "xla"])
+def test_xla_backends_raise_on_the_cpu(backend):
+    """JAX computes a bf16 XLA composite for "hybrid" and "xla"; the port has
+    only the fp32 Pallas composite, so both entry points refuse them on the
+    CPU, as on CUDA, rather than compute another function."""
+    proj, feats, opac = _projected_camera(5, n=50)
+    args = (_to_torch(proj), torch.from_numpy(feats), torch.from_numpy(opac))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TGR.rasterize_camera(*args, width=96, height=80, backend=backend)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TGR.rasterize_lidar_points_tiled(*args, torch.zeros((16, 4)), backend=backend)
+    with pytest.raises(ValueError, match="unknown rasterize backend"):
+        TGR.rasterize_camera(*args, width=96, height=80, backend=backend + "_tpu")
