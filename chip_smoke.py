@@ -20,8 +20,11 @@
    levels) must equal its plain version bit for bit. The six gather and
    scatter-add probes run through their own entry point at every table shape
    against table[idx] (bit for bit) and index_add_ (1e-5 of the terms'
-   magnitude), beside torch.index_select and index_add_; the bucketed one-hot
-   scatter must give the same bits on a second launch.
+   magnitude), beside torch.index_select and index_add_, and the three
+   scatter-adds once more at (131072, 32) on skewed indices (half in one row,
+   a quarter in the last 16); the bucketed one-hot scatter must give the same
+   bits on a second launch. Then the bucketed probes' (P2, P3, P4) device
+   time kernel by kernel and their host time before the first launch.
 3. Serving phase: builds the SplatAD pipeline on the synthetic scene at
    1920x1080 with 500,000 gaussians and a 64x1024-beam lidar, starts the
    closed-loop HTTP server on localhost, answers two /render_image requests at
@@ -608,12 +611,13 @@ def hash_grid_bwd_phase(outputs, rng):
 
 def probe_phase():
     """The gather and scatter-add probes through their own entry point: every
-    table shape, each kernel against its plain version (the run raises on any
-    difference beyond the scatter-adds' SCATTER_TOL, and on a one-hot scatter
-    that gives other bits on a second launch), times beside
-    torch.index_select and index_add_, the one-hot probes' scratch. The counts
-    are read around this one run; then the one-hot probes' device time by
-    kernel (`GM.profile_onehot`)."""
+    table shape, and the scatter-adds on skewed indices at GM.SKEWED_SHAPE,
+    each kernel against its plain version (the run raises on any difference
+    beyond the scatter-adds' SCATTER_TOL, and on a one-hot scatter that gives
+    other bits on a second launch), times beside torch.index_select and
+    index_add_, the bucketed probes' scratch. The counts are read around this
+    one run; then the bucketed probes' device time by kernel
+    (`GM.profile_bucketed`)."""
     from neurad_tpu_torch.benchmarks import gather_microbench as GM
 
     GM.reset_launch_counts()
@@ -632,13 +636,18 @@ def probe_phase():
             "the copies and the atomic scatter-adds ran at every table shape")
     require(names >= {(n, t, f) for t, f in GM.TABLE_SHAPES for n in ("onehot", "scatter_onehot")},
             "the bucketed one-hot products ran at every table shape")
+    require({(r["name"], r["skew"]) for r in scatters if (r["T"], r["F"]) == GM.SKEWED_SHAPE} ==
+            {(n, s) for n in ("scatter_onehot", "scatter_blocked", "scatter_serial") for s in ("uniform", "hot")},
+            "the three scatter-adds ran on uniform and on skewed indices at (131072, 32)")
     require(all(r["relaunch_equal"] for r in scatters if r["name"] == "scatter_onehot" and (r["T"], r["F"]) ==
-                (131072, 32)), "the one-hot scatter gave the same bits on a second launch at (131072, 32)")
+                GM.SKEWED_SHAPE), "the one-hot scatter gave the same bits on a second launch at (131072, 32), "
+            "uniform and skewed")
     for r in records:
         if r["name"] in ("onehot", "scatter_onehot"):
-            log(f"[gather] {r['name']} T={r['T']} F={r['F']}: the bucketing pass's scratch {r['scratch_bytes']} bytes")
-    # after the counts: where a one-hot probe's time goes, kernel by kernel
-    return dict(records=records, launches=launches, onehot_profile=GM.profile_onehot(DEVICE, log=log))
+            log(f"[gather] {r['name']} T={r['T']} F={r['F']} ({r['skew']} indices): the bucketing pass's scratch "
+                f"{r['scratch_bytes']} bytes")
+    # after the counts: where a bucketed probe's time goes, kernel by kernel
+    return dict(records=records, launches=launches, bucketed_profile=GM.profile_bucketed(DEVICE, log=log))
 
 
 # ---------------------------------------------------------------------------
@@ -1479,7 +1488,8 @@ def main() -> int:
         "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": None,
         "other_shapes": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "max_rel_err")}
                          for k, v in hash_bwd.items() if k != "hash_grid_bwd_static_bf16"}})
-    # the probes' line entries are the (131072, 32) table; every shape is in the report
+    # the probes' line entries are the (131072, 32) table on uniform indices, the scatter-adds' with their
+    # reading on skewed ones; every shape is in the report
     probe_names = {"coalesced": ("gather_rows_coalesced", "benchmarks/pallas_gather_microbench.py:54"),
                    "onehot": ("gather_rows_onehot", "benchmarks/pallas_gather_microbench.py:91"),
                    "serial": ("gather_rows_serial", "benchmarks/pallas_gather_microbench2.py:100"),
@@ -1487,12 +1497,15 @@ def main() -> int:
                    "scatter_blocked": ("scatter_rows_blocked", "benchmarks/pallas_gather_microbench.py:166"),
                    "scatter_serial": ("scatter_rows_serial", "benchmarks/pallas_gather_microbench2.py:134")}
     for key, (name, replaces) in probe_names.items():
-        (r,) = [r for r in probes["records"] if r["name"] == key and (r["T"], r["F"]) == (131072, 32)]
+        at = {r["skew"]: r for r in probes["records"] if r["name"] == key and (r["T"], r["F"]) == (131072, 32)}
+        r = at["uniform"]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": "neurad_tpu_torch/csrc/gather_probes.cu", "replaces": replaces,
             "launches": probes["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "table": [r["T"], r["F"]], "queries": r["N"]})
+        if "hot" in at:
+            line["kernels"][-1]["skewed"] = {m: at["hot"][m] for m in ("ms", "library_ms", "max_rel_err")}
     require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 12,
             "all twelve kernels were launched on their main path")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,

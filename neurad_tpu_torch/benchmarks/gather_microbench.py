@@ -10,8 +10,8 @@ row, a resident accumulator per range of rows, or the tensor cores).
   gather_rows_onehot     <- `make_onehot_gather`      onehot(idx) @ table on the tensor cores, fp32 result
   gather_rows_serial     <- `make_scalar_gather`      one thread copies one row
   scatter_rows_onehot    <- `make_onehot_scatter`     onehot(idx)^T @ bf16(g) on the tensor cores, fp32 sum
-  scatter_rows_blocked   <- `make_vmem_scatter_probe` a shared-memory accumulator per range of rows
-  scatter_rows_serial    <- `make_scalar_scatter`     one thread adds one row with atomics
+  scatter_rows_blocked   <- `make_vmem_scatter_probe` a shared-memory accumulator per range of rows, fed its own updates
+  scatter_rows_serial    <- `make_scalar_scatter`     one update at a time, its row added as vector reductions
 
 The two one-hot probes first sort the indices by range of `BUCKET_ROWS` rows
 (a counting sort in three hand-written launches) and multiply each range of
@@ -19,6 +19,11 @@ the table (or of the output) only with the queries (or updates) that name it:
 the one-hot product on the tensor cores that the TPU kernels compute, without
 the products over rows no query names. The one-hot scatter has one owner per
 output row and no atomics: two launches on the same inputs give the same bits.
+The blocked scatter runs the same sort, then walks the sorted updates in spans
+of `BLOCKED_SPAN`, adding each range's updates into an fp32 accumulator of
+`BUCKET_ROWS` rows in shared memory and flushing it: every update is read a
+fixed number of times, whatever T. The serial scatter adds each update's row
+alone, F/4 lanes with one 16-byte vector reduction each.
 
 The gathers share one plain version, `gather_rows_plain` (`table[idx]`), the
 scatter-adds another, `scatter_rows_plain` (`index_add_` in fp32; with the
@@ -34,7 +39,8 @@ update (N = 0) launches nothing. Launches are counted in `coalesced_launches`, `
     python -m neurad_tpu_torch.benchmarks.gather_microbench [--device cuda] [--queries 1048576]
 
 prints, per table shape (T rows x F columns: bf16 for the gathers, fp32 for
-the scatter-adds' output), each kernel's time (CUDA events: median of 10
+the scatter-adds' output; the scatter-adds once more at `SKEWED_SHAPE` on
+`skewed_indices`), each kernel's time (CUDA events: median of 10
 launches after 2 warm-ups) and rate in M rows/s, beside `torch.index_select`
 and `index_add_` (yardsticks that no path of the port calls) and the least
 time the card could take for the function (its bytes over the memory rate:
@@ -63,7 +69,9 @@ from neurad_tpu_torch.ops import _build
 # (rows, bf16 columns): 256 KB, 4 MB, 8 MB and 32 MB tables
 TABLE_SHAPES = ((16384, 8), (65536, 32), (131072, 32), (524288, 32))
 NUM_QUERIES = 1 << 20
-BUCKET_ROWS = 128  # rows of a bucket of the one-hot probes' counting sort (`R` in csrc/gather_probes.cu)
+BUCKET_ROWS = 128  # rows of a bucket of the bucketed probes' counting sort (`R` in csrc/gather_probes.cu)
+BLOCKED_SPAN = 1024  # sorted updates a span of the blocked scatter (`SPAN` in csrc/gather_probes.cu)
+SKEWED_SHAPE = (131072, 32)  # the table shape at which the scatter-adds also run on skewed indices
 # H100 SXM data-sheet peaks: HBM3 bandwidth, dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12
 PEAK_BF16_OPS = 989e12
@@ -115,12 +123,12 @@ def _launch(fn_name: str, table: torch.Tensor, idx: torch.Tensor, out: torch.Ten
 
 @functools.lru_cache(maxsize=64)
 def onehot_scratch_ints(n: int, t_rows: int) -> int:
-    """The int32s of scratch the one-hot probes' bucketing pass needs at N = n
+    """The int32s of scratch the bucketed probes' (P2, P3, P4) sort needs at N = n
     queries against t_rows rows (its offsets table and permutation), from the
     built library: the layout is the kernel's."""
     ints = _build.load("gather_probes").onehot_scratch_ints(n, t_rows)
     if ints < 0:
-        raise ValueError(f"the one-hot probes take 1 <= N < 2^25 and T <= {51200 * BUCKET_ROWS} rows, "
+        raise ValueError(f"the bucketed probes take 1 <= N < 2^25 and T <= {51200 * BUCKET_ROWS} rows, "
                          f"got N={n}, T={t_rows}")
     return ints
 
@@ -199,14 +207,11 @@ def _check_scatter(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> None:
         raise ValueError(f"unsupported device {g.device}")
 
 
-def _launch_scatter(fn_name: str, idx: torch.Tensor, g: torch.Tensor, t_rows: int, out: torch.Tensor = None,
-                    *extra) -> torch.Tensor:
-    """Launch `fn_name` into `out` (by default a zero-filled [t_rows, F] fp32
-    tensor); nothing for N = 0. `extra`: pointers passed after the shape."""
-    if out is None:
-        out = torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
-    if idx.shape[0] == 0:
-        return out
+def _launch_scatter(fn_name: str, idx: torch.Tensor, g: torch.Tensor, t_rows: int, *extra) -> torch.Tensor:
+    """Launch `fn_name` (N >= 1) into a new [t_rows, F] fp32 tensor, which the
+    kernels write whole (the one-hot scatter) or zero-fill first (the others).
+    `extra`: pointers passed after the shape."""
+    out = torch.empty((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
     lib = _build.load("gather_probes")
     with torch.cuda.device(g.device):
         err = getattr(lib, fn_name)(idx.data_ptr(), g.data_ptr(), out.data_ptr(), idx.shape[0], t_rows, g.shape[1],
@@ -214,6 +219,11 @@ def _launch_scatter(fn_name: str, idx: torch.Tensor, g: torch.Tensor, t_rows: in
     if err != 0:
         raise RuntimeError(f"{fn_name} failed with CUDA error {err} (T={t_rows}, F={g.shape[1]})")
     return out
+
+
+def _check_vector_rows(g: torch.Tensor, what: str) -> None:
+    if g.data_ptr() % 16:
+        raise ValueError(f"the {what} reads 16-byte pieces of g: g must start on a 16-byte boundary")
 
 
 def scatter_rows_onehot(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
@@ -227,41 +237,63 @@ def scatter_rows_onehot(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torc
         return scatter_rows_plain(idx, g, t_rows, round_bf16=True)
     if g.shape[1] not in (8, 16, 32):
         raise ValueError("the one-hot scatter takes 8, 16 or 32 columns")
-    if g.data_ptr() % 16:
-        raise ValueError("the one-hot scatter copies 16-byte pieces: g must start on a 16-byte boundary")
+    _check_vector_rows(g, "one-hot scatter")
     global scatter_onehot_launches
     n = idx.shape[0]
     if n == 0:
         return torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
-    out = torch.empty((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
-    scratch = _onehot_scratch(n, t_rows, g.device)
-    _launch_scatter("scatter_rows_onehot", idx, g, t_rows, out, scratch.data_ptr())
+    scratch = _onehot_scratch(n, t_rows, g.device)  # held until the launch is enqueued
+    out = _launch_scatter("scatter_rows_onehot", idx, g, t_rows, scratch.data_ptr())
     scatter_onehot_launches += 1
     return out
 
 
 def scatter_rows_blocked(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
-    """P4: per (range of rows, slice of updates) a shared-memory accumulator,
-    flushed with global atomics -> [t_rows, F] fp32. F is 8, 16 or 32."""
+    """P4: a resident fp32 accumulator per range of `BUCKET_ROWS` rows in
+    shared memory, fed only its own updates -> [t_rows, F] fp32. The updates
+    are sorted by range first (the one-hot probes' counting sort); spans of
+    `BLOCKED_SPAN` sorted updates are spread over the card, each adding its
+    updates range by range with shared-memory atomics and flushing the range's
+    rows with plain stores (a range wholly inside the span) or vector
+    reductions (a range cut by the span's edge) into the zero-filled output.
+    F is 8, 16 or 32; 1 <= N < 2^25 and T <= 51200 * BUCKET_ROWS, as for the
+    one-hot probes. The sums' order changes from launch to launch (atomics).
+    A call is five launches (the zero-fill, the sort's three, the
+    accumulate); `scatter_blocked_launches` counts calls."""
     _check_scatter(idx, g, t_rows)
     if g.device.type == "cpu":
         return scatter_rows_plain(idx, g, t_rows)
     if g.shape[1] not in (8, 16, 32):
         raise ValueError("the blocked scatter takes 8, 16 or 32 columns")
+    _check_vector_rows(g, "blocked scatter")
     global scatter_blocked_launches
-    out = _launch_scatter("scatter_rows_blocked", idx, g, t_rows)
-    scatter_blocked_launches += int(idx.shape[0] > 0)
+    n = idx.shape[0]
+    if n == 0:
+        return torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    scratch = _onehot_scratch(n, t_rows, g.device)  # held until the launch is enqueued
+    out = _launch_scatter("scatter_rows_blocked", idx, g, t_rows, scratch.data_ptr())
+    scatter_blocked_launches += 1
     return out
 
 
 def scatter_rows_serial(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
-    """P6: one thread per update row, F serial fp32 atomics -> [t_rows, F]."""
+    """P6: one update at a time, its row added as one row-wide vector add:
+    F/4 neighbouring lanes, each with one 16-byte reduction
+    (`red.global.add.v4.f32`) into the zero-filled output -> [t_rows, F] fp32.
+    Nothing combines updates. F is a multiple of 4 and g starts on a 16-byte
+    boundary. A call is two launches (the zero-fill, the adds);
+    `scatter_serial_launches` counts calls."""
     _check_scatter(idx, g, t_rows)
     if g.device.type == "cpu":
         return scatter_rows_plain(idx, g, t_rows)
+    if g.shape[1] % 4:
+        raise ValueError("the serial scatter adds 16-byte pieces: F must be a multiple of 4 columns")
+    _check_vector_rows(g, "serial scatter")
     global scatter_serial_launches
+    if idx.shape[0] == 0:
+        return torch.zeros((t_rows, g.shape[1]), dtype=torch.float32, device=g.device)
     out = _launch_scatter("scatter_rows_serial", idx, g, t_rows)
-    scatter_serial_launches += int(idx.shape[0] > 0)
+    scatter_serial_launches += 1
     return out
 
 
@@ -314,10 +346,21 @@ def onehot_mechanism_ops_ms(n: int, f: int) -> float:
     return 2.0 * n * BUCKET_ROWS * f / PEAK_BF16_OPS * 1e3
 
 
+def skewed_indices(n: int, t_rows: int, gen: torch.Generator, device) -> torch.Tensor:
+    """n int32 indices into t_rows rows: half of them row t_rows // 3, a
+    quarter uniform in the last 16 rows, the rest uniform; shuffled."""
+    idx = torch.randint(0, t_rows, (n,), generator=gen, device=device, dtype=torch.int32)
+    idx[: n // 2] = t_rows // 3
+    idx[n // 2: 3 * n // 4] = torch.randint(max(0, t_rows - 16), t_rows, (3 * n // 4 - n // 2,), generator=gen,
+                                            device=device, dtype=torch.int32)
+    return idx[torch.randperm(n, generator=gen, device=device)]
+
+
 def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: int = 0, reps: int = 10,
         log: Optional[Callable[[str], None]] = print) -> List[dict]:
-    """Check and time every probe at every table shape. Returns one record per
-    (shape, probe): name, T, F, ms, rows_per_s, max_abs_err against the plain
+    """Check and time every probe at every table shape, and the scatter-adds
+    once more at `SKEWED_SHAPE` on `skewed_indices`. Returns one record per
+    (shape, probe, skew): name, T, F, skew ("uniform" or "hot"), ms, rows_per_s, max_abs_err against the plain
     version, plain_ms, library_ms (`torch.index_select` for the gathers,
     `index_add_` for the scatter-adds), bound_ms, bound_by; the one-hot probes'
     records also hold mechanism_ops_ms and, on the card, scratch_bytes (the
@@ -348,7 +391,8 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
             if not torch.equal(got, want):
                 raise RuntimeError(f"{name} gather differs from table[idx] at T={t_rows}, F={f}: max abs err {err}")
             ms = _time_ms(lambda: fn(table, idx), dev, 2, reps)
-            rec = dict(name=name, T=t_rows, F=f, N=queries, ms=ms, rows_per_s=queries / (ms * 1e-3) if ms else 0.0,
+            rec = dict(name=name, T=t_rows, F=f, N=queries, skew="uniform", ms=ms,
+                       rows_per_s=queries / (ms * 1e-3) if ms else 0.0,
                        max_abs_err=err, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[name][0],
                        bound_by=bound[name][1])
             if name == "onehot":
@@ -361,6 +405,8 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
                     + (_onehot_note(rec) if name == "onehot" else "")
                     + "  exact")
         records += _run_scatter(dev, gen, idx, t_rows, f, reps, log)
+        if (t_rows, f) == SKEWED_SHAPE:
+            records += _run_scatter(dev, gen, skewed_indices(queries, t_rows, gen, dev), t_rows, f, reps, log, "hot")
     return records
 
 
@@ -374,8 +420,9 @@ def _onehot_note(rec: dict) -> str:
     return note + (f", scratch {rec['scratch_bytes']} bytes" if rec["scratch_bytes"] is not None else "")
 
 
-def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
-    """The scatter-add probes at one table shape, with the gathers' indices."""
+def _run_scatter(dev, gen, idx, t_rows, f, reps, log, skew="uniform") -> List[dict]:
+    """The scatter-add probes at one table shape on the indices `idx` (the
+    gathers', or skewed ones)."""
     n = idx.shape[0]
     g = torch.randn((n, f), generator=gen, device=dev)
     idx64 = idx.long()
@@ -385,7 +432,8 @@ def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
     magnitude = scatter_rows_plain(idx, g.abs(), t_rows)
     bound = scatter_bound_ms(n, t_rows, f)
     if log:
-        log(f"[scatter] T={t_rows} F={f} N={n}: plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms")
+        log(f"[scatter] T={t_rows} F={f} N={n} ({skew} indices): plain {plain_ms:.4f} ms, "
+            f"index_add_ {library_ms:.4f} ms")
     probes = (("scatter_onehot", scatter_rows_onehot), ("scatter_blocked", scatter_rows_blocked),
               ("scatter_serial", scatter_rows_serial))
     records = []
@@ -400,12 +448,12 @@ def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
         err = float(diff.max()) if n else 0.0
         rel = float((diff / (magnitude + 1e-30)).max()) if n else 0.0
         if not bool((diff <= SCATTER_TOL * magnitude).all()):
-            raise RuntimeError(f"{name} differs from its plain version at T={t_rows}, F={f}: max error over the "
-                               f"magnitude of the entry's terms {rel:.3e}")
+            raise RuntimeError(f"{name} differs from its plain version at T={t_rows}, F={f} ({skew} indices): max "
+                               f"error over the magnitude of the entry's terms {rel:.3e}")
         if name == "scatter_onehot" and not relaunch_equal:
-            raise RuntimeError(f"{name} gave other bits on a second launch at T={t_rows}, F={f}")
+            raise RuntimeError(f"{name} gave other bits on a second launch at T={t_rows}, F={f} ({skew} indices)")
         ms = _time_ms(lambda: fn(idx, g, t_rows), dev, 1, reps)
-        rec = dict(name=name, T=t_rows, F=f, N=n, ms=ms, rows_per_s=n / (ms * 1e-3) if ms else 0.0,
+        rec = dict(name=name, T=t_rows, F=f, N=n, skew=skew, ms=ms, rows_per_s=n / (ms * 1e-3) if ms else 0.0,
                    max_abs_err=err, max_rel_err=rel, relaunch_equal=relaunch_equal, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
         if name == "scatter_onehot":
@@ -413,7 +461,7 @@ def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
             rec["scratch_bytes"] = _scratch_bytes(n, t_rows, dev)
         records.append(rec)
         if log:
-            log(f"[scatter]  {name:16s} {ms:10.4f} ms  {rec['rows_per_s'] / 1e6:10.1f} M rows/s  "
+            log(f"[scatter]  {name:16s} {skew:7s} {ms:10.4f} ms  {rec['rows_per_s'] / 1e6:10.1f} M rows/s  "
                 f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                 + (_onehot_note(rec) if name == "scatter_onehot" else "")
                 + f"  max err {rel:.2e} of the terms' magnitude, "
@@ -421,19 +469,20 @@ def _run_scatter(dev, gen, idx, t_rows, f, reps, log) -> List[dict]:
     return records
 
 
-def profile_onehot(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: int = 0, reps: int = 5,
-                   log: Optional[Callable[[str], None]] = print) -> List[dict]:
-    """Where a one-hot probe's time goes, per call, at every table shape: the
-    device time of each of its kernels (the bucketing pass's count, scan and
-    place, then the product) from torch.profiler over `reps` calls, and the
-    host time a call takes to return (checks, allocations, launches; no
-    synchronisation), the median of 20. Card only: it reads device time."""
+def profile_bucketed(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: int = 0, reps: int = 5,
+                     log: Optional[Callable[[str], None]] = print) -> List[dict]:
+    """Where a bucketed probe's time goes (P2, P3, P4), per call, at every
+    table shape: the device time of each of its kernels (P4's zero-fill, the
+    bucketing pass's count, scan and place, then the product or the
+    accumulate) from torch.profiler over `reps` calls, and the host time a
+    call takes to return (checks, allocations, launches; no synchronisation),
+    the median of 20. Card only: it reads device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device(device)
     if dev.type != "cuda":
-        raise RuntimeError("profile_onehot reads device time: it needs the card")
+        raise RuntimeError("profile_bucketed reads device time: it needs the card")
     gen = torch.Generator(device=dev).manual_seed(seed)
     records = []
     for t_rows, f in shapes:
@@ -441,7 +490,8 @@ def profile_onehot(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPE
         idx = torch.randint(0, t_rows, (queries,), generator=gen, device=dev, dtype=torch.int32)
         g = torch.randn((queries, f), generator=gen, device=dev)
         for name, call in (("onehot", lambda: gather_rows_onehot(table, idx)),
-                           ("scatter_onehot", lambda: scatter_rows_onehot(idx, g, t_rows))):
+                           ("scatter_onehot", lambda: scatter_rows_onehot(idx, g, t_rows)),
+                           ("scatter_blocked", lambda: scatter_rows_blocked(idx, g, t_rows))):
             call()
             torch.cuda.synchronize()
             enqueue = []
@@ -464,7 +514,7 @@ def profile_onehot(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPE
                        device_ms=device_ms, device_total_ms=sum(device_ms.values()))
             records.append(rec)
             if log:
-                log(f"[profile] {name:14s} T={t_rows} F={f}: device {rec['device_total_ms']:.4f} ms a call ("
+                log(f"[profile] {name:15s} T={t_rows} F={f}: device {rec['device_total_ms']:.4f} ms a call ("
                     + ", ".join(f"{k} {v:.4f}" for k, v in device_ms.items())
                     + f"), host {rec['enqueue_ms']:.4f} ms to return")
     return records

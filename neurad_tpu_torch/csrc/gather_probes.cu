@@ -35,7 +35,7 @@
 //    range comes first, and each range of R = 128 rows is multiplied only with
 //    the queries (or updates) that name it: 2 * N * R * F operations. The
 //    products over rows that no query names, all zero, are what is left out.
-//    - The bucketing pass (shared, three launches): `bucket_count_kernel`
+//    - The bucketing pass (shared with P4, three launches): `bucket_count_kernel`
 //      counts each block's chunk of indices per bucket (idx / R) with shared
 //      atomics and writes its column of a [buckets x blocks] table;
 //      `bucket_scan_kernel` scans the table in bucket-major order, a tile a
@@ -71,13 +71,36 @@
 //      the same inputs give the same bits. A bucket's updates are walked by
 //      one block, so a hot bucket is right and slow, and a small table (128
 //      buckets at T = 16384) leaves each block a long serial walk.
-//  * P4 (a resident accumulator, one range at a time): block (range, slice)
-//    adds the updates of its slice of N that fall in its range of R rows into
-//    a shared-memory accumulator (shared atomics, a warp walking 32 updates a
-//    step, lanes across the row), then adds the range's non-zero entries to
-//    the output with global atomics. R * F * 4 bytes = 96 KB of shared memory.
-//  * P6 (one update at a time): one thread per update row adds its F values
-//    with F serial fp32 global atomics: the naive form.
+//  * P4 (a resident accumulator, fed only its own updates): the bucketing
+//    pass above, then `scatter_blocked_kernel`. A persistent grid walks the
+//    permutation in spans of SPAN = 1024 entries, split by position, not by
+//    bucket, so a hot bucket, a one-row input or a small table is spread over
+//    the card. Inside a span, bucket by bucket: a block zeroes an R x F fp32
+//    accumulator in shared memory (4-16 KB), its warps add the span's entries
+//    of that bucket with shared-memory atomics (F/4 lanes an update, a float4
+//    of g each, 32/(F/4) updates a warp step; every entry is a hit), then
+//    flush the bucket's non-zero rows. A span finds each bucket it enters by
+//    re-reading idx[update] of the bucket's first entry there (two dependent
+//    4-byte reads, then its start and end in the offsets table), not by a
+//    binary search over the buckets' starts (log2 of the buckets, up to 16
+//    dependent reads), and skips empty buckets for free. A bucket that lies
+//    wholly inside one span has one owner and is stored with plain float4
+//    stores; the parts of a bucket cut by a span's edge meet through vector
+//    global reductions (red.global.add.v4.f32) into the output, which the
+//    call zero-fills first. A flushed row had at least one update in its
+//    segment, so the flush never moves more than the updates' own bytes.
+//    Shared fp32 atomicAdd is a compare-and-swap loop on this card (SASS
+//    ATOMS.CAST.SPIN), which serialises lanes that meet on one address: each
+//    group of lanes keeps a running float4 while its entries name the same
+//    row (a hot row's run) and adds it when the row changes, and the four
+//    scalar adds of a float4 start at a column rotated by the group, so the
+//    groups of a warp step meet distinct banks. Results are fp32 sums in an
+//    order that changes from launch to launch (atomics), as index_add_'s do.
+//  * P6 (one update at a time): F/4 neighbouring lanes own one update; each
+//    loads 16 bytes of its g row and adds them with one vector reduction
+//    (red.global.add.v4.f32, SASS REDG.E.ADD.F32x4): a 128-byte row is one
+//    coalesced group of 8 reductions, 32/(F/4) updates a warp step. Nothing
+//    combines updates. F is a multiple of 4, g and out 16-byte aligned.
 //
 // What bounds them. The functions are a gather and a scatter-add whatever the
 // mechanism. A gather reads the indices and the rows they name once and writes
@@ -85,20 +108,24 @@
 // writes the output once (N * 4 + N * F * 4 + T * F * 4 bytes).
 // All six are bound by bytes. P1 and P5 write bf16 (80 MB, 0.024 ms at
 // N = 2^20, T = 131072, F = 32 on an H100 SXM); P2 writes fp32 (147 MB,
-// 0.0438 ms); P3 moves 155 MB (0.0463 ms). The bucketing pass adds about
-// 20-30 MB of index traffic of its own (the indices read three times, the
-// count table, the permutation written and read). The bucketed products do
+// 0.0438 ms); P3, P4 and P6 move 155 MB (0.0463 ms). The bucketing pass (P2,
+// P3, P4) adds about 20-30 MB of index traffic of its own (the indices read
+// three times, the count table, the permutation written and read); P4 adds
+// its zero-fill of the output (T * F * 4 bytes), its span's re-reads of idx
+// (a few a span) and its flush (at most the updates' own bytes, reductions
+// only where a span's edge cuts a bucket). The bucketed products do
 // 2 * N * R * F operations (8.6e9 at that shape: 0.009 ms at the bf16
 // tensor-core peak), so wgmma and TMA would buy nothing: mma.sync with
 // cp.async is enough. That cost is reported apart from the bound. By count
 // (not measured apart), the products' cost beside their bytes is building the
 // one-hot fragments: every warp does it for every 16 queries or updates of
 // its bucket.
-// Limits of the one-hot probes: N < 2^25 (a permutation entry packs the update
-// with its 7-bit row), T <= 51200 * R rows (the count's shared histogram);
-// indices outside [0, T) are skipped (their gather rows are left unset, their
-// updates dropped); an Inf or a NaN in a table row (P2) or an update (P3)
-// spreads a NaN over its bucket's results, as in any one-hot product.
+// Limits of the bucketed probes (P2, P3, P4): N < 2^25 (a permutation entry
+// packs the update with its 7-bit row), T <= 51200 * R rows (the count's
+// shared histogram); indices outside [0, T) are skipped (their gather rows
+// are left unset, their updates dropped); an Inf or a NaN in a table row (P2)
+// or an update (P3) spreads a NaN over its bucket's results, as in any
+// one-hot product. P6 skips indices outside [0, T) too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -570,60 +597,106 @@ __global__ void __launch_bounds__(THREADS) scatter_onehot_kernel(
   }
 }
 
-// P4: block (range, slice); the range's accumulator in dynamic shared memory.
-constexpr int RANGE_FLOATS = 24576;  // 96 KB
+// P4: a persistent grid walks the permutation in spans of SPAN entries; per
+// bucket a span meets, an R x F accumulator in shared memory.
+constexpr int SPAN = 1024;
+constexpr int BLOCKED_BLOCKS_PER_SM = 6;  // the accumulate's register cap (no spill) and its grid: 6 blocks an SM
 
-template <int F>
-__global__ void __launch_bounds__(THREADS) scatter_blocked_kernel(
-    const int* __restrict__ idx, const float* __restrict__ g, float* __restrict__ out, int64_t n, int t_rows,
-    int64_t slice) {
-  extern __shared__ float acc[];
-  constexpr int R = RANGE_FLOATS / F;
-  constexpr int PER = 32 / F > 0 ? 32 / F : 1;  // updates a warp adds at once (lanes across F columns)
-  const int r0 = blockIdx.x * R;
-  const int rows = min(R, t_rows - r0);
-  const int64_t u0 = (int64_t)blockIdx.y * slice;
-  const int64_t u1 = min(n, u0 + slice);
-  for (int e = threadIdx.x; e < R * F; e += THREADS) acc[e] = 0.0f;
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int64_t w0 = u0 + (int64_t)warp * 32; w0 < u1; w0 += (int64_t)WARPS * 32) {
-    const int64_t u = w0 + lane;
-    const int r = u < u1 ? __ldg(idx + u) - r0 : -1;
-    unsigned hits = __ballot_sync(0xffffffffu, r >= 0 && r < rows);
-    while (hits) {
-      // PER updates at a time, F lanes each
-      int mine = -1, k = 0;
-      unsigned rest = hits;
-      for (int q = 0; q < PER && rest; ++q) {
-        const int b = __ffs(rest) - 1;
-        rest &= rest - 1;
-        if (lane / F == q) mine = b;
-        ++k;
-      }
-      hits = rest;
-      const int rr = __shfl_sync(0xffffffffu, r, mine < 0 ? 0 : mine);
-      if (mine >= 0) {
-        const int col = lane % F;
-        atomicAdd(acc + rr * F + col, __ldg(g + (w0 + mine) * F + col));
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < rows * F; e += THREADS) {
-    const float v = acc[e];
-    if (v != 0.0f) atomicAdd(out + (int64_t)r0 * F + e, v);
+__device__ __forceinline__ void red_add4(float* p, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ bool nonzero4(float4 v) { return v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f; }
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// acc[0..3] += v with four shared atomics, starting at column `rot` mod 4.
+__device__ __forceinline__ void shared_add4(float* acc, float4 v, int rot) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = (j + rot) & 3;
+    atomicAdd(acc + c, c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w);
   }
 }
 
-// P6: thread -> update row; F serial atomics.
+template <int F>
+__global__ void __launch_bounds__(THREADS, BLOCKED_BLOCKS_PER_SM) scatter_blocked_kernel(
+    const float4* __restrict__ g, const int* __restrict__ idx, const unsigned* __restrict__ perm,
+    const int* __restrict__ offsets, int nblk, int nb, int t_rows, float* __restrict__ out) {
+  constexpr int L = F / 4;           // lanes an update, a float4 each
+  constexpr int STEP = THREADS / L;  // entries a block step
+  constexpr int UNROLL = 2;          // entries a lane loads at once (4 cost registers, hence occupancy)
+  __shared__ __align__(16) float acc[R * F];
+  __shared__ int seg[3];  // the bucket of the segment, its start and its end in the permutation
+  const int lane = threadIdx.x & 31, grp = threadIdx.x / L, piece = threadIdx.x % L;
+  const int total = offsets[(int64_t)nb * nblk];  // entries of in-range indices
+  float4* acc4 = reinterpret_cast<float4*>(acc);
+  for (int64_t s0 = (int64_t)blockIdx.x * SPAN; s0 < total; s0 += (int64_t)gridDim.x * SPAN) {
+    const int p0 = (int)s0, p1 = min(total, p0 + SPAN);
+    for (int p = p0; p < p1;) {  // bucket by bucket: the permutation is sorted by bucket
+      for (int e = threadIdx.x; e < R * L; e += THREADS) acc4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (threadIdx.x == 0) {  // the bucket of entry p, from its update's index, re-read
+        const int b = __ldg(idx + (__ldg(perm + p) >> R_SHIFT)) >> R_SHIFT;
+        seg[0] = b;
+        seg[1] = __ldg(offsets + (int64_t)b * nblk);
+        seg[2] = __ldg(offsets + (int64_t)(b + 1) * nblk);
+      }
+      __syncthreads();
+      const int b = seg[0], q = min(p1, seg[2]);
+      const bool whole = seg[1] >= p0 && seg[2] <= p1;
+      int run_row = -1;  // the row of the running sum, -1 before the first entry
+      float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int e0 = p + grp; e0 < q; e0 += UNROLL * STEP) {
+        unsigned ent[UNROLL];
+        float4 v[UNROLL];
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) ent[k] = e0 + k * STEP < q ? __ldg(perm + e0 + k * STEP) : 0u;
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k)
+          v[k] = e0 + k * STEP < q ? __ldg(g + (int64_t)(ent[k] >> R_SHIFT) * L + piece)
+                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          if (e0 + k * STEP >= q) continue;
+          const int row = (int)(ent[k] & (R - 1));
+          if (row == run_row) {
+            run = add4(run, v[k]);
+          } else {
+            if (run_row >= 0) shared_add4(acc + run_row * F + piece * 4, run, lane / L);
+            run_row = row;
+            run = v[k];
+          }
+        }
+      }
+      if (run_row >= 0) shared_add4(acc + run_row * F + piece * 4, run, lane / L);
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * L; e += THREADS) {
+        const int64_t row = (int64_t)b * R + e / L;
+        const float4 x = acc4[e];
+        if (row < t_rows && nonzero4(x)) {
+          float* dst = out + row * F + (e % L) * 4;
+          if (whole) *reinterpret_cast<float4*>(dst) = x;  // the bucket's one owner
+          else red_add4(dst, x);                           // a part of a bucket cut by a span's edge
+        }
+      }
+      p = q;
+      __syncthreads();  // before the next segment zeroes acc and rewrites seg
+    }
+  }
+}
+
+// P6: thread -> (update, 16-byte piece of its row); one vector reduction each.
 __global__ void __launch_bounds__(THREADS) scatter_serial_kernel(
-    const int* __restrict__ idx, const float* __restrict__ g, float* __restrict__ out, int64_t n, int f) {
-  const int64_t u = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (u >= n) return;
-  float* dst = out + (int64_t)__ldg(idx + u) * f;
-  const float* src = g + u * f;
-  for (int j = 0; j < f; ++j) atomicAdd(dst + j, __ldg(src + j));
+    const int* __restrict__ idx, const float4* __restrict__ g, float* __restrict__ out, int64_t n, int pieces,
+    int t_rows) {
+  const int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= n * pieces) return;
+  const int64_t u = t / pieces;
+  const int r = __ldg(idx + u);
+  if ((unsigned)r < (unsigned)t_rows) red_add4(out + ((int64_t)r * pieces + (t - u * pieces)) * 4, __ldg(g + t));
 }
 
 int blocks_for(int64_t work) { return (int)((work + THREADS - 1) / THREADS); }
@@ -681,9 +754,8 @@ extern "C" int gather_rows_onehot(const void* table, const int* idx, float* out,
 }
 
 // Scatter-adds: idx [n] int32 in [0, t_rows), g [n, f] fp32, out [t_rows, f]
-// fp32, zero-filled by the caller except for scatter_rows_onehot. Return the
-// launch's cudaError_t, or -1 for arguments no kernel takes.
-// out [t_rows, f] fp32, every entry written (no zero-fill needed); f in
+// fp32. Return the launch's cudaError_t, or -1 for arguments no kernel takes.
+// scatter_rows_onehot: every entry of out written (no zero-fill needed); f in
 // {8, 16, 32}; n >= 1; g 16-byte aligned; no float atomics.
 extern "C" int scatter_rows_onehot(const int* idx, const float* g, float* out, long long n, int t_rows, int f,
                                    void* scratch, void* stream) {
@@ -701,38 +773,42 @@ extern "C" int scatter_rows_onehot(const int* idx, const float* g, float* out, l
 }
 
 template <int F>
-cudaError_t launch_blocked(const int* idx, const float* g, float* out, int64_t n, int t_rows, cudaStream_t st) {
-  constexpr int R = RANGE_FLOATS / F;
-  const int ranges = (t_rows + R - 1) / R;
-  // enough (range, slice) blocks to fill the card four times over; slices of at least 4096 updates
-  int64_t slices = (4 * 132 + ranges - 1) / ranges;
-  slices = std::max<int64_t>(1, std::min<int64_t>(slices, (n + 4095) / 4096));
-  const int64_t slice = (n + slices - 1) / slices;
-  const size_t smem = RANGE_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scatter_blocked_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  scatter_blocked_kernel<F><<<dim3(ranges, (unsigned)slices), THREADS, smem, st>>>(idx, g, out, n, t_rows, slice);
-  return cudaGetLastError();
+void launch_blocked(const float* g, const int* idx, int64_t n, const int* scratch, const Buckets& L, int t_rows,
+                    float* out, cudaStream_t st) {
+  const int* offsets = scratch + SCAN_CTRL;
+  const unsigned* perm = reinterpret_cast<const unsigned*>(offsets + L.table + 1);
+  const int blocks = (int)std::min<int64_t>((n + SPAN - 1) / SPAN, BLOCKED_BLOCKS_PER_SM * SMS);
+  scatter_blocked_kernel<F><<<blocks, THREADS, 0, st>>>(reinterpret_cast<const float4*>(g), idx, perm, offsets,
+                                                        L.nblk, L.nb, t_rows, out);
 }
 
+// out [t_rows, f] fp32, zero-filled here; f in {8, 16, 32}; n >= 1; g and out
+// 16-byte aligned. Five launches: the fill, the bucketing pass, the accumulate.
 extern "C" int scatter_rows_blocked(const int* idx, const float* g, float* out, long long n, int t_rows, int f,
-                                    void* stream) {
-  if (n < 0 || t_rows < 1) return -1;
-  if (n == 0) return 0;
+                                    void* scratch, void* stream) {
+  Buckets L;
+  if (!bucket_layout(n, t_rows, &L) || (f != 8 && f != 16 && f != 32) || (((uintptr_t)g | (uintptr_t)out) & 15))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (f == 8) err = launch_blocked<8>(idx, g, out, n, t_rows, st);
-  else if (f == 16) err = launch_blocked<16>(idx, g, out, n, t_rows, st);
-  else if (f == 32) err = launch_blocked<32>(idx, g, out, n, t_rows, st);
-  else return -1;
-  return (int)err;
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)t_rows * f * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  int* sc = static_cast<int*>(scratch);
+  if ((err = bucket_indices(idx, n, t_rows, L, sc, st)) != cudaSuccess) return (int)err;
+  if (f == 8) launch_blocked<8>(g, idx, n, sc, L, t_rows, out, st);
+  else if (f == 16) launch_blocked<16>(g, idx, n, sc, L, t_rows, out, st);
+  else launch_blocked<32>(g, idx, n, sc, L, t_rows, out, st);
+  return (int)cudaGetLastError();
 }
 
+// out [t_rows, f] fp32, zero-filled here; f a multiple of 4; g and out 16-byte
+// aligned; indices outside [0, t_rows) are skipped.
 extern "C" int scatter_rows_serial(const int* idx, const float* g, float* out, long long n, int t_rows, int f,
                                    void* stream) {
-  if (n < 0 || t_rows < 1 || f < 1) return -1;
-  if (n == 0) return 0;
-  scatter_serial_kernel<<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(idx, g, out, n, f);
+  if (n < 0 || t_rows < 1 || f < 4 || f % 4 || (((uintptr_t)g | (uintptr_t)out) & 15)) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)t_rows * f * sizeof(float), st);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  scatter_serial_kernel<<<blocks_for(n * (f / 4)), THREADS, 0, st>>>(idx, reinterpret_cast<const float4*>(g), out,
+                                                                      n, f / 4, t_rows);
   return (int)cudaGetLastError();
 }

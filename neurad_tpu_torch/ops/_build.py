@@ -56,7 +56,7 @@ LIBRARIES = {
             "gather_rows_onehot": [_P, _P, _P, _L, _I, _I, _P, _P],
             "gather_rows_serial": [_P, _P, _P, _L, _I, _I, _P],
             "scatter_rows_onehot": [_P, _P, _P, _L, _I, _I, _P, _P],
-            "scatter_rows_blocked": [_P, _P, _P, _L, _I, _I, _P],
+            "scatter_rows_blocked": [_P, _P, _P, _L, _I, _I, _P, _P],
             "scatter_rows_serial": [_P, _P, _P, _L, _I, _I, _P],
         },
     ),

@@ -1,13 +1,14 @@
 """The gather and scatter-add probes on the CPU: the shared plain versions,
 the wrappers' argument checks, the bounds' arithmetic and the script's
-`--device cpu` run at a tiny size, and the one-hot probes' plain versions
-against the JAX package's Pallas kernels themselves
-(`benchmarks/pallas_gather_microbench.py`, run in interpret mode). The
+`--device cpu` run at a tiny size, and every probe's plain version against
+the JAX package's Pallas kernel itself (`benchmarks/pallas_gather_microbench.py`
+and `benchmarks/pallas_gather_microbench2.py`, run in interpret mode). The
 kernels themselves run only on the card (`tests/test_torch_kernels_cuda.py`)."""
 
-import functools
 import importlib.util
 import json
+import re
+import types
 from pathlib import Path
 
 import jax
@@ -79,10 +80,14 @@ def test_script_runs_on_the_cpu_at_a_tiny_size(tmp_path, capsys):
     out = tmp_path / "gather.json"
     records = GM.entrypoint(["--device", "cpu", "--queries", "64", "--json", str(out)])
     names = [(r["name"], r["T"]) for r in records]
-    assert len(records) == 24, "six probes at four shapes: the bucketed one-hot products at every shape too"
+    assert len(records) == 27, "six probes at four shapes, the three scatter-adds once more on skewed indices"
     assert ("onehot", 524288) in names and ("onehot", 131072) in names and ("serial", 524288) in names
     assert ("scatter_onehot", 524288) in names and ("scatter_onehot", 131072) in names
     assert ("scatter_blocked", 524288) in names and ("scatter_serial", 524288) in names
+    hot = [r for r in records if r["skew"] == "hot"]
+    assert sorted(r["name"] for r in hot) == ["scatter_blocked", "scatter_onehot", "scatter_serial"]
+    assert all((r["T"], r["F"]) == GM.SKEWED_SHAPE for r in hot)
+    assert all(r["skew"] == "uniform" for r in records if r not in hot)
     for r in records:
         assert r["max_abs_err"] == 0.0 and r["ms"] > 0 and r["library_ms"] > 0 and r["bound_by"] == "bytes"
         assert ("mechanism_ops_ms" in r) == (r["name"] in ("onehot", "scatter_onehot"))
@@ -95,7 +100,7 @@ def test_script_runs_on_the_cpu_at_a_tiny_size(tmp_path, capsys):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GM.entrypoint(["--queries", "64"])
     with pytest.raises(RuntimeError, match="needs the card"):
-        GM.profile_onehot("cpu", queries=64)
+        GM.profile_bucketed("cpu", queries=64)
 
 
 @pytest.mark.parametrize("t_rows,f", [(64, 8), (256, 32), (100, 16), (7, 1)])
@@ -165,23 +170,56 @@ def test_no_queries_give_empty_and_zero_results_and_launch_nothing():
             GM.scatter_blocked_launches, GM.scatter_serial_launches) == (0,) * 6
 
 
-# ---------------------------------------------------------------------------
-# the JAX package's one-hot probes (P2, P3) themselves, in interpret mode
+def test_skewed_indices_put_half_in_one_row_and_a_quarter_in_the_last_16():
+    gen = torch.Generator().manual_seed(3)
+    idx = GM.skewed_indices(4096, 1000, gen, "cpu")
+    assert idx.dtype == torch.int32 and idx.shape == (4096,)
+    assert int((idx == 1000 // 3).sum()) >= 2048
+    assert int((idx >= 1000 - 16).sum()) >= 1024 and int(idx.max()) < 1000 and int(idx.min()) >= 0
+    assert int((idx[:2048] == 1000 // 3).sum()) < 2048, "shuffled"
 
-JAX_QUERIES = 1024  # the module's N (queries per call), cut from 2^20
+
+def test_python_constants_match_the_kernel_source():
+    """The wrappers' and the benchmark's arithmetic uses the kernels' bucket
+    rows and span; the source is the authority."""
+    src = (Path(GM.__file__).resolve().parent.parent / "csrc" / "gather_probes.cu").read_text()
+    assert 1 << int(re.search(r"constexpr int R_SHIFT = (\d+);", src)[1]) == GM.BUCKET_ROWS
+    assert int(re.search(r"constexpr int SPAN = (\d+);", src)[1]) == GM.BLOCKED_SPAN
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's probes (P1-P6) themselves, in interpret mode
+
+JAX_QUERIES = 1024  # the modules' N (queries per call), cut from 2^20
+
+
+def _load_by_path(name):
+    path = Path(__file__).resolve().parent.parent / "benchmarks" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
 def pallas_probes(monkeypatch):
-    """`benchmarks/pallas_gather_microbench.py`, imported by path, with N cut
-    to JAX_QUERIES and every `pl.pallas_call` run in interpret mode."""
-    path = Path(__file__).resolve().parent.parent / "benchmarks" / "pallas_gather_microbench.py"
-    spec = importlib.util.spec_from_file_location("pallas_gather_microbench_under_test", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    monkeypatch.setattr(mod, "N", JAX_QUERIES)
-    monkeypatch.setattr(mod.pl, "pallas_call", functools.partial(mod.pl.pallas_call, interpret=True))
-    return mod
+    """`benchmarks/pallas_gather_microbench.py` (`vmem`) and
+    `benchmarks/pallas_gather_microbench2.py` (`scalar`), imported by path,
+    with N cut to JAX_QUERIES and every `pl.pallas_call` run in interpret
+    mode. `made` holds each `pl.pallas_call` product, in order: the scalar
+    probes' `run` returns a chained scalar, so their tests call the product."""
+    vmem, scalar = _load_by_path("pallas_gather_microbench"), _load_by_path("pallas_gather_microbench2")
+    made = []
+    real = vmem.pl.pallas_call
+
+    def interpret_call(*args, **kwargs):
+        made.append(real(*args, interpret=True, **kwargs))
+        return made[-1]
+
+    for mod in (vmem, scalar):
+        monkeypatch.setattr(mod, "N", JAX_QUERIES)
+    monkeypatch.setattr(vmem.pl, "pallas_call", interpret_call)
+    return types.SimpleNamespace(vmem=vmem, scalar=scalar, made=made)
 
 
 def _probe_inputs(seed, t_rows, f, hot):
@@ -204,7 +242,7 @@ def test_onehot_gather_plain_equals_the_jax_pallas_kernel(pallas_probes, t_rows,
     so it equals the bf16 row exactly, as the plain version does: bit for bit."""
     table, idx, _ = _probe_inputs(t_rows + f, t_rows, f, hot)
     jtable = jax.numpy.asarray(table.float().numpy()).astype(jax.numpy.bfloat16)
-    want = np.asarray(pallas_probes.make_onehot_gather(t_rows, f, 256, 32)(jtable, jax.numpy.asarray(idx)))
+    want = np.asarray(pallas_probes.vmem.make_onehot_gather(t_rows, f, 256, 32)(jtable, jax.numpy.asarray(idx)))
     got = GM.gather_rows_onehot(table, torch.from_numpy(idx))
     assert want.dtype == np.float32 and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
@@ -216,8 +254,8 @@ def test_onehot_scatter_plain_matches_the_jax_pallas_kernel(pallas_probes, t_row
     matrix unit, in another order than `index_add_`: within SCATTER_TOL of the
     sum of the absolute values of an entry's terms."""
     _, idx, g = _probe_inputs(t_rows + f + 1, t_rows, f, hot)
-    want = np.asarray(pallas_probes.make_onehot_scatter(t_rows, f, 256, 32)(jax.numpy.asarray(idx),
-                                                                           jax.numpy.asarray(g)))
+    want = np.asarray(pallas_probes.vmem.make_onehot_scatter(t_rows, f, 256, 32)(jax.numpy.asarray(idx),
+                                                                                jax.numpy.asarray(g)))
     ti, tg = torch.from_numpy(idx), torch.from_numpy(g)
     got = GM.scatter_rows_onehot(ti, tg, t_rows).numpy()
     magnitude = GM.scatter_rows_plain(ti, tg.abs(), t_rows).numpy()
@@ -225,3 +263,65 @@ def test_onehot_scatter_plain_matches_the_jax_pallas_kernel(pallas_probes, t_row
     assert (np.abs(got - want) <= GM.SCATTER_TOL * magnitude).all(), float(np.abs(got - want).max())
     if hot:
         assert magnitude[t_rows // 3].min() > 100 * np.median(magnitude), "one row holds half the updates"
+
+
+PROBE_CASES = [(64, 8, False), (64, 8, True), (128, 32, False)]
+
+
+def _jax_table(table):
+    return jax.numpy.asarray(table.float().numpy()).astype(jax.numpy.bfloat16)
+
+
+def _assert_scatter_close(got, want, idx, g, t_rows, hot):
+    magnitude = GM.scatter_rows_plain(torch.from_numpy(idx), torch.from_numpy(g).abs(), t_rows).numpy()
+    assert want.dtype == np.float32 and want.shape == got.shape == (t_rows, g.shape[1])
+    assert (np.abs(got - want) <= GM.SCATTER_TOL * magnitude).all(), float(np.abs(got - want).max())
+    assert (idx == t_rows // 3).sum() >= (JAX_QUERIES // 2 if hot else 0), "one row holds half the updates"
+
+
+@pytest.mark.parametrize("t_rows,f,hot", PROBE_CASES)
+def test_coalesced_gather_plain_equals_the_jax_pallas_kernel(pallas_probes, t_rows, f, hot):
+    """P1: the TPU kernel gathers the block's rows from the VMEM-resident
+    table (`take_along_axis`): bf16 rows, bit for bit."""
+    table, idx, _ = _probe_inputs(t_rows + f + 2, t_rows, f, hot)
+    want = pallas_probes.vmem.make_vmem_gather(t_rows, f, 256, jax.numpy.bfloat16)(_jax_table(table),
+                                                                                    jax.numpy.asarray(idx))
+    got = GM.gather_rows_coalesced(table, torch.from_numpy(idx))
+    assert want.dtype == jax.numpy.bfloat16 and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jax.numpy.float32)))
+
+
+@pytest.mark.parametrize("t_rows,f,hot", PROBE_CASES)
+def test_serial_gather_plain_equals_the_jax_pallas_kernel(pallas_probes, t_rows, f, hot):
+    """P5: the TPU kernel copies one row at a time in a scalar loop: bf16
+    rows, bit for bit."""
+    table, idx, _ = _probe_inputs(t_rows + f + 3, t_rows, f, hot)
+    pallas_probes.scalar.make_scalar_gather(t_rows, f, 256, 8)
+    want = pallas_probes.made[-1](jax.numpy.asarray(idx), _jax_table(table))
+    got = GM.gather_rows_serial(table, torch.from_numpy(idx))
+    assert want.dtype == jax.numpy.bfloat16 and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jax.numpy.float32)))
+
+
+@pytest.mark.parametrize("t_rows,f,hot", PROBE_CASES)
+def test_blocked_scatter_plain_matches_the_jax_pallas_kernel(pallas_probes, t_rows, f, hot):
+    """P4: the TPU kernel adds each block's `zeros.at[idx].add(g)` into its
+    resident fp32 accumulator, in another order than `index_add_`: within
+    SCATTER_TOL of the sum of the absolute values of an entry's terms."""
+    _, idx, g = _probe_inputs(t_rows + f + 4, t_rows, f, hot)
+    want = np.asarray(pallas_probes.vmem.make_vmem_scatter_probe(t_rows, f, 256)(jax.numpy.asarray(idx),
+                                                                               jax.numpy.asarray(g)))
+    got = GM.scatter_rows_blocked(torch.from_numpy(idx), torch.from_numpy(g), t_rows).numpy()
+    _assert_scatter_close(got, want, idx, g, t_rows, hot)
+
+
+@pytest.mark.parametrize("t_rows,f,hot", PROBE_CASES)
+def test_serial_scatter_plain_matches_the_jax_pallas_kernel(pallas_probes, t_rows, f, hot):
+    """P6: the TPU kernel adds one update's row at a time in a scalar loop,
+    in fp32: within SCATTER_TOL of the sum of the absolute values of an
+    entry's terms."""
+    _, idx, g = _probe_inputs(t_rows + f + 5, t_rows, f, hot)
+    pallas_probes.scalar.make_scalar_scatter(t_rows, f, 256, 8)
+    want = np.asarray(pallas_probes.made[-1](jax.numpy.asarray(idx), jax.numpy.asarray(g)))
+    got = GM.scatter_rows_serial(torch.from_numpy(idx), torch.from_numpy(g), t_rows).numpy()
+    _assert_scatter_close(got, want, idx, g, t_rows, hot)

@@ -496,6 +496,34 @@ def test_scatter_probes_match_plain(cuda, t_rows, f, n, spread):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f", [8, 32])
+@pytest.mark.parametrize("spread", SPREADS + ["skewed"])
+def test_blocked_scatter_probe_where_spans_cut_buckets(cuda, f, spread):
+    """The blocked scatter walks the sorted updates in spans of BLOCKED_SPAN:
+    at 2,000 rows (16 buckets) 5 spans and a bit hold buckets that lie wholly
+    inside a span (stored) and buckets cut by a span's edge (reduced); one
+    bucket or one row is cut over six spans; the skewed indices put half the
+    updates in one row. The serial scatter runs beside it."""
+    t_rows, n = 2000, 5 * GM.BLOCKED_SPAN + 3
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    idx = (GM.skewed_indices(n, t_rows, gen, "cuda") if spread == "skewed"
+           else _probe_indices(gen, n, t_rows, spread))
+    g = torch.randn((n, f), generator=gen, device="cuda")
+    magnitude = GM.scatter_rows_plain(idx, g.abs(), t_rows)
+    want = GM.scatter_rows_plain(idx, g, t_rows)
+    for fn in (GM.scatter_rows_blocked, GM.scatter_rows_serial):
+        got = fn(idx, g, t_rows)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (t_rows, f)
+        _close_to_terms(got, want, magnitude, fn.__name__)
+    if spread == "uniform":
+        counts = torch.bincount(idx.long() // GM.BUCKET_ROWS, minlength=16).cpu()
+        starts = torch.cumsum(counts, 0) - counts
+        whole = (starts // GM.BLOCKED_SPAN) == ((starts + counts - 1) // GM.BLOCKED_SPAN)
+        assert bool(whole.any()) and not bool(whole.all()), "some buckets whole in a span, some cut"
+
+
+@pytest.mark.cuda
 def test_scatter_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     idx = torch.zeros((4,), dtype=torch.int32, device="cuda")
     g = torch.zeros((4, 8), device="cuda")
@@ -511,3 +539,22 @@ def test_scatter_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         GM.scatter_rows_onehot(idx, torch.zeros((4 * 8 + 1,), device="cuda")[1:].view(4, 8), 16)
     with pytest.raises(ValueError, match="T <="):
         GM.scatter_rows_onehot(idx, g, 51200 * GM.BUCKET_ROWS + 1)
+    # the blocked scatter: the bucketing pass's limits, its widths, 16-byte rows
+    with pytest.raises(ValueError, match="T <="):
+        GM.scatter_rows_blocked(idx, g, 51200 * GM.BUCKET_ROWS + 1)
+    big = 1 << 25  # a sorted entry packs the update with its 7-bit row
+    with pytest.raises(ValueError, match="N < 2\\^25"):
+        GM.scatter_rows_blocked(torch.zeros((big,), dtype=torch.int32, device="cuda"),
+                                torch.empty((big, 8), device="cuda"), 16)
+    with pytest.raises(ValueError, match="columns"):
+        GM.scatter_rows_blocked(idx, torch.zeros((4, 12), device="cuda"), 16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        GM.scatter_rows_blocked(idx, torch.zeros((4 * 8 + 1,), device="cuda")[1:].view(4, 8), 16)
+    # the serial scatter: F a multiple of 4, 16-byte rows
+    with pytest.raises(ValueError, match="multiple of 4"):
+        GM.scatter_rows_serial(idx, torch.zeros((4, 6), device="cuda"), 16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        GM.scatter_rows_serial(idx, torch.zeros((4 * 8 + 1,), device="cuda")[1:].view(4, 8), 16)
+    # what they do take: F = 12 for the serial scatter, one update
+    out = GM.scatter_rows_serial(idx[:1] + 3, torch.ones((1, 12), device="cuda"), 16)
+    assert float(out[3].sum()) == 12.0 and float(out.sum()) == 12.0
