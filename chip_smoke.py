@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (`neurad_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+`--parent DIR`: another checkout of this repository (say, the parent commit
+unpacked with `git archive`); its hash-grid lookup and camera composite
+wrappers are imported from it, with its own build module and C interface,
+their libraries built from its own sources, and its public entries
+(`hash_grid_encode`, `tile_composite_camera`) timed in turns with this tree's
+(parent, change, change, parent), as a call and as device time, their outputs
+compared bit for bit.
 
 1. Builds every CUDA kernel from `neurad_tpu_torch/csrc/` (nvcc, sm_90a; one
    nvcc per source, started together) and prints ptxas's report of every
@@ -13,11 +21,20 @@
    composite and its backward: T=3780 x P=128 x K=128, C=16, azimuth wrap on),
    on inputs projected and binned from 500,000 seeded gaussians and, for the
    backwards, seeded cotangents that are zero on the rows outside the image,
-   and times both with CUDA events. After the SplatAD serving phase, so that
+   and times both with CUDA events (and the device time from torch.profiler);
+   the camera composite's bound counts the least work (the plain version's
+   alpha terms, counted on the card): the quadratic form alone for pairs
+   beyond the far cut, the gated alpha for the other valid pairs, the feature
+   work only for pairs whose alpha passes the gate. After the SplatAD serving phase, so that
    that phase meets the card as it always did: the hash-grid lookup at the
-   NeuRAD field's full width (static grid: N=1,048,576 samples, 8 levels, D=3, 4 features,
-   the preset's tables, bf16 and fp32 reads; actor grid: N=131,072, D=4, 4
-   levels) must equal its plain version bit for bit. The six gather and
+   NeuRAD field's full width (static grid: N=1,048,576 samples, 8 levels, D=3,
+   4 features, the preset's tables, on uniform positions and on a serving
+   chunk's ray-ordered ones from the scene's cameras; a train chunk's
+   N=262,144; the unpacked layout of `neurad-parity`; actor grid: N=131,072,
+   D=4, 4 levels), in each read mode (bf16 reads of the bf16 copy, bf16 reads
+   of the fp32 master, fp32 reads), must equal its plain version on the fp32
+   master bit for bit; its bytes bound counts rows in the bytes of the type it
+   reads, and the copy's conversion is timed apart. The six gather and
    scatter-add probes run through their own entry point at every table shape
    against table[idx] (bit for bit) and index_add_ (1e-5 of the terms'
    magnitude), beside torch.index_select and index_add_, and the three
@@ -69,6 +86,7 @@ and exits non-zero. Details go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -99,11 +117,13 @@ NEURAD_CHUNK = 1 << 15  # rays per chunk of a NeuRAD render (ADPipelineConfig.ev
 NEURAD_SAMPLES = 32  # field samples per ray
 HASH_KERNEL = "hash_grid_fwd_kernel"
 HASH_BWD_KERNEL = "hash_grid_bwd_kernel"
+CAMERA_KERNEL = "camera_fwd_kernel"
 NEURAD_TRAIN_STEPS = 5  # the first apart, then the warm ones
 NEURAD_LOOP_STEPS = 4  # then through the train script's loop and sampler threads, the first apart
 K1B_RAYS = 8192  # one train chunk (ADPipelineConfig.train_ray_chunk) of the `neurad` preset ...
 K1B_SAMPLES = 32  # ... times its field samples: the static lookup's N in a train step
 REPORT = {}
+PARENT = {}  # `--parent DIR`: the lookup and composite libraries built from that checkout's sources
 
 
 def _sync() -> None:
@@ -120,6 +140,72 @@ def log(msg: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def load_parent(tree):
+    """Import the lookup and composite wrappers of another checkout of this
+    repository (`--parent DIR`), each with that checkout's own build module and
+    C interface, under this tree's package name and without replacing this
+    tree's modules, so that its kernels and this tree's run in turns on one
+    card through their public entries. Returns that checkout's build module:
+    its `build_all` builds its libraries from its own sources."""
+    import importlib
+
+    prefix = "neurad_tpu_torch"
+    ours = lambda: [k for k in sys.modules if k == prefix or k.startswith(prefix + ".")]
+    saved, saved_path = {k: sys.modules.pop(k) for k in ours()}, list(sys.path)
+    sys.path.insert(0, str(Path(tree).resolve()))
+    try:
+        PARENT.update(hash_encoding=importlib.import_module(prefix + ".ops.hash_encoding"),
+                      tile_composite=importlib.import_module(prefix + ".ops.tile_composite"), tree=str(tree))
+        return importlib.import_module(prefix + ".ops._build")
+    finally:
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+        sys.path[:] = saved_path
+
+
+def turns(label, parent_fn, fn):
+    """The parent checkout's kernel and this tree's timed in turns on one card:
+    parent, change, change, parent, each as a call (median of CUDA-event
+    timings: the wrapper's host time before the launch included) and as
+    device time (`device_ms`)."""
+    t = [cuda_time_ms(parent_fn), cuda_time_ms(fn), cuda_time_ms(fn), cuda_time_ms(parent_fn)]
+    dev = [device_ms(parent_fn), device_ms(fn), device_ms(fn), device_ms(parent_fn)]
+    log(f"[parent] {label}: call parent {t[0]:.4f}, change {t[1]:.4f}, change {t[2]:.4f}, parent {t[3]:.4f} ms; device "
+        f"parent {dev[0]:.4f}, change {dev[1]:.4f}, change {dev[2]:.4f}, parent {dev[3]:.4f} ms")
+    return dict(parent_ms=[t[0], t[3]], change_ms=[t[1], t[2]], parent_device_ms=[dev[0], dev[3]],
+                change_device_ms=[dev[1], dev[2]])
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time a call: `reps` calls captured in one CUDA graph, the graph
+    replayed between CUDA events (no host time between the launches), the
+    median of 3 replays over `reps`."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
 
 
 def cuda_time_ms(fn, warmup: int = 2, reps: int = 10) -> float:
@@ -212,6 +298,36 @@ def _row_bytes(table, tile_gauss, tile_valid):
 
     used = torch.unique(tile_gauss[tile_valid > 0])
     return used.numel() * table.shape[1] * 4
+
+
+def _gate_counts(table, tile_gauss, tile_valid, pix, times, tile_chunk=128):
+    """By the plain version's alpha terms, over the camera composite's valid
+    (pixel, slot) pairs: those whose gated alpha is positive, and those beyond
+    the far cut (sigma_raw > 5.6 of a slot whose opacity is at most 1: alpha
+    is 0 whatever the exp gives); and over the valid (8x4-pixel patch, slot)
+    pairs of 16x16 tiles (a warp's vote in K2), those whose pixels all lie
+    beyond the far cut (no exp) and those with a positive alpha somewhere (the
+    sums run) -> (nonzero pairs, far pairs, valid patch pairs, far patch
+    pairs, patch pairs with a positive alpha)."""
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    nonzero = far_pairs = patches = far = lit = 0
+    for s in range(0, pix.shape[0], tile_chunk):
+        e = min(pix.shape[0], s + tile_chunk)
+        valid = tile_valid[s:e] > 0
+        g = TC._gather(table, tile_gauss[s:e])
+        terms = TC._alpha_terms(g, valid, pix[s:e, :, 0:1], pix[s:e, :, 1:2], times[s:e], False)
+        sigma_raw, alpha = terms[2], terms[5]
+        nonzero += int((alpha > 0).sum())
+        beyond = (sigma_raw > 5.6) & (valid & (g[..., 7] <= 1.0))[:, None, :]
+        far_pairs += int(beyond.sum())
+        if pix.shape[1] == 256:
+            patch = lambda x: x.reshape(e - s, 4, 4, 2, 8, -1)  # tile, row block, row, column block, column, slot
+            valid_p = valid[:, None, None, :]
+            patches += int(valid_p.expand(e - s, 4, 2, -1).sum())
+            far += int((patch(sigma_raw > 5.6).all(2).all(3) & valid_p).sum())
+            lit += int((patch(alpha > 0).any(2).any(3) & valid_p).sum())
+    return nonzero, far_pairs, patches, far, lit
 
 
 def _bound(bytes_moved, ops):
@@ -310,17 +426,45 @@ def kernel_phase(rng):
     require(errs[0] <= 1e-4 and errs[2] <= 1e-4, "camera kernel features/alpha within 1e-4 of the plain version")
     require(errs[1] <= 1e-4 * float(ref[1].abs().max()) + 1e-4, "camera kernel depth within 1e-4 relative")
     ms = cuda_time_ms(lambda: TC.tile_composite_camera(*args))
+    dev_ms = device_ms(lambda: TC.tile_composite_camera(*args))
     plain_ms = cuda_time_ms(lambda: TC.tile_composite_camera_plain(*args), warmup=1, reps=3)
     n_valid = int((tile_valid > 0).sum())
     pairs = n_valid * p
-    ops = pairs * (32 + 2 * c)
+    # the least work: a valid pair beyond the far cut needs its quadratic form (15 operations) and the
+    # comparison with the cut, any other valid pair its gated alpha (32), and a pair whose alpha passes the gate
+    # the feature, depth and alpha sums and the transmittance (2 (c + 2)); the earlier bound counted the alpha
+    # and the feature work on every valid pair
+    nonzero, far_pairs, patch_pairs, far_patches, lit_patches = _gate_counts(*args)
+    ops = far_pairs * 16 + (pairs - far_pairs) * 32 + nonzero * 2 * (c + 2)
+    ops_every_pair = pairs * (32 + 2 * c)
     bytes_moved = (tile_gauss.numel() * 4 + tile_valid.numel() * 4 + pix.numel() * 4 + times.numel() * 4
                    + _row_bytes(table, tile_gauss, tile_valid) + t_total * p * (c + 2) * 4)
     bound_ms, bound_by = _bound(bytes_moved, ops)
-    results["camera"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             pairs=pairs, ops=ops, bytes=bytes_moved, errs=errs)
-    log(f"[kernels] camera: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{ops:.3e} ops, {bytes_moved:.3e} bytes)")
+    bound_every_pair_ms, _ = _bound(bytes_moved, ops_every_pair)
+    results["camera"] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by,
+                             pairs=pairs, nonzero_pairs=nonzero, far_pairs=far_pairs, ops=ops, bytes=bytes_moved,
+                             errs=errs,
+                             bound_every_pair_ms=bound_every_pair_ms, patch_pairs=patch_pairs,
+                             far_patch_pairs=far_patches, lit_patch_pairs=lit_patches)
+    log(f"[kernels] camera: {nonzero} of {pairs} valid pairs ({nonzero / pairs:.3f}) pass the alpha gate, "
+        f"{far_pairs} ({far_pairs / pairs:.3f}) lie beyond the far cut; kernel "
+        f"{ms:.4f} ms a call ({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {ops:.3e} ops, {bytes_moved:.3e} "
+        f"bytes; {bound_every_pair_ms:.4f} ms counting the feature work on every valid pair); of {patch_pairs} valid "
+        f"(8x4 patch, slot) pairs {far_patches / max(patch_pairs, 1):.3f} lie wholly beyond the far cut, "
+        f"{lit_patches / max(patch_pairs, 1):.3f} have a positive alpha")
+    if PARENT:
+        parent_k2 = lambda: PARENT["tile_composite"].tile_composite_camera(*args)
+        prev = parent_k2()
+        _sync()
+        equal = [bool(torch.equal(a, b)) for a, b in zip(got, prev)]
+        diff = [float((a - b).abs().max()) for a, b in zip(got, prev)]
+        log(f"[parent] camera: this tree's outputs against the parent's, equal (feat, depth, alpha) {equal}, max abs "
+            f"difference {diff}")
+        results["camera"]["parent"] = dict(turns("camera composite (K2)", parent_k2,
+                                                 lambda: TC.tile_composite_camera(*args)),
+                                           equal=equal, max_diff=diff)
+        del prev
 
     # --- camera backward (K3) ---
     outside = (pix[..., 0] > WIDTH) | (pix[..., 1] > HEIGHT)
@@ -415,7 +559,12 @@ def ptxas_report():
             m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'", line)
             if m:
                 name, rest = m[2][:int(m[1])], m[2][int(m[1]):]
-                args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0] + "E") if rest.startswith("I") else []
+                targs = rest.split("EEv")[0] if rest.startswith("I") else ""
+                args = re.findall(r"L[ib](\d+)E", targs + "E")
+                if "__nv_bfloat16" in targs:  # a type argument: the table's element type
+                    args.append("bf16")
+                elif targs.endswith("Ef"):
+                    args.append("float")
                 cur = dict(library=lib, kernel=f"{name}<{','.join(args)}>" if args else name)
                 rows.append(cur)
             elif cur is not None:
@@ -429,10 +578,18 @@ def ptxas_report():
     return rows
 
 
-def _hash_grid_case(label, settings, d, n, gen, results):
-    """One full-width lookup: the grid of `settings` with random O(1) tables,
-    n seeded positions and stds, kernel against plain (must be equal), times,
-    and the bytes bound from the rows this run's positions touch."""
+# the lookup's read modes: (name, bf16 reads, from the bf16 copy). A serving state's lookups read the copy; a
+# train step's (under autograd) round the fp32 master at the read, as the lookup without copies does.
+HASH_MODES = (("bf16", True, True), ("bf16_master", True, False), ("fp32", False, False))
+
+
+def _hash_grid_case(label, settings, d, pos, std, gen, results, modes=HASH_MODES):
+    """One full-width lookup through `hash_grid_encode` without autograd: the
+    grid of `settings` with random O(1) tables, the given positions and stds,
+    kernel against plain (must be equal) in each read mode, times (beside the
+    parent's in turns with `--parent`, through its own `hash_grid_encode`), and
+    the bytes bound from the rows these positions touch, in the bytes of the
+    mode's read type; the bf16 copy's conversion is timed apart."""
     import torch
 
     from neurad_tpu_torch.fields.neurad_encoding import HashGrid
@@ -440,43 +597,67 @@ def _hash_grid_case(label, settings, d, n, gen, results):
 
     grid = HashGrid(settings, d)
     tables = HE.init_hash_tables(gen, grid.scales, d, grid.table_size, grid.features, scale=1.0,
-                                 cell_packed=grid.cell_packed)
+                                 cell_packed=grid.cell_packed, force_hash=grid.force_hash)
     scales = [float(s) for s in grid.scales]
     buckets = [t.shape[0] * pk for t, pk in zip(tables, grid.pack)]
-    pos = torch.rand((n, d), generator=gen, device=DEVICE)
-    std = torch.rand((n,), generator=gen, device=DEVICE) * 2e-3  # the finest levels get a weight below 1
-    f, n_levels = grid.features, len(tables)
-    row_bytes = (2**d) * f * 4  # the fp32 master row is read, whatever the read type
-    touched = sum(int(torch.unique(HE.level_index(pos, s, b, r, True)[0]).numel())
+    n, f, n_levels = pos.shape[0], grid.features, len(tables)
+    row_values = (2**d if grid.cell_packed else 1) * f
+    touched = sum(int(torch.unique(HE.level_index(pos, s, b, r, grid.cell_packed)[0]).numel())
                   for s, b, r in zip(scales, buckets, grid.dense_res))
-    bytes_moved = touched * row_bytes + pos.numel() * 4 + std.numel() * 4 + n * n_levels * f * 4
+    reads = n * n_levels * (1 if grid.cell_packed else 2**d)
     ops = n * n_levels * ((2**d) * (d + 2 * f) + 6 * d + 8)
-    bound_ms, bound_by = _bound(bytes_moved, ops)
-    log(f"[kernels] {label}: N={n} L={n_levels} D={d} F={f}, tables "
+    log(f"[kernels] {label}: N={n} L={n_levels} D={d} F={f} cell_packed={grid.cell_packed}, tables "
         f"{[tuple(t.shape) for t in tables]} ({sum(t.numel() for t in tables) * 4 / 2**20:.0f} MiB), "
-        f"{touched} of {n * n_levels} row reads are distinct rows")
-    for read_bf16 in (True, False):
-        args = (pos, std, tables, scales, buckets, grid.dense_res, f, read_bf16, True)
+        f"{touched} of {reads} row reads are distinct rows")
+    for mode, read_bf16, from_copy in modes:
+        layout = (scales, buckets, grid.dense_res, f, read_bf16, grid.cell_packed)
+        copies = HE.Bf16Copies() if from_copy else None
+
+        @torch.no_grad()
+        def lookup():
+            return HE.hash_grid_encode(pos, std, tables, *layout, copies=copies)
+
         before = HE.hash_grid_launches
-        got = HE.hash_grid_encode(*args)
+        got = lookup()
         _sync()
         require(DEVICE == "cpu" or HE.hash_grid_launches == before + 1, f"{label}: the wrapper launched its kernel")
-        want = HE.hash_grid_encode_plain(*args)
+        want = HE.hash_grid_encode_plain(pos, std, tables, *layout)
         err = float((got - want).abs().max())
         require(bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0.1, f"{label}: finite, non-trivial output")
-        require(torch.equal(got, want), f"{label} ({'bf16' if read_bf16 else 'fp32'} reads): kernel equals the plain "
-                                        f"version bit for bit (max abs err {err:.3e})")
-        ms = cuda_time_ms(lambda: HE.hash_grid_encode(*args))
-        plain_ms = cuda_time_ms(lambda: HE.hash_grid_encode_plain(*args), warmup=1, reps=3)
-        key = f"{label}_{'bf16' if read_bf16 else 'fp32'}"
-        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, n=n,
-                            levels=n_levels, bytes=bytes_moved, ops=ops, distinct_rows=touched)
-        log(f"[kernels] {key}: equal to the plain version; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved:.3e} bytes, {ops:.3e} ops)")
+        require(torch.equal(got, want), f"{label} ({mode} reads): kernel equals the plain version on the fp32 master bit "
+                                        f"for bit (max abs err {err:.3e})")
+        ms = cuda_time_ms(lookup)
+        dev_ms = device_ms(lookup)
+        plain_ms = cuda_time_ms(lambda: HE.hash_grid_encode_plain(pos, std, tables, *layout), warmup=1, reps=3)
+        # positions, stds and output once, each distinct row once in the bytes of the type the kernel reads
+        bytes_moved = touched * row_values * (2 if from_copy else 4) + (pos.numel() + std.numel() + n * n_levels * f) * 4
+        bound_ms, bound_by = _bound(bytes_moved, ops)
+        key = f"{label}_{mode}"
+        results[key] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, n=n,
+                            levels=n_levels, bytes=bytes_moved, ops=ops, distinct_rows=touched, row_reads=reads)
+        note = ""
+        if from_copy:
+            results[key]["copy_ms"] = cuda_time_ms(lambda: [t.to(torch.bfloat16) for t in tables])
+            note = f"; the tables' bf16 conversion {results[key]['copy_ms']:.4f} ms, apart"
+        log(f"[kernels] {key}: equal to the plain version; kernel {ms:.4f} ms a call ({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved:.3e} bytes, {ops:.3e} ops){note}")
+        if PARENT:
+            parent_k1f = torch.no_grad()(lambda: PARENT["hash_encoding"].hash_grid_encode(pos, std, tables, *layout))
+            require(torch.equal(parent_k1f(), got), f"{key}: the parent's kernel gives the same bits")
+            results[key]["parent"] = turns(f"lookup (K1f) {key}", parent_k1f, lookup)
+        del got, want, copies
 
 
-def hash_grid_phase(rng):
-    """K1 forward at the NeuRAD field's full width."""
+def hash_grid_phase(outputs, rng):
+    """K1 forward at the NeuRAD field's full width: the static grid on a
+    serving chunk's N = NEURAD_CHUNK * NEURAD_SAMPLES positions drawn uniformly
+    and ray-ordered (an approximation of a serving chunk: rays through random
+    pixels of the scene's cameras, samples spread over 1-80 m, where a render
+    chunk's rays are neighbours and its samples the proposal's; the profiled
+    NeuRAD request measures the path itself), on a train chunk's ray-ordered
+    positions (where a train step's lookup runs), the actor grid (D = 4) and
+    the unpacked layout of `neurad-parity`."""
     import torch
 
     from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
@@ -484,16 +665,28 @@ def hash_grid_phase(rng):
     gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
     results = {}
     n_static = NEURAD_CHUNK * NEURAD_SAMPLES
-    _hash_grid_case("hash_grid_static", StaticSettings(), 3, n_static, gen, results)
-    _hash_grid_case("hash_grid_actor", ActorSettings(flip_prob=0.25), 4, n_static // 8, gen, results)
+    pos = torch.rand((n_static, 3), generator=gen, device=DEVICE)
+    std = torch.rand((n_static,), generator=gen, device=DEVICE) * 2e-3  # the finest levels get a weight below 1
+    _hash_grid_case("hash_grid_static", StaticSettings(), 3, pos, std, gen, results)
+    pos, std = _train_chunk_gaussians(outputs, gen, NEURAD_CHUNK)
+    _hash_grid_case("hash_grid_static_rays", StaticSettings(), 3, pos, std, gen, results)
+    _hash_grid_case("hash_grid_unpacked_rays", StaticSettings(cell_packed=False, parity=True), 3, pos, std, gen,
+                    results, modes=HASH_MODES[2:])
+    train_pos, train_std = _train_chunk_gaussians(outputs, gen, K1B_RAYS)
+    _hash_grid_case("hash_grid_static_train_chunk", StaticSettings(), 3, train_pos, train_std, gen, results,
+                    modes=HASH_MODES[:2])
+    n_actor = n_static // 8
+    pos4 = torch.rand((n_actor, 4), generator=gen, device=DEVICE)
+    _hash_grid_case("hash_grid_actor", ActorSettings(flip_prob=0.25), 4, pos4, std[:n_actor].contiguous(), gen, results)
     return results
 
 
-def _train_chunk_gaussians(outputs, gen):
-    """The static field's lookup inputs in one train chunk: K1B_RAYS rays
-    through random pixels of the scene's cameras, K1B_SAMPLES samples each
-    spread over 1-80 m, contracted into the grid's [0, 1]^3 with their cone
-    radii as stds -> (positions [N, 3], stds [N])."""
+def _train_chunk_gaussians(outputs, gen, n_rays=K1B_RAYS):
+    """The static field's lookup inputs in one chunk of rays (a train chunk's
+    K1B_RAYS by default): rays through random pixels of the scene's cameras,
+    K1B_SAMPLES samples each spread over 1-80 m, ray-major, contracted into the
+    grid's [0, 1]^3 with their cone radii as stds -> (positions [N, 3], stds
+    [N])."""
     import math
 
     import torch
@@ -502,7 +695,7 @@ def _train_chunk_gaussians(outputs, gen):
     from neurad_tpu_torch.core.structs import GaussiansStd
     from neurad_tpu_torch.fields.spatial_distortions import scaled_scene_contraction_gaussian
 
-    n = K1B_RAYS
+    n = n_rays
     hw = torch.tensor([HEIGHT, WIDTH], dtype=torch.float32, device=DEVICE)
     idx = torch.randint(0, len(outputs.images), (n,), generator=gen, device=DEVICE)
     bundle = generate_rays(outputs.cameras, idx, torch.rand((n, 2), generator=gen, device=DEVICE) * hw)
@@ -759,8 +952,12 @@ def slice_phase():
     require(launches["camera"] >= 2, "camera kernel launched for every request")
     require(launches["lidar"] >= 3, "lidar kernel launched for every scan")
     profile = {
-        "camera": profiled("camera request", lambda: state.render_image(pose.tolist(), float(times[1]), "front_camera")),
+        "camera": profiled("camera request", lambda: state.render_image(pose.tolist(), float(times[1]), "front_camera"),
+                           match=CAMERA_KERNEL),
     }
+    log(f"[slice] profiled camera request: the camera composite {profile['camera']['matched_ms']:.3f} ms in "
+        f"{profile['camera']['matched_launches']} launch(es)")
+    require(profile["camera"]["matched_launches"] == 1, "the profiled request launched the camera composite once")
 
     # one camera train step with the default configuration: the coarse-to-fine schedule starts at a quarter
     # of the resolution
@@ -865,8 +1062,11 @@ def train_phase(outputs):
         bwd_kernel = f"{kind}_bwd_kernel"
         profile[kind] = profiled(f"{kind} train step", lambda: pipeline.train_step(state, sample), rows=22,
                                  match=bwd_kernel)
+        fwd_kernel = f"{kind}_fwd_kernel"
+        profile[kind]["fwd_ms"] = sum(ms for name, ms, _ in profile[kind]["all"] if fwd_kernel in name)
         log(f"[train] profiled {kind} step: {bwd_kernel} {profile[kind]['matched_ms']:.3f} ms in "
-            f"{profile[kind]['matched_launches']} launch(es) of {profile[kind]['device_busy_ms']:.2f} ms busy")
+            f"{profile[kind]['matched_launches']} launch(es), {fwd_kernel} {profile[kind]['fwd_ms']:.3f} ms, of "
+            f"{profile[kind]['device_busy_ms']:.2f} ms busy")
         require(profile[kind]["matched_launches"] == 1, f"the profiled {kind} step launched its backward kernel once")
 
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
@@ -920,12 +1120,14 @@ def neurad_phase(outputs):
 
     from http.server import ThreadingHTTPServer
 
+    from neurad_tpu_torch.fields.neurad_encoding import HashGrid
     from neurad_tpu_torch.ops import hash_encoding as HE
     from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
     from neurad_tpu_torch.scripts.closed_loop import build_state, make_handler
 
     w, h = WIDTH, HEIGHT
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30  # what earlier phases left allocated
     t0 = time.perf_counter()
     state = build_state("neurad", device=DEVICE, seed=SEED, outputs=outputs)
     pipeline = state.pipeline
@@ -1005,8 +1207,12 @@ def neurad_phase(outputs):
     for key in ("depth", "intensity", "ray_drop_logits"):
         require(lid[key].shape == (n_pts, 1) and bool(np.isfinite(lid[key]).all()), f"lidar {key} finite, one per point")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    grids = [g for m in model.modules() for g in vars(m).values() if isinstance(g, HashGrid) and g.copies is not None]
+    copies_gib = sum(held[3].numel() * 2 for g in grids for held in g.copies._held) / 2**30
+    require(copies_gib > 0, "the serving state's hash grids read bf16 copies of their tables")
     log(f"[neurad] lookup launches on the serving path: {launches} ({camera_launches} for three camera requests); peak "
-        f"device memory {peak:.2f} GiB")
+        f"device memory {peak:.2f} GiB ({resident:.2f} GiB of it left allocated by earlier phases; the tables' bf16 "
+        f"copies {copies_gib:.2f} GiB)")
     prof = profiled("neurad camera request", lambda: state.render_image(pose.tolist(), float(times[1]), "front_camera"),
                     rows=18, match=HASH_KERNEL)
     k1_ms, k1_n = prof["matched_ms"], prof["matched_launches"]
@@ -1015,7 +1221,8 @@ def neurad_phase(outputs):
     require(k1_n == 2 * cam_chunks and k1_ms > 0, "the profile shows the lookup kernel's launches")
     return dict(requests=requests, lidar_ms=lidar_times, lidar_returns=n_pts, launches={"hash_grid": launches},
                 camera_chunks=cam_chunks, lidar_chunks=lidar_chunks, pipeline_s=t_pipe, parameters=n_params,
-                peak_memory_gib=peak, profile=prof, hash_grid_profile_ms=k1_ms)
+                peak_memory_gib=peak, resident_gib=resident, bf16_copies_gib=copies_gib, profile=prof,
+                hash_grid_profile_ms=k1_ms)
 
 
 def neurad_reference_phase():
@@ -1090,6 +1297,7 @@ def neurad_train_phase(outputs):
     cfg = METHODS["neurad"]().pipeline
     cfg.seed = SEED
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30  # what earlier phases left allocated
     t0 = time.perf_counter()
     pipeline = ADPipeline(outputs, cfg, device=DEVICE)
     model = pipeline.model
@@ -1155,7 +1363,7 @@ def neurad_train_phase(outputs):
         f"{rays_per_s:.0f} train rays/s over the warm steps with batches from next_train outside the clock; "
         f"train_loop with {dm_cfg.num_workers} sampler threads and prefetch {dm_cfg.prefetch}: "
         f"{', '.join(f'{r:.0f}' for r in loop_rates)} rays/s a step, {loop_rays_per_s:.0f} over its warm steps; "
-        f"peak device memory {peak:.2f} GiB")
+        f"peak device memory {peak:.2f} GiB ({resident:.2f} GiB of it left allocated by earlier phases)")
 
     moved = {}
     for name, p in model.named_parameters():
@@ -1210,7 +1418,8 @@ def neurad_train_phase(outputs):
     torch.cuda.empty_cache()
     return dict(steps=steps, rays=n_rays, chunks=n_chunks, train_rays_per_s=rays_per_s,
                 loop_rays_per_s_by_step=loop_rates, loop_train_rays_per_s=loop_rays_per_s, peak_memory_gib=peak,
-                launches=launches, k1f_per_step=fwd, k1b_per_step=bwd, moved=moved, dense_grad_ms=dense_grad_ms,
+                resident_gib=resident, launches=launches, k1f_per_step=fwd, k1b_per_step=bwd, moved=moved,
+                dense_grad_ms=dense_grad_ms,
                 zero_fill_ms=zero_ms, add_ms=add_ms, profile={k: v for k, v in prof.items() if k != "all"},
                 k1b_profile_ms=k1b_ms, k1f_profile_ms=k1f_ms, checkpoint_mib=size_mb, load_run_s=load_s,
                 served_render_ms=render_ms)
@@ -1397,9 +1606,16 @@ def reference_phase():
     return {"max_abs_err": errs, "share_off": off, "train_loss_rel_err": loss_err, "grad_share_off": grad_off}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port on one NVIDIA GPU.")
+    parser.add_argument("--parent", default=None,
+                        help="another checkout of this repository (an unpacked parent commit): its hash-grid lookup "
+                             "and camera composite are built and timed in turns with this tree's")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1414,8 +1630,17 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t_start = t0 = time.perf_counter()
+    if args.parent:  # the parent's two libraries build beside this tree's
+        parent_build, parent_built = load_parent(args.parent), []
+        parent_thread = threading.Thread(
+            target=lambda: parent_built.append(parent_build.build_all(["hash_grid", "tile_composite"])), daemon=True)
+        parent_thread.start()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    if args.parent:
+        parent_thread.join()
+        require(bool(parent_built), f"the parent checkout {args.parent} built its lookup and composite")
+        log(f"[build] the parent's hash_grid and tile_composite from {args.parent} in {time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report()
     for r in ptxas:
         log(f"[ptxas] {r['library']}: {r['kernel']}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
@@ -1424,6 +1649,12 @@ def main() -> int:
     k1b_ptxas = [r for r in ptxas if r["kernel"].startswith(HASH_BWD_KERNEL + "<")]
     require(len(k1b_ptxas) == 24 and all(r.get("stack") == 0 for r in k1b_ptxas),
             "every instantiation of the lookup's backward (D, F, read type, layout) keeps no stack frame")
+    k1f_ptxas = [r for r in ptxas if r["kernel"].startswith(HASH_KERNEL + "<")]
+    k2_ptxas = [r for r in ptxas if r["kernel"].startswith(CAMERA_KERNEL + "<")]
+    require(len(k1f_ptxas) == 36 and len(k2_ptxas) == 3 and
+            all(r.get("stack") == 0 and r.get("spill_stores") == 0 for r in k1f_ptxas + k2_ptxas),
+            "every instantiation of the lookup's forward (D, F, read mode, layout) and of the camera composite keeps "
+            "no stack frame and spills nothing")
 
     rng = np.random.default_rng(SEED)
     kernels = kernel_phase(rng)
@@ -1431,13 +1662,14 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     slice_res, outputs = slice_phase()
     torch.cuda.empty_cache()
-    hash_kernels = hash_grid_phase(rng)
+    hash_kernels = hash_grid_phase(outputs, rng)
     torch.cuda.empty_cache()
     hash_bwd = hash_grid_bwd_phase(outputs, rng)
     torch.cuda.empty_cache()
     probes = probe_phase()
     torch.cuda.empty_cache()
     neurad_res = neurad_phase(outputs)
+    gc.collect()  # the serving state's reference cycles (server, handler) go with their tables and copies
     torch.cuda.empty_cache()
     neurad_train_res = neurad_train_phase(outputs)
     torch.cuda.empty_cache()
@@ -1464,20 +1696,22 @@ def main() -> int:
          # max_rel_err (backward kernels): the largest error of a column of the table's gradient over that
          # column's largest entry; their absolute errors are large because the gradients are (up to 1e11)
          "max_abs_err": r["max_abs_err"], "max_rel_err": r.get("max_rel_err"), "ms": r["ms"],
-         "plain_ms": r["plain_ms"],
+         "device_ms": r.get("device_ms"), "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         for key, r in kernels.items()
     ]}
-    # the lookup's line entry is the static grid with bf16 reads, the shape and mode of the serving path's
-    # larger launch; the fp32 and actor-grid readings ride along
-    k1 = hash_kernels["hash_grid_static_bf16"]
+    # the lookup's line entry is the static grid at a serving chunk's N on uniform positions with bf16 reads of
+    # the fp32 master, the case earlier runs reported; the serving state's case (ray-ordered positions, bf16
+    # reads of the copy) and the others ride along
+    main_k1 = "hash_grid_static_bf16_master"
+    k1 = hash_kernels[main_k1]
     line["kernels"].append({
         "name": "hash_grid_fwd", "route": "cuda", "source": "neurad_tpu_torch/csrc/hash_grid.cu",
         "replaces": "neurad_tpu/ops/hash_encoding.py:492", "launches": neurad_res["launches"]["hash_grid"],
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": None,
-        "other_shapes": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
-                         for k, v in hash_kernels.items() if k != "hash_grid_static_bf16"}})
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None, "parent": k1.get("parent"),
+        "other_shapes": {k: {m: v.get(m) for m in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err", "parent")}
+                         for k, v in hash_kernels.items() if k != main_k1}})
     # K1b's entry is the static grid of a train chunk with bf16 reads (the `neurad` preset's launch); its launches
     # are the NeuRAD train phase's
     k1b = hash_bwd["hash_grid_bwd_static_bf16"]

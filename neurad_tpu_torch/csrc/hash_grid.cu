@@ -4,13 +4,13 @@
 // position and std gradients of the same function.
 //
 // Replaces the hand-written hot operator of neurad_tpu/ops/hash_encoding.py:
-//   hash_grid_fwd <- _interp_gather_cp_impl (cell-packed rows: row fetch, bucket
-//                    select, interpolation), and the same family for the other
-//                    layouts: _gather_levels_multi_impl (one row per corner) and
-//                    _gather_levels_impl (one array for all levels), together
-//                    with the index and weight code of hash_encode around them
-//                    (scale, floor, _hash / _dense_index, bucket // pk, corner
-//                    weights) and gaussian_level_weights.
+//   hash_grid_fwd <- _interp_gather_cp_impl (K1f; cell-packed rows: row fetch,
+//                    bucket select, interpolation), and the same family for the
+//                    other layouts: _gather_levels_multi_impl (one row per
+//                    corner) and _gather_levels_impl (one array for all levels),
+//                    together with the index and weight code of hash_encode
+//                    around them (scale, floor, _hash / _dense_index, bucket //
+//                    pk, corner weights) and gaussian_level_weights.
 //   hash_grid_bwd <- _interp_gather_cp_bwd (K1b), _gather_levels_multi_bwd and
 //                    _gather_levels_bwd, with the autodiff of the index, weight
 //                    and level-weight code around them.
@@ -27,7 +27,7 @@
 // [N]; any of them may be skipped (a null pointer).
 //
 // Table layouts, all served by one addressing rule. A level's table is
-// [rows, pk * row_width] fp32 with pk logical buckets per physical row; its
+// [rows, pk * row_width] with pk logical buckets per physical row; its
 // row-major memory is also [rows * pk, row_width], so the logical bucket
 // addresses its row directly and bucket // pk, bucket % pk never appear.
 // CELL = true: row_width = 2^D * F, one row holds a cell's 2^D corner features
@@ -36,6 +36,10 @@
 // all levels one after the other is passed as L base pointers into it. The
 // table gradient has the table's layout and is addressed by the same rule (the
 // JAX backward scatters into the same unpacked [rows * pk, row_width] view).
+// The forward reads the fp32 master tables, or (with bf16 reads) a bf16 copy
+// of them that the tables' owner keeps (a serving state's hash grids): the
+// master rounded to bf16 once, round to nearest even, which is what every read
+// of the master rounds to.
 //
 // Numbers that must match the plain version to the last bit (the lookup is a
 // gather and a fixed-order sum; there are no atomics):
@@ -47,13 +51,13 @@
 //    clips each coordinate to [0, res - 1] and is row-major, dimension 0 slowest;
 //  * corner c has bit i set for dimension i; its weight is the product over the
 //    dimensions in order of (offset_i if bit else 1 - offset_i), in fp32;
-//  * BF16 = true: the fp32 master table is read and rounded to bf16 in the
-//    kernel (round to nearest even; no bf16 copy of the tables is kept), the
-//    weights are rounded to bf16, and each product and each of the 2^D - 1
-//    additions, corners in order 0 .. 2^D - 1, is rounded to bf16. A product
-//    of two bf16 values is exact in fp32 and an fp32 sum rounded to bf16 equals
-//    the bf16 sum (24 >= 2 * 8 + 2 bits), so fp32 _rn intrinsics followed by a
-//    rounding reproduce bf16 arithmetic; nvcc cannot fuse them;
+//  * BF16 = true: a table value is rounded to bf16 (in the copy, or at the read
+//    of the fp32 master: the same bits), the weights are rounded to bf16, and
+//    each product and each of the 2^D - 1 additions, corners in order 0 ..
+//    2^D - 1, is rounded to bf16. A product of two bf16 values is exact in fp32
+//    and an fp32 sum rounded to bf16 equals the bf16 sum (24 >= 2 * 8 + 2 bits),
+//    so fp32 _rn intrinsics followed by a rounding reproduce bf16 arithmetic,
+//    and so do bf16 _rn intrinsics; nvcc cannot fuse either;
 //  * the level weight is 1 / max(std * (2 * scale), 1) in fp32 and multiplies
 //    the interpolated features after their conversion to fp32.
 //
@@ -70,7 +74,8 @@
 //    launch to launch. (The JAX package accumulates a level in bf16 when its
 //    fp32 buffer exceeds 32 MiB; here every level accumulates in fp32.)
 //  * dL/dw_c = sum_j row_c,j * g'_j in fp32 from the rows in the read type
-//    (re-read here: the autograd function saves only its inputs), folded into
+//    (re-read here from the fp32 master: the autograd function saves only its
+//    inputs), folded into
 //    dL/doffset_i = sum_c (+-) prod_{k != i} (offset_k or 1 - offset_k) * dL/dw_c
 //    and dL/dposition_i = scale * dL/doffset_i;
 //  * dL/dstd = -(sum_j o_j * g_j) / x^2 * 2 * scale with x = std * 2 * scale,
@@ -81,34 +86,61 @@
 // no atomics, so they do not vary between launches.
 //
 // What bounds them: bytes. A forward sample-level reads one row of 2^D * F
-// fp32 (128 B at D = 3, F = 4) and writes F fp32; the arithmetic is about 100
-// operations. At the full width of the NeuRAD field (N = 1,048,576 samples a
-// chunk, L = 8) that is 1.07 GB of rows, 0.32 ms at 3.35 TB/s, less what the
-// two dense levels (4.6 MB and 45.8 MB) keep in the 50 MB L2, plus 12.6 MB of
-// positions and 134 MB of output. The backward's least traffic is its inputs
-// read once (positions, stds, g, and the rows a position gradient needs) and
-// the table gradient written once: with the gradient dense over the table, the
-// whole table's bytes (432 MiB at the `neurad` preset) bound it, however few
-// rows a launch touches.
+// values (128 B at D = 3, F = 4 in fp32, 64 B in bf16) and writes F fp32; the
+// arithmetic is about 100 operations. At the full width of the NeuRAD field
+// (N = 1,048,576 samples a chunk, L = 8) its least traffic is the distinct
+// rows it touches, read once (on uniform positions about 3 M of the 8.4 M row
+// reads; a chunk's ray-ordered samples fall into far fewer at the coarse
+// levels), plus 12.6 MB of positions, 4.2 MB of stds and 134 MB of output.
+// The backward's least traffic is its inputs read once (positions, stds, g,
+// and the rows a position gradient needs) and the table gradient written
+// once: with the gradient dense over the table, the whole table's bytes (432
+// MiB at the `neurad` preset) bound it, however few rows a launch touches.
 //
-// What the design does about it. One thread per (sample, level), levels
-// fastest: the L threads of a sample read the same position (a broadcast) and
-// write neighbouring pieces of the sample's output row, so stores are
-// coalesced; each thread fetches its row as 2^D independent loads of F floats
-// through the read-only path (every byte of the 128-byte line it touches is
-// used) and sums the corners in registers. Layout, D, F and the read type are
-// template parameters, so the corner loops unroll and nothing branches on them.
+// What the designs do about it. Both kernels map a warp to one level of 32
+// consecutive samples (a block of 256 threads is 8 levels x 32 samples; 4
+// levels: two groups of 32). A chunk is ray-major with 32 samples a ray, so a
+// warp is usually one ray at one level, and at the coarse levels most of its
+// lanes share a few cells.
+//
+// The forward (K1f). An earlier version ran one thread per (sample, level),
+// levels fastest, each fetching its own 128-byte row as 2^D float4 loads: no
+// two lanes of an instruction shared a row, a ray's repeated coarse cells were
+// fetched again by every lane, and each instruction touched 32 lines 16 bytes
+// apiece. Now:
+//  * the warp groups its lanes by equal bucket (__match_any_sync) and fetches
+//    each distinct cell-packed row once, as one coalesced read: 16 bytes a lane,
+//    the row's 16-byte pieces on consecutive lanes, 32 / pieces rows an
+//    instruction, into a staging slot of shared memory (32 slots of 2^D * F + 4
+//    fp32 a warp: float4-aligned, a quarter warp's float4s in distinct banks),
+//    converted to fp32 (rounded to bf16 with bf16 reads of the master); every
+//    lane then takes its cell's corners from its row's slot;
+//  * bf16 reads of a serving state come from the bf16 copy: rows of 64 bytes at
+//    D = 3, F = 4, half the bytes of the hashed levels, and the dense levels
+//    (4.6 and 45.8 MB in fp32) fit the 50 MB L2 together;
+//  * the fetch loop is unrolled over a fixed count with predicated loads, so
+//    up to four loads a lane are in flight before the first store to the
+//    staging (a loop over the run-time row count waited for each in turn);
+//  * bf16 reads interpolate in packed bf16 arithmetic, two features an
+//    instruction (__hmul2_rn, __hadd2_rn: one rounding of the exact result,
+//    the bits of fp32 arithmetic rounded after each operation), from staging
+//    slots that hold bf16 pairs; in fp32 with a rounding after each
+//    operation, the 68 roundings a sample-level (D = 3, F = 4) went through
+//    the card's conversion units at an eighth of the fp32 rate. One feature
+//    a level keeps the fp32 form, its roundings in packed pairs;
+//  * the block writes its samples' [L * F] output rows through shared memory
+//    as whole, coalesced rows (the warp's own F values per sample lie L * F
+//    floats apart), with streaming stores that leave the L2 to the tables;
+//  * the unpacked layout (one row a corner) keeps the structure corner by
+//    corner: each lane loads its corner's row of F values; lanes of an
+//    instruction on the same row are served by one request.
 //
 // The backward (K1b) meets what the forward does not: a scatter whose rows are
 // hot. The coarse dense levels put most samples of a ray into a few cells (at
 // the `neurad` preset a train chunk's 2.1 M sample-levels fall into 736,018
 // distinct rows), and one thread per (sample, level) sent 2^D float4 atomics
 // one after another into its 128-byte row: no two lanes of a warp coalesced,
-// and no two updates of a hot cell met before L2. So its design differs:
-//  * a block owns whole samples and a warp owns one level of 32 consecutive
-//    samples (256 threads = 8 levels x 32 samples; 4 levels: two groups of
-//    32). A train chunk is ray-major with 32 samples a ray, so a warp is
-//    usually one ray at one level and the coarse levels' hot cells meet in it;
+// and no two updates of a hot cell met before L2. So:
 //  * the warp finds its lanes with equal buckets (__match_any_sync) and sums
 //    their 2^D * F updates, staged in shared memory (32 slots of 2^D * F + 4
 //    floats a warp: 4.5 KB at D = 3, F = 4), in ascending lane order, so one
@@ -119,27 +151,30 @@
 //    same way: each distinct row is read once, coalesced, into the staging,
 //    and every lane takes its cell's corners from there. It is skipped when no
 //    position or std gradient is asked for;
-//  * the unpacked layout (one row a corner) keeps the structure corner by
-//    corner: the lanes whose corner c lands on one row are grouped, one
-//    vector atomic of F floats a distinct row, and each lane reads its own
-//    corner rows (F floats each, through L1);
-//  * per-corner values live in shared memory or in fully unrolled loops over
-//    template parameters, so no instantiation keeps a local-memory frame
-//    (the ptxas report in _build/hash_grid.log).
+//  * the unpacked layout keeps the structure corner by corner: the lanes whose
+//    corner c lands on one row are grouped, one vector atomic of F floats a
+//    distinct row, and each lane reads its own corner rows (F floats each,
+//    through L1).
+// In both, per-corner values live in shared memory or in fully unrolled loops
+// over template parameters, so no instantiation keeps a local-memory frame
+// (the ptxas report in _build/hash_grid.log).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int MAX_LEVELS = 16;
-constexpr int THREADS = 256;
+constexpr int WARPS = 8;                      // a block's warps where L <= 8 (L warps where L > 8)
+constexpr int MAX_THREADS = 32 * MAX_LEVELS;  // L = 16: one warp a level
 
 struct Levels {
-  const float* table[MAX_LEVELS];
-  uint32_t buckets[MAX_LEVELS];  // logical buckets (rows * pk): the hash's modulus
-  int dense_res[MAX_LEVELS];     // 0: hashed level
+  const float* table[MAX_LEVELS];  // fp32 master, or (bf16 reads from the copy) its bf16 copy
+  uint32_t buckets[MAX_LEVELS];    // logical buckets (rows * pk): the hash's modulus
+  int dense_res[MAX_LEVELS];       // 0: hashed level
   float scale[MAX_LEVELS];
 };
 
@@ -173,6 +208,26 @@ struct Row<4> {
 
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
+// The two bf16 values of a 32-bit word (element 0 in the low half) as fp32: exact.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Round the N values of v to bf16 in place (nearest even): two at a time with
+// one packed conversion, an odd last one alone. The same bits as round_bf16
+// on each; the packed conversion issues half as many of the card's
+// conversions, whose rate (16 a clock an SM) is an eighth of fp32's.
+template <int N>
+__device__ __forceinline__ void round_bf16_all(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i + 1 < N; i += 2) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v[i], v[i + 1]);
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(&p);
+    v[i] = bf16_lo(u);
+    v[i + 1] = bf16_hi(u);
+  }
+  if (N & 1) v[N - 1] = round_bf16(v[N - 1]);
+}
+
 template <int D>
 __device__ __forceinline__ uint32_t bucket_of(const int (&coord)[D], uint32_t buckets, int res) {
   if (res > 0) {
@@ -201,107 +256,18 @@ __device__ __forceinline__ float corner_weight(const float (&off)[D], int c) {
   return BF16 ? round_bf16(w) : w;
 }
 
-template <int D, int F, bool BF16, bool CELL>
-__global__ void __launch_bounds__(THREADS) hash_grid_fwd_kernel(
-    const float* __restrict__ positions, const float* __restrict__ stds, Levels lv, int n_levels, int64_t n,
-    float* __restrict__ out) {
-  constexpr int C = 1 << D;
-  const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (tid >= n * n_levels) return;
-  const int64_t s = tid / n_levels;
-  const int l = (int)(tid - s * n_levels);
-  const float scale = lv.scale[l];
-
-  int cell[D];
-  float off[D];
+// The cell and in-cell offsets of a position at one level's scale.
+template <int D>
+__device__ __forceinline__ void cell_of(const float* __restrict__ positions, int64_t s, bool active, float scale,
+                                        int (&cell)[D], float (&off)[D]) {
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    const float scaled = __fmul_rn(__ldg(positions + s * D + i), scale);
+    const float scaled = __fmul_rn(active ? __ldg(positions + s * D + i) : 0.0f, scale);
     const float fl = floorf(scaled);
     off[i] = __fsub_rn(scaled, fl);
     cell[i] = (int)fl;
   }
-
-  const float* table = lv.table[l];
-  const uint32_t buckets = lv.buckets[l];
-  const int res = lv.dense_res[l];
-  Row<F> rows[C];
-  if constexpr (CELL) {
-    const float* row = table + (size_t)bucket_of<D>(cell, buckets, res) * (C * F);
-#pragma unroll
-    for (int c = 0; c < C; ++c) rows[c].load(row + c * F);
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      int corner[D];
-#pragma unroll
-      for (int i = 0; i < D; ++i) corner[i] = cell[i] + ((c >> i) & 1);
-      rows[c].load(table + (size_t)bucket_of<D>(corner, buckets, res) * F);
-    }
-  }
-
-  float acc[F];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float w = corner_weight<D, BF16>(off, c);
-#pragma unroll
-    for (int j = 0; j < F; ++j) {
-      const float v = BF16 ? round_bf16(rows[c].v[j]) : rows[c].v[j];
-      float term = __fmul_rn(v, w);
-      if (BF16) term = round_bf16(term);
-      if (c == 0) {
-        acc[j] = term;
-      } else {
-        acc[j] = __fadd_rn(acc[j], term);
-        if (BF16) acc[j] = round_bf16(acc[j]);
-      }
-    }
-  }
-
-  float lw = 1.0f;
-  if (stds != nullptr) lw = __frcp_rn(fmaxf(__fmul_rn(__ldg(stds + s), 2.0f * scale), 1.0f));
-  float* o = out + tid * F;  // (s * n_levels + l) * F
-  if (stds != nullptr) {
-#pragma unroll
-    for (int j = 0; j < F; ++j) acc[j] = __fmul_rn(acc[j], lw);
-  }
-  if constexpr (F == 4) {
-    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else if constexpr (F == 2) {
-    *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
-  } else {
-    o[0] = acc[0];
-  }
 }
-
-template <int D, int F>
-cudaError_t launch(const float* positions, const float* stds, const Levels& lv, int n_levels, int64_t n, float* out,
-                   bool bf16, bool cell, cudaStream_t stream) {
-  const int64_t total = n * n_levels;
-  if (total == 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  if (bf16 && cell)
-    hash_grid_fwd_kernel<D, F, true, true><<<blocks, THREADS, 0, stream>>>(positions, stds, lv, n_levels, n, out);
-  else if (bf16)
-    hash_grid_fwd_kernel<D, F, true, false><<<blocks, THREADS, 0, stream>>>(positions, stds, lv, n_levels, n, out);
-  else if (cell)
-    hash_grid_fwd_kernel<D, F, false, true><<<blocks, THREADS, 0, stream>>>(positions, stds, lv, n_levels, n, out);
-  else
-    hash_grid_fwd_kernel<D, F, false, false><<<blocks, THREADS, 0, stream>>>(positions, stds, lv, n_levels, n, out);
-  return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-struct LevelGrads {
-  float* dtable[MAX_LEVELS];  // null: the level's table needs no gradient
-};
-
-constexpr int BWD_WARPS = 8;                      // a block's warps where L <= 8 (L warps where L > 8)
-constexpr int BWD_MAX_THREADS = 32 * MAX_LEVELS;  // L = 16: one warp a level
 
 // Shared-memory loads and stores of V consecutive floats (V = 1, 2, 4; the
 // address is aligned to the vector).
@@ -332,6 +298,395 @@ __device__ __forceinline__ void sts_vec(float* p, const float (&v)[V]) {
     p[0] = v[0];
   }
 }
+
+// The lanes of a warp whose keys are equal: each lane's peer mask and its
+// row's rank among the warp's distinct rows (ascending leader lane); the
+// leader of each distinct row writes the row's peer mask and bucket at its
+// rank. An inactive lane takes a key no bucket (< 2^31) equals.
+struct RowGroup {
+  unsigned peers;
+  int rank;
+  int n_rows;
+};
+
+__device__ __forceinline__ RowGroup group_rows(uint32_t bucket, bool active, int lane, unsigned* peers_sh,
+                                               uint32_t* row_sh) {
+  RowGroup r;
+  r.peers = __match_any_sync(0xffffffffu, active ? bucket : (0x80000000u | (unsigned)lane));
+  const int leader = __ffs(r.peers) - 1;
+  const unsigned leaders = __ballot_sync(0xffffffffu, active && lane == leader);
+  r.n_rows = __popc(leaders);
+  r.rank = __popc(leaders & ((1u << leader) - 1u));
+  if (active && lane == leader) {
+    peers_sh[r.rank] = r.peers;
+    row_sh[r.rank] = bucket;
+  }
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// forward (K1f)
+// ---------------------------------------------------------------------------
+
+// The weights of corners c and c + 1, rounded to bf16 with bf16 reads (one
+// packed conversion: two at a time keeps few of them live).
+template <int D, bool BF16>
+__device__ __forceinline__ void corner_pair_weights(const float (&off)[D], int c, float (&w)[2]) {
+  w[0] = corner_weight<D, false>(off, c);
+  w[1] = corner_weight<D, false>(off, c + 1);
+  if (BF16) round_bf16_all(w);
+}
+
+// Corner c's features v (in the read type) into the interpolated sum with the
+// corner's weight w, corners in order 0 .. 2^D - 1 (each product and partial
+// sum rounded to bf16 with bf16 reads, in packed pairs).
+template <int F, bool BF16>
+__device__ __forceinline__ void add_corner(int c, const float (&v)[F], float w, float (&acc)[F]) {
+  float term[F];
+#pragma unroll
+  for (int j = 0; j < F; ++j) term[j] = __fmul_rn(v[j], w);
+  if (BF16) round_bf16_all(term);
+#pragma unroll
+  for (int j = 0; j < F; ++j) acc[j] = c == 0 ? term[j] : __fadd_rn(acc[j], term[j]);
+  if (BF16 && c > 0) round_bf16_all(acc);
+}
+
+// Two bf16 values (element 0 in the low half) in one 32-bit word, and back.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+__device__ __forceinline__ __nv_bfloat162 as_bf16x2(uint32_t w) { return *reinterpret_cast<const __nv_bfloat162*>(&w); }
+
+// add_corner in packed bf16 arithmetic, two features an instruction: v holds
+// the corner's F features as F / 2 bf16 pairs, w2 its weight in both halves.
+// A bf16 product or sum rounds the exact result once (round to nearest even);
+// the fp32 product of two bf16 values is exact and the fp32 sum rounded to
+// bf16 equals the bf16 sum (24 >= 2 * 8 + 2 bits), so these are the bits of
+// add_corner, without a conversion. The _rn forms keep ptxas from fusing a
+// product and a sum into one rounding (as plain mul/add may be).
+template <int F>
+__device__ __forceinline__ void add_corner_bf16x2(int c, const uint32_t (&v)[F / 2], __nv_bfloat162 w2,
+                                                  __nv_bfloat162 (&acc)[F / 2]) {
+#pragma unroll
+  for (int i = 0; i < F / 2; ++i) {
+    const __nv_bfloat162 term = __hmul2_rn(as_bf16x2(v[i]), w2);
+    acc[i] = c == 0 ? term : __hadd2_rn(acc[i], term);
+  }
+}
+
+// Level l's table, bucket count, dense resolution and scale, read from the
+// kernel's parameter arrays with constant indices only (indexed at run time,
+// ptxas copies a parameter array into a local-memory frame).
+struct LevelParams {
+  const float* table;
+  uint32_t buckets;
+  int res;
+  float scale;
+};
+
+__device__ __forceinline__ LevelParams level_params(const Levels& lv, int l) {
+  LevelParams r{lv.table[0], lv.buckets[0], lv.dense_res[0], lv.scale[0]};
+#pragma unroll
+  for (int i = 1; i < MAX_LEVELS; ++i) {
+    if (l == i) r = LevelParams{lv.table[i], lv.buckets[i], lv.dense_res[i], lv.scale[i]};
+  }
+  return r;
+}
+
+// A 16-byte piece of a cell-packed row: 4 fp32 or 8 bf16 values.
+template <typename T>
+using Piece = typename std::conditional<std::is_same<T, float>::value, float4, uint4>::type;
+
+// Piece v of a row, loaded into registers, stored into the row's staging slot
+// `dst`: as bf16 pairs (PACKED: the fp32 master rounded in pairs, the bf16
+// copy's words as they are), else as fp32 (rounded to bf16 with bf16 reads;
+// the copy's values are exact in fp32).
+template <bool BF16, bool PACKED>
+__device__ __forceinline__ void store_piece(float4 t, int v, float* dst) {
+  if constexpr (PACKED) {
+    *reinterpret_cast<uint2*>(dst + v * 2) = make_uint2(pack_bf16x2(t.x, t.y), pack_bf16x2(t.z, t.w));
+  } else {
+    float x[4] = {t.x, t.y, t.z, t.w};
+    if (BF16) round_bf16_all(x);
+    *reinterpret_cast<float4*>(dst + v * 4) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+template <bool BF16, bool PACKED>
+__device__ __forceinline__ void store_piece(uint4 t, int v, float* dst) {
+  if constexpr (PACKED) {
+    *reinterpret_cast<uint2*>(dst + v * 4) = make_uint2(t.x, t.y);
+    *reinterpret_cast<uint2*>(dst + v * 4 + 2) = make_uint2(t.z, t.w);
+  } else {  // one feature a level: interpolated in fp32 with roundings, from the copy's exact values
+    *reinterpret_cast<float4*>(dst + v * 8) = make_float4(bf16_lo(t.x), bf16_hi(t.x), bf16_lo(t.y), bf16_hi(t.y));
+    *reinterpret_cast<float4*>(dst + v * 8 + 4) = make_float4(bf16_lo(t.z), bf16_hi(t.z), bf16_lo(t.w), bf16_hi(t.w));
+  }
+}
+
+// The F values of one unpacked row (one corner) as fp32, rounded to bf16 with
+// bf16 reads of the fp32 master.
+template <int F, bool BF16, typename T>
+__device__ __forceinline__ void load_corner(const T* __restrict__ p, float (&v)[F]) {
+  if constexpr (std::is_same<T, float>::value) {
+    Row<F> r;
+    r.load(p);
+#pragma unroll
+    for (int j = 0; j < F; ++j) v[j] = r.v[j];
+    if (BF16) round_bf16_all(v);
+  } else if constexpr (F == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf16_lo(t.x);
+    v[1] = bf16_hi(t.x);
+    v[2] = bf16_lo(t.y);
+    v[3] = bf16_hi(t.y);
+  } else if constexpr (F == 2) {
+    const uint32_t t = __ldg(reinterpret_cast<const unsigned int*>(p));
+    v[0] = bf16_lo(t);
+    v[1] = bf16_hi(t);
+  } else {
+    v[0] = bf16_lo((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+}
+
+// The F features of one unpacked row as F / 2 bf16 pairs (bf16 reads).
+template <int F, typename T>
+__device__ __forceinline__ void load_corner_bf16x2(const T* __restrict__ p, uint32_t (&v)[F / 2]) {
+  if constexpr (std::is_same<T, float>::value) {
+    float x[F];
+    load_corner<F, false>(p, x);
+#pragma unroll
+    for (int i = 0; i < F / 2; ++i) v[i] = pack_bf16x2(x[2 * i], x[2 * i + 1]);
+  } else if constexpr (F == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+}
+
+// Shared memory of a forward block, in floats: the output rows of its samples
+// (stride: L * F rounded up to a float4, plus one float4), then, for the cell-packed
+// layout, each warp's 32 staging slots and its bucket and peer lists.
+__host__ __device__ constexpr int fwd_out_stride(int n_levels, int f) { return (n_levels * f + 3) / 4 * 4 + 4; }
+
+// A staging slot, in 4-byte words: a cell-packed row in fp32 plus one float4,
+// or (packed bf16 reads) in bf16 pairs plus two words (8-byte aligned; a
+// half warp's 8-byte reads of distinct rows fall in distinct banks).
+__host__ __device__ constexpr int fwd_slot_words(int d, int f, bool packed) {
+  return packed ? (1 << d) * f / 2 + 2 : (1 << d) * f + 4;
+}
+
+template <int D, int F, bool CELL, bool PACKED>
+__host__ __device__ constexpr int fwd_smem_floats(int warps, int per_block, int n_levels) {
+  return per_block * fwd_out_stride(n_levels, F) + (CELL ? warps * (32 * fwd_slot_words(D, F, PACKED) + 64) : 0);
+}
+
+// (The bound's blocks an SM set ptxas's register budget: left to pick its
+// own, it held some instantiations at 40 or 64 registers and spilled.)
+template <int D, int F, bool BF16, bool CELL, typename T>
+__global__ void __launch_bounds__(MAX_THREADS, D == 3 && CELL ? 3 : 2) hash_grid_fwd_kernel(
+    const float* __restrict__ positions, const float* __restrict__ stds, Levels lv, int n_levels, int groups, int64_t n,
+    float* __restrict__ out) {
+  constexpr int C = 1 << D;
+  constexpr int W = C * F;                      // values of a cell-packed row
+  constexpr bool PACKED = BF16 && F % 2 == 0;   // bf16 reads interpolate in bf16 pairs
+  constexpr int SW = fwd_slot_words(D, F, PACKED);  // staging stride, in words
+  constexpr int NP = W * (int)sizeof(T) / 16;   // 16-byte pieces of a cell-packed row: NP lanes share a row
+  constexpr int RPI = 32 / NP;                  // rows one fetch instruction covers
+  static_assert(NP >= 1 && NP <= 32, "a cell-packed row is 16 to 512 bytes");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l = warp % n_levels, grp = warp / n_levels;  // the warps of a sample group are its levels
+  const int per_block = groups * 32;
+  const int ow = n_levels * F;  // floats of a sample's output row
+  const int os = fwd_out_stride(n_levels, F);
+  float* ostage = smem;  // [per_block][os]
+  const int64_t s0 = (int64_t)blockIdx.x * per_block;
+  const int64_t s = s0 + grp * 32 + lane;
+  const bool active = s < n;
+  const LevelParams lev = level_params(lv, l);
+  const T* table = reinterpret_cast<const T*>(lev.table);
+
+  int cell[D];
+  float off[D];
+  cell_of<D>(positions, s, active, lev.scale, cell, off);
+
+  float acc[F];
+  if constexpr (CELL) {
+    float* stage = smem + per_block * os + warp * (32 * SW);  // 32 slots of SW floats
+    unsigned* peers_sh = reinterpret_cast<unsigned*>(smem + per_block * os + warps * (32 * SW)) + warp * 64;
+    uint32_t* row_sh = peers_sh + 32;
+    const RowGroup rg = group_rows(bucket_of<D>(cell, lev.buckets, lev.res), active, lane, peers_sh, row_sh);
+    __syncwarp();
+    // each distinct row read once, coalesced, into the staging slot of its rank: lane / NP is the lane's row in
+    // a fetch instruction, lane % NP its piece; up to 4 loads a lane are in flight before the first store
+    constexpr int BATCH = NP < 4 ? NP : 4;
+#pragma unroll
+    for (int b0 = 0; b0 < NP; b0 += BATCH) {
+      if (b0 * RPI >= rg.n_rows) break;
+      Piece<T> piece[BATCH];
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int ri = (b0 + i) * RPI + lane / NP;
+        if (ri < rg.n_rows) piece[i] = __ldg(reinterpret_cast<const Piece<T>*>(table + (size_t)row_sh[ri] * W) + lane % NP);
+      }
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int ri = (b0 + i) * RPI + lane / NP;
+        if (ri < rg.n_rows) store_piece<BF16, PACKED>(piece[i], lane % NP, stage + ri * SW);
+      }
+    }
+    __syncwarp();
+    const float* row = stage + rg.rank * SW;
+    if constexpr (PACKED) {
+      __nv_bfloat162 acc2[F / 2];
+#pragma unroll
+      for (int c = 0; c < C; c += 2) {
+        const __nv_bfloat162 w2 = __floats2bfloat162_rn(corner_weight<D, false>(off, c),
+                                                        corner_weight<D, false>(off, c + 1));
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          uint32_t v[F / 2];
+          const uint32_t* words = reinterpret_cast<const uint32_t*>(row) + (c + k) * (F / 2);
+          if constexpr (F == 4) {
+            const uint2 t = *reinterpret_cast<const uint2*>(words);
+            v[0] = t.x;
+            v[1] = t.y;
+          } else {
+            v[0] = words[0];
+          }
+          add_corner_bf16x2<F>(c + k, v, k == 0 ? __low2bfloat162(w2) : __high2bfloat162(w2), acc2);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < F / 2; ++i) {
+        acc[2 * i] = __low2float(acc2[i]);
+        acc[2 * i + 1] = __high2float(acc2[i]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; c += 2) {
+        float w[2];
+        corner_pair_weights<D, BF16>(off, c, w);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float v[F];
+          lds_vec<F>(row + (c + k) * F, v);
+          add_corner<F, BF16>(c + k, v, w[k], acc);
+        }
+      }
+    }
+  } else if constexpr (PACKED) {
+    // one row a corner, loaded by its lane
+    __nv_bfloat162 acc2[F / 2];
+#pragma unroll
+    for (int c = 0; c < C; c += 2) {
+      const __nv_bfloat162 w2 = __floats2bfloat162_rn(corner_weight<D, false>(off, c),
+                                                      corner_weight<D, false>(off, c + 1));
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        int corner[D];
+#pragma unroll
+        for (int i = 0; i < D; ++i) corner[i] = cell[i] + (((c + k) >> i) & 1);
+        uint32_t v[F / 2];
+        load_corner_bf16x2<F>(table + (size_t)bucket_of<D>(corner, lev.buckets, lev.res) * F, v);
+        add_corner_bf16x2<F>(c + k, v, k == 0 ? __low2bfloat162(w2) : __high2bfloat162(w2), acc2);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < F / 2; ++i) {
+      acc[2 * i] = __low2float(acc2[i]);
+      acc[2 * i + 1] = __high2float(acc2[i]);
+    }
+  } else {
+    // one row a corner, loaded by its lane
+#pragma unroll
+    for (int c = 0; c < C; c += 2) {
+      float w[2];
+      corner_pair_weights<D, BF16>(off, c, w);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        int corner[D];
+#pragma unroll
+        for (int i = 0; i < D; ++i) corner[i] = cell[i] + (((c + k) >> i) & 1);
+        float v[F];
+        load_corner<F, BF16>(table + (size_t)bucket_of<D>(corner, lev.buckets, lev.res) * F, v);
+        add_corner<F, BF16>(c + k, v, w[k], acc);
+      }
+    }
+  }
+
+  if (active) {
+    if (stds != nullptr) {
+      const float lw = __frcp_rn(fmaxf(__fmul_rn(__ldg(stds + s), 2.0f * lev.scale), 1.0f));
+#pragma unroll
+      for (int j = 0; j < F; ++j) acc[j] = __fmul_rn(acc[j], lw);
+    }
+    sts_vec<F>(ostage + (grp * 32 + lane) * os + l * F, acc);
+  }
+  __syncthreads();
+  // the block's output rows, whole and coalesced
+  const int rows = (int)min((int64_t)per_block, n - s0);
+  float* dst = out + s0 * ow;
+  if ((ow & 3) == 0) {
+    const int q = ow >> 2;  // float4s a row
+    for (int e = threadIdx.x; e < rows * q; e += blockDim.x) {
+      const int r = e / q, col = (e - r * q) * 4;
+      __stcs(reinterpret_cast<float4*>(dst + r * ow + col), *reinterpret_cast<const float4*>(ostage + r * os + col));
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * ow; e += blockDim.x) {
+      const int r = e / ow;
+      __stcs(dst + e, ostage[r * os + e - r * ow]);
+    }
+  }
+}
+
+template <int D, int F, bool BF16, bool CELL, typename T>
+cudaError_t launch_fwd_kernel(const float* positions, const float* stds, const Levels& lv, int n_levels, int64_t n,
+                              float* out, cudaStream_t stream) {
+  const int groups = n_levels <= WARPS ? WARPS / n_levels : 1;
+  const int per_block = 32 * groups, threads = per_block * n_levels, warps = threads / 32;
+  const size_t smem = (size_t)fwd_smem_floats<D, F, CELL, BF16 && F % 2 == 0>(warps, per_block, n_levels) *
+                      sizeof(float);
+  auto kernel = hash_grid_fwd_kernel<D, F, BF16, CELL, T>;
+  static size_t smem_allowed = 48 * 1024;  // raised once a size needs it (not again inside a graph capture)
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = smem;
+  }
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  kernel<<<blocks, threads, smem, stream>>>(positions, stds, lv, n_levels, groups, n, out);
+  return cudaGetLastError();
+}
+
+// Read modes: fp32 reads of the master, bf16 reads of the master (rounded at
+// the read), bf16 reads of the bf16 copy.
+template <int D, int F>
+cudaError_t launch_fwd(const float* positions, const float* stds, const Levels& lv, int n_levels, int64_t n,
+                       float* out, bool bf16, bool bf16_copy, bool cell, cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  if (bf16_copy && cell)
+    return launch_fwd_kernel<D, F, true, true, __nv_bfloat16>(positions, stds, lv, n_levels, n, out, stream);
+  if (bf16_copy) return launch_fwd_kernel<D, F, true, false, __nv_bfloat16>(positions, stds, lv, n_levels, n, out, stream);
+  if (bf16 && cell) return launch_fwd_kernel<D, F, true, true, float>(positions, stds, lv, n_levels, n, out, stream);
+  if (bf16) return launch_fwd_kernel<D, F, true, false, float>(positions, stds, lv, n_levels, n, out, stream);
+  if (cell) return launch_fwd_kernel<D, F, false, true, float>(positions, stds, lv, n_levels, n, out, stream);
+  return launch_fwd_kernel<D, F, false, false, float>(positions, stds, lv, n_levels, n, out, stream);
+}
+
+// ---------------------------------------------------------------------------
+// backward (K1b)
+// ---------------------------------------------------------------------------
+
+struct LevelGrads {
+  float* dtable[MAX_LEVELS];  // null: the level's table needs no gradient
+};
 
 // One atomic add of F consecutive floats: a vector atomic where F is 4 or 2.
 template <int F>
@@ -369,18 +724,7 @@ __device__ __forceinline__ void fold_corner(int c, const float (&v)[F], const fl
   float dw = __fmul_rn(v[0], gp[0]);
 #pragma unroll
   for (int j = 1; j < F; ++j) dw = __fadd_rn(dw, __fmul_rn(v[j], gp[j]));
-  const float w = corner_weight<D, BF16>(off, c);
-#pragma unroll
-  for (int j = 0; j < F; ++j) {
-    float term = __fmul_rn(v[j], w);
-    if (BF16) term = round_bf16(term);
-    if (c == 0) {
-      o[j] = term;
-    } else {
-      o[j] = __fadd_rn(o[j], term);
-      if (BF16) o[j] = round_bf16(o[j]);
-    }
-  }
+  add_corner<F, BF16>(c, v, corner_weight<D, BF16>(off, c), o);
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     float p = 1.0f;
@@ -394,47 +738,13 @@ __device__ __forceinline__ void fold_corner(int c, const float (&v)[F], const fl
   }
 }
 
-// Level l's parameters, read from the kernel's parameter arrays with constant
-// indices only: indexed at run time, ptxas copied the gradients' pointer array
-// into a 128-byte local-memory frame.
-struct Level {
-  const float* table;
-  float* dtable;
-  uint32_t buckets;
-  int res;
-  float scale;
-};
-
-__device__ __forceinline__ Level level_of(const Levels& lv, const LevelGrads& gr, int l) {
-  Level r{lv.table[0], gr.dtable[0], lv.buckets[0], lv.dense_res[0], lv.scale[0]};
+// Level l's table gradient, read like level_params (indexed at run time, ptxas
+// copied the gradients' pointer array into a 128-byte local-memory frame).
+__device__ __forceinline__ float* dtable_of(const LevelGrads& gr, int l) {
+  float* r = gr.dtable[0];
 #pragma unroll
   for (int i = 1; i < MAX_LEVELS; ++i) {
-    if (l == i) r = Level{lv.table[i], gr.dtable[i], lv.buckets[i], lv.dense_res[i], lv.scale[i]};
-  }
-  return r;
-}
-
-// The lanes of a warp whose keys are equal: each lane's peer mask and its
-// row's rank among the warp's distinct rows (ascending leader lane); the
-// leader of each distinct row writes the row's peer mask and bucket at its
-// rank. An inactive lane takes a key no bucket (< 2^31) equals.
-struct RowGroup {
-  unsigned peers;
-  int rank;
-  int n_rows;
-};
-
-__device__ __forceinline__ RowGroup group_rows(uint32_t bucket, bool active, int lane, unsigned* peers_sh,
-                                               uint32_t* row_sh) {
-  RowGroup r;
-  r.peers = __match_any_sync(0xffffffffu, active ? bucket : (0x80000000u | (unsigned)lane));
-  const int leader = __ffs(r.peers) - 1;
-  const unsigned leaders = __ballot_sync(0xffffffffu, active && lane == leader);
-  r.n_rows = __popc(leaders);
-  r.rank = __popc(leaders & ((1u << leader) - 1u));
-  if (active && lane == leader) {
-    peers_sh[r.rank] = r.peers;
-    row_sh[r.rank] = bucket;
+    if (l == i) r = gr.dtable[i];
   }
   return r;
 }
@@ -453,7 +763,7 @@ __device__ __forceinline__ void sum_peers(const float* stage, int stride, int of
 }
 
 template <int D, int F, bool BF16, bool CELL>
-__global__ void __launch_bounds__(BWD_MAX_THREADS) hash_grid_bwd_kernel(
+__global__ void __launch_bounds__(MAX_THREADS) hash_grid_bwd_kernel(
     const float* __restrict__ positions, const float* __restrict__ stds, const float* __restrict__ g, Levels lv,
     LevelGrads gr, int n_levels, int groups, int64_t n, float* __restrict__ dpos, float* __restrict__ dstd) {
   constexpr int C = 1 << D;
@@ -473,20 +783,14 @@ __global__ void __launch_bounds__(BWD_MAX_THREADS) hash_grid_bwd_kernel(
   const int64_t s = (int64_t)blockIdx.x * per_block + grp * 32 + lane;
   const bool active = s < n;
   const bool need_rows = dpos != nullptr || dstd != nullptr;
-  const Level lev = level_of(lv, gr, l);
-  float* dtable = lev.dtable;
+  const LevelParams lev = level_params(lv, l);
+  float* dtable = dtable_of(gr, l);
 
   // the forward's cell, offsets and level weight, and g' = g * level weight
   const float scale = lev.scale;
   int cell[D];
   float off[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    const float scaled = __fmul_rn(active ? __ldg(positions + s * D + i) : 0.0f, scale);
-    const float fl = floorf(scaled);
-    off[i] = __fsub_rn(scaled, fl);
-    cell[i] = (int)fl;
-  }
+  cell_of<D>(positions, s, active, scale, cell, off);
   const float* table = lev.table;
   const uint32_t buckets = lev.buckets;
   const int res = lev.res;
@@ -635,7 +939,7 @@ template <int D, int F, bool BF16, bool CELL>
 cudaError_t launch_bwd_kernel(const float* positions, const float* stds, const float* g, const Levels& lv,
                               const LevelGrads& gr, int n_levels, int64_t n, float* dpos, float* dstd,
                               cudaStream_t stream) {
-  const int groups = n_levels <= BWD_WARPS ? BWD_WARPS / n_levels : 1;
+  const int groups = n_levels <= WARPS ? WARPS / n_levels : 1;
   const int per_block = 32 * groups, threads = per_block * n_levels, warps = threads / 32;
   constexpr int SW = (1 << D) * F + 4;
   const size_t smem = ((size_t)warps * (32 * SW + 64) + (size_t)n_levels * (D + 1) * per_block) * sizeof(float);
@@ -666,13 +970,16 @@ cudaError_t launch_bwd(const float* positions, const float* stds, const float* g
 // positions [n, d] fp32; stds [n] fp32 or null (no level weight); tables,
 // buckets, dense_res, scales: host arrays of n_levels entries (device pointers
 // of the level tables, logical bucket counts, dense resolution or 0, grid
-// scale); out [n, n_levels * f] fp32. Returns the launch's cudaError_t, or -1
-// for arguments no kernel was built for.
+// scale); out [n, n_levels * f] fp32. tables_bf16: the tables are bf16 copies
+// of the fp32 masters (read_bf16 must be set). Cell-packed tables start on a
+// 16-byte boundary (their rows are read in 16-byte pieces). Returns the
+// launch's cudaError_t, or -1 for arguments no kernel was built for.
 extern "C" int hash_grid_fwd(const float* positions, const float* stds, const void* const* tables, const int* buckets,
                              const int* dense_res, const float* scales, float* out, long long n, int n_levels, int d,
-                             int f, int read_bf16, int cell_packed, void* stream) {
+                             int f, int read_bf16, int cell_packed, int tables_bf16, void* stream) {
   if (n_levels < 1 || n_levels > MAX_LEVELS || n < 0) return -1;
-  if ((n * n_levels + THREADS - 1) / THREADS > 2147483647LL) return -1;
+  if (tables_bf16 && !read_bf16) return -1;
+  if ((n + 31) / 32 > 2147483647LL) return -1;
   Levels lv;
   for (int l = 0; l < n_levels; ++l) {
     lv.table[l] = static_cast<const float*>(tables[l]);
@@ -680,16 +987,17 @@ extern "C" int hash_grid_fwd(const float* positions, const float* stds, const vo
     lv.dense_res[l] = dense_res[l];
     lv.scale[l] = scales[l];
     if (buckets[l] < 1) return -1;
+    if (cell_packed && ((uintptr_t)tables[l] & 15) != 0) return -1;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool b = read_bf16 != 0, c = cell_packed != 0;
+  const bool b = read_bf16 != 0, cp = tables_bf16 != 0, c = cell_packed != 0;
   cudaError_t err;
-  if (d == 3 && f == 1) err = launch<3, 1>(positions, stds, lv, n_levels, n, out, b, c, st);
-  else if (d == 3 && f == 2) err = launch<3, 2>(positions, stds, lv, n_levels, n, out, b, c, st);
-  else if (d == 3 && f == 4) err = launch<3, 4>(positions, stds, lv, n_levels, n, out, b, c, st);
-  else if (d == 4 && f == 1) err = launch<4, 1>(positions, stds, lv, n_levels, n, out, b, c, st);
-  else if (d == 4 && f == 2) err = launch<4, 2>(positions, stds, lv, n_levels, n, out, b, c, st);
-  else if (d == 4 && f == 4) err = launch<4, 4>(positions, stds, lv, n_levels, n, out, b, c, st);
+  if (d == 3 && f == 1) err = launch_fwd<3, 1>(positions, stds, lv, n_levels, n, out, b, cp, c, st);
+  else if (d == 3 && f == 2) err = launch_fwd<3, 2>(positions, stds, lv, n_levels, n, out, b, cp, c, st);
+  else if (d == 3 && f == 4) err = launch_fwd<3, 4>(positions, stds, lv, n_levels, n, out, b, cp, c, st);
+  else if (d == 4 && f == 1) err = launch_fwd<4, 1>(positions, stds, lv, n_levels, n, out, b, cp, c, st);
+  else if (d == 4 && f == 2) err = launch_fwd<4, 2>(positions, stds, lv, n_levels, n, out, b, cp, c, st);
+  else if (d == 4 && f == 4) err = launch_fwd<4, 4>(positions, stds, lv, n_levels, n, out, b, cp, c, st);
   else return -1;
   return (int)err;
 }

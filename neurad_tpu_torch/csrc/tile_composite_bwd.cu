@@ -164,18 +164,6 @@ struct CamStage {
   int gauss[CAM_CHUNK];  // the index list's entries as given (unclamped)
 };
 
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
 // Start the copy of slots [k0, k0 + n) of the tile whose index list starts at
 // `base` into s: every thread issues its share and commits one group.
 template <int CMAX>

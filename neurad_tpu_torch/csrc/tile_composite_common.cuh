@@ -1,7 +1,8 @@
 // Shared pieces of the per-tile gaussian composites (forward:
 // tile_composite.cu, backward: tile_composite_bwd.cu): the shared-memory stage
-// of a tile's gaussians, its loader, and the per-pair alpha with the TPU
-// kernels' clipping and gating. Forward and backward must take the same side
+// of a tile's gaussians, its loader, the per-pair alpha with the TPU kernels'
+// clipping and gating, and the cp.async copies that double-buffer K2's and
+// K3's stages. Forward and backward must take the same side
 // of the 1/255 alpha gate, so both evaluate alpha with `slot_terms`.
 
 #pragma once
@@ -62,12 +63,16 @@ struct SlotTerms {
   float alpha;       // clipped and gated
 };
 
+// The pixel's offset from the slot's rolling-shutter-warped mean and the
+// quadratic form before its clip: the first half of slot_terms.
+struct SlotSigma {
+  float dx, dy, sigma_raw;
+};
+
 // The gate is a discontinuity (alpha >= 1/255 or 0), so everything up to it is
 // rounded op by op in the plain version's order (__f*_rn: no FMA contraction)
 // and the kernels take the same side of the gate as the plain versions.
-__device__ __forceinline__ SlotTerms slot_terms(const float* __restrict__ a, bool valid, float x, float y, float t,
-                                                bool wrap, bool slot_ok) {
-  SlotTerms r;
+__device__ __forceinline__ SlotSigma slot_sigma(const float* __restrict__ a, float x, float y, float t, bool wrap) {
   float dx = __fsub_rn(x, __fadd_rn(a[0], __fmul_rn(a[2], t)));
   if (wrap) {
     float m = fmodf(__fadd_rn(dx, 180.f), 360.f);  // exact
@@ -76,17 +81,34 @@ __device__ __forceinline__ SlotTerms slot_terms(const float* __restrict__ a, boo
   }
   float dy = __fsub_rn(y, __fadd_rn(a[1], __fmul_rn(a[3], t)));
   float quad = __fadd_rn(__fmul_rn(__fmul_rn(a[4], dx), dx), __fmul_rn(__fmul_rn(a[6], dy), dy));
-  r.sigma_raw = __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(a[5], dx), dy));
+  return SlotSigma{dx, dy, __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(a[5], dx), dy))};
+}
+
+// The clips and the gate: the second half of slot_terms.
+__device__ __forceinline__ SlotTerms gate_terms(const float* __restrict__ a, const SlotSigma& sg, bool valid,
+                                                bool slot_ok) {
+  SlotTerms r;
+  r.dx = sg.dx;
+  r.dy = sg.dy;
+  r.sigma_raw = sg.sigma_raw;
   float sigma = fminf(fmaxf(r.sigma_raw, 0.f), 50.f);
   r.exp_neg = expf(-sigma);
   r.alpha_pre = __fmul_rn(a[7], r.exp_neg);
   float alpha = fminf(fmaxf(r.alpha_pre, 0.f), 0.999f);
   if (!valid || !(alpha >= kMinAlpha) || !slot_ok) alpha = 0.f;
-  r.dx = dx;
-  r.dy = dy;
   r.alpha = alpha;
   return r;
 }
+
+__device__ __forceinline__ SlotTerms slot_terms(const float* __restrict__ a, bool valid, float x, float y, float t,
+                                                bool wrap, bool slot_ok) {
+  return gate_terms(a, slot_sigma(a, x, y, t, wrap), valid, slot_ok);
+}
+
+// A pair whose sigma_raw exceeds kFarSigma, of a slot whose opacity is at most
+// 1, gates to alpha 0: exp(-5.6) = 0.00370 < 1/255 = 0.00392, a margin far
+// beyond expf's rounding. (A NaN sigma_raw or opacity fails the comparisons.)
+constexpr float kFarSigma = 5.6f;
 
 // alpha of slot j at (x, y, t) with the TPU kernels' clipping and gating
 template <int CMAX>
@@ -105,6 +127,21 @@ __device__ __forceinline__ float slot_depth(const float* __restrict__ a, float t
 template <int CMAX>
 __device__ __forceinline__ float slot_depth(const Stage<CMAX>& s, int j, float t) {
   return slot_depth(&s.attr[j * ATTR], t);
+}
+
+// cp.async: a 4-byte copy from global to shared memory that the thread does
+// not wait for; commit closes the thread's group of copies, wait_group<N>
+// waits until at most N of its groups are in flight.
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 inline int round_up_to_warp(int p) { return ((p + 31) / 32) * 32; }

@@ -21,7 +21,9 @@ static ones. `torch.topk` promises no order among ties.
 
 The two hash tables are `nn.ParameterList`s of 2-D per-level tables
 (`ops/hash_encoding.py` has the layouts). The actors module is shared with the
-model that owns it and is not registered here a second time.
+model that owns it and is not registered here a second time. A model that
+serves renders keeps bf16 copies of its tables (`keep_bf16_copies`): its
+lookups without autograd then read half the bytes for the same bits.
 """
 
 from __future__ import annotations
@@ -118,6 +120,7 @@ class HashGrid:
                                                        self.force_hash)
         self.gather_dtype = None if (settings.parity or settings.gather_f32) else torch.bfloat16
         self.d = d
+        self.copies: Optional[he.Bf16Copies] = None  # set by `keep_bf16_copies`
 
     def init(self, generator: torch.Generator) -> nn.ParameterList:
         tables = he.init_hash_tables(generator, self.scales, self.d, self.table_size, self.features,
@@ -127,7 +130,20 @@ class HashGrid:
     def encode(self, tables, g: GaussiansStd) -> torch.Tensor:
         return he.hash_encode_gaussians(g.mean, g.std, tables, self.scales, cell_packed=self.cell_packed,
                                         dense_res=self.dense_res, bucket_pack=self.pack,
-                                        gather_dtype=self.gather_dtype)
+                                        gather_dtype=self.gather_dtype, copies=self.copies)
+
+
+def keep_bf16_copies(model: nn.Module) -> None:
+    """Give every hash grid in `model` bf16 copies of its tables: a serving
+    state's choice. A lookup with bf16 reads that builds no graph then reads
+    the copy (the same bits, half the bytes); the first such lookup after a
+    table changes makes the copy anew. They cost half the tables' bytes of
+    device memory and are not worth making where the tables change every
+    step."""
+    for module in model.modules():
+        if isinstance(module, NeuRADHashEncoding):
+            for grid in (module.static_grid, module.actor_grid):
+                grid.copies = he.Bf16Copies()
 
 
 class NeuRADHashEncoding(nn.Module):

@@ -44,7 +44,7 @@ LIBRARIES = {
     "hash_grid": (
         "hash_grid.cu",
         {
-            "hash_grid_fwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+            "hash_grid_fwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
             "hash_grid_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
         },
     ),

@@ -29,10 +29,15 @@ layout is one [L * table_size, F] array for all levels. The JAX package
 stores tables as 1-D leaves (an XLA layout repair); here they are 2-D
 parameters and the parameter bridge reshapes.
 
-Reads in bf16 (`gather_dtype`) round the fp32 master table to bf16 at the
-read (round to nearest even), round the corner weights to bf16, and interpolate
-in bf16: each product and each addition, corners in order, rounds to bf16.
-The backward builds the table update from the bf16 weight and gradient
+Reads in bf16 (`gather_dtype`) round the fp32 master table to bf16 (round
+to nearest even), round the corner weights to bf16, and interpolate in bf16:
+each product and each addition, corners in order, rounds to bf16. A lookup
+that builds no graph may read a bf16 copy of each table instead (the master
+rounded once: the same bits, half the bytes). The copies belong to the
+tables' owner (`Bf16Copies`, which a serving state switches on), are made
+once and made anew when a table changes; a lookup under autograd (training,
+where the tables change every step) rounds the master at the read. The
+backward builds the table update from the bf16 weight and gradient
 (`round(round(w) * round(g * level weight))`) as the JAX backward does and
 accumulates it in fp32 (the JAX package accumulates a level whose fp32
 gradient exceeds 32 MiB in bf16); d w is summed in fp32 from the rows in the
@@ -43,6 +48,7 @@ read type. Launches are counted in `hash_grid_launches` and
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -224,7 +230,8 @@ def hash_grid_encode_plain(
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, op by op in the kernel's order.
     positions [N, D], stds [N] or None, tables[l] any shape whose row-major
-    memory is [buckets_l, row_width] -> [N, L * f] fp32."""
+    memory is [buckets_l, row_width] (fp32, or with bf16 reads their bf16
+    copies: the same result) -> [N, L * f] fp32."""
     n, d = positions.shape
     n_corners = 2**d
     row_width = f * (n_corners if cell_packed else 1)
@@ -382,9 +389,43 @@ def _level_args(tables, buckets, dense_res, scales):
     )
 
 
-def _forward(positions, stds, tables, scales, buckets, dense_res, f, read_bf16, cell_packed) -> torch.Tensor:
+class Bf16Copies:
+    """bf16 copies of one owner's tables, held by that owner (a grid whose
+    lookups serve renders: `neurad_encoding.keep_bf16_copies`). A copy is the
+    master rounded to bf16 once (round to nearest even: the bits a bf16 read of
+    the fp32 master gives) and is made anew when its table is replaced or
+    changed in place (an optimizer step or a state-dict load bumps the
+    tensor's `_version`), so a stale copy is never read."""
+
+    def __init__(self):
+        self._held = []  # per table: (weak reference to it, its version, its data pointer, the copy)
+
+    def of(self, tables: Sequence[torch.Tensor]) -> Optional[list]:
+        """The copies of `tables`, in order; None where a table is an
+        inference tensor (it keeps no version to check a copy against)."""
+        if any(t.is_inference() for t in tables):
+            return None
+        if len(self._held) != len(tables):
+            self._held = [None] * len(tables)
+        for i, t in enumerate(tables):
+            held = self._held[i]
+            if held is None or held[0]() is not t or held[1] != t._version or held[2] != t.data_ptr():
+                self._held[i] = None  # free the stale copy before the new one is made
+                self._held[i] = (weakref.ref(t), t._version, t.data_ptr(), t.detach().to(torch.bfloat16))
+        return [held[3] for held in self._held]
+
+
+def _forward(positions, stds, tables, scales, buckets, dense_res, f, read_bf16, cell_packed,
+             copies=None) -> torch.Tensor:
+    """The lookup without autograd. `copies` (with bf16 reads): the tables'
+    bf16 copies, read instead of the fp32 masters (the same result)."""
+    from_copy = copies is not None and read_bf16
+    if from_copy:
+        tables = copies
     if positions.device.type == "cpu":
         return hash_grid_encode_plain(positions, stds, tables, scales, buckets, dense_res, f, read_bf16, cell_packed)
+    if cell_packed and any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("the kernels read cell-packed rows in 16-byte pieces: tables must start on a 16-byte boundary")
     n, d = positions.shape
     positions = positions.contiguous()
     stds = None if stds is None else stds.contiguous()
@@ -395,7 +436,7 @@ def _forward(positions, stds, tables, scales, buckets, dense_res, f, read_bf16, 
         err = lib.hash_grid_fwd(
             positions.data_ptr(), None if stds is None else stds.data_ptr(),
             *_level_args(tables, buckets, dense_res, scales), out.data_ptr(), n, len(tables), d, f, int(read_bf16),
-            int(cell_packed), torch.cuda.current_stream().cuda_stream,
+            int(cell_packed), int(from_copy), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"hash_grid_fwd failed with CUDA error {err}")
@@ -419,8 +460,7 @@ def hash_grid_encode_bwd(
         return hash_grid_encode_bwd_plain(positions, stds, tables, scales, buckets, dense_res, f, read_bf16,
                                           cell_packed, g, tables_grad, positions_grad, stds_grad)
     if cell_packed and any(t.data_ptr() % 16 for t in tables):
-        raise ValueError("the backward kernel reads cell-packed rows as float4s: tables must start on a 16-byte "
-                         "boundary")
+        raise ValueError("the kernels read cell-packed rows in 16-byte pieces: tables must start on a 16-byte boundary")
     tables_grad = [True] * len(tables) if tables_grad is None else list(tables_grad)
     positions, g = positions.contiguous(), g.contiguous()
     stds = None if stds is None else stds.contiguous()
@@ -467,6 +507,7 @@ class HashGridLookup(torch.autograd.Function):
 def hash_grid_encode(
     positions: torch.Tensor, stds: Optional[torch.Tensor], tables: Sequence[torch.Tensor], scales: Sequence[float],
     buckets: Sequence[int], dense_res: Sequence[Optional[int]], f: int, read_bf16: bool, cell_packed: bool,
+    copies: Optional[Bf16Copies] = None,
 ) -> torch.Tensor:
     """Every level of one encoding: positions [N, D] (D = 3 or 4) in [0, 1]^D,
     stds [N] or None (no level weight), L tables -> [N, L * f] fp32.
@@ -475,14 +516,17 @@ def hash_grid_encode(
     row_width] (see the module note); a view into a larger array serves the
     legacy layout. CPU tensors go to the plain versions, CUDA tensors to the
     kernels; anything the kernels do not take raises. Differentiable in the
-    positions, the stds and the tables."""
+    positions, the stds and the tables. `copies`: the owner's bf16 copies of
+    these tables; a lookup with bf16 reads and without autograd reads them
+    instead of the masters (the same bits, half the bytes)."""
     _check(positions, stds, tables, scales, buckets, dense_res, f, cell_packed)
     layout = (tuple(float(s) for s in scales), tuple(int(b) for b in buckets), tuple(dense_res), f, bool(read_bf16),
               bool(cell_packed))
     inputs = (positions, stds, *tables)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return HashGridLookup.apply(positions, stds, layout, *tables)
-    return _forward(positions, stds, tables, *layout)
+    return _forward(positions, stds, tables, *layout,
+                    copies=copies.of(tables) if copies is not None and read_bf16 else None)
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +540,8 @@ def gaussian_level_weights(std: torch.Tensor, scales: torch.Tensor) -> torch.Ten
     return 1.0 / torch.clamp_min(std * (2.0 * scales), 1.0)
 
 
-def _encode(positions, stds, table, scales, table_size, gather_dtype, cell_packed, dense_res, bucket_pack):
+def _encode(positions, stds, table, scales, table_size, gather_dtype, cell_packed, dense_res, bucket_pack,
+            copies=None):
     scales = [float(s) for s in np.asarray(scales, dtype=np.float32)]
     num_levels = len(scales)
     d = positions.shape[-1]
@@ -514,13 +559,14 @@ def _encode(positions, stds, table, scales, table_size, gather_dtype, cell_packe
         if any(r is not None for r in dense_res) or any(pk != 1 for pk in bucket_pack):
             raise ValueError("dense levels and bucket packing need per-level tables")
         tables = [table[l * table_size : (l + 1) * table_size] for l in range(num_levels)]
+        copies = None  # the views are new every call: nothing to keep a copy of
         f_row = table.shape[-1]
         buckets = [table_size] * num_levels
     f = f_row // (n_corners if cell_packed else 1)
     flat = positions.reshape(-1, d)
     out = hash_grid_encode(
         flat, None if stds is None else stds.reshape(-1), tables, scales, buckets, dense_res, f,
-        read_bf16=gather_dtype is not None, cell_packed=cell_packed,
+        read_bf16=gather_dtype is not None, cell_packed=cell_packed, copies=copies,
     )
     return out.reshape(positions.shape[:-1] + (num_levels * f,)), f
 
@@ -561,14 +607,16 @@ def hash_encode_gaussians(
     dense_res: Optional[Tuple[Optional[int], ...]] = None,
     bucket_pack: Optional[Tuple[int, ...]] = None,
     gather_dtype: Optional[torch.dtype] = torch.bfloat16,
+    copies: Optional[Bf16Copies] = None,
 ) -> torch.Tensor:
     """Encode multisampled gaussians, weight each level by the gaussian's std
     (inside the lookup) and average over the multisamples: gauss_mean
-    [..., M, D], gauss_std [..., M, 1] -> [..., L * F]."""
+    [..., M, D], gauss_std [..., M, 1] -> [..., L * F]. `copies`: the
+    owner's bf16 copies of the per-level tables (see `hash_grid_encode`)."""
     if gather_dtype not in (None, torch.bfloat16):
         raise ValueError("gather_dtype is torch.bfloat16 or None")
     feats, _ = _encode(gauss_mean, gauss_std, table, scales, table_size, gather_dtype, cell_packed, dense_res,
-                       bucket_pack)
+                       bucket_pack, copies)
     if feats.shape[-2] == 1:  # the mean of one multisample is that multisample
         return feats[..., 0, :]
     return feats.mean(dim=-2)

@@ -9,8 +9,9 @@ http.server (threaded; renders run under a lock):
   GET  /start_time     -> {start_time: float}
 
 `ClosedLoopState` serves a pipeline (a `SplatADPipeline` or an `ADPipeline`
-with a NeuRAD model) and, optionally, a state dict for its model (for example
-one bridged from JAX params by `params_from_jax`);
+with a NeuRAD model, whose hash grids then read bf16 copies of their tables)
+and, optionally, a state dict for its model (for example one bridged from JAX
+params by `params_from_jax`);
 `ClosedLoopState.from_run_dir` rebuilds the pipeline of a training run
 (`scripts/train.py`, SplatAD or NeuRAD) and loads its newest checkpoint.
 
@@ -36,6 +37,7 @@ import torch
 from neurad_tpu_torch import resolve_device
 from neurad_tpu_torch.configs.method_configs import neurad_tiny_overrides
 from neurad_tpu_torch.core import poses as pose_utils
+from neurad_tpu_torch.fields.neurad_encoding import keep_bf16_copies
 from neurad_tpu_torch.model_components.dynamic_actors import actor_data_from_trajectories
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline
@@ -51,6 +53,7 @@ class ClosedLoopState:
         self.pipeline = pipeline
         if state_dict is not None:
             pipeline.model.load_state_dict(state_dict)
+        keep_bf16_copies(pipeline.model)  # made at the first render, anew after a table is loaded or changed
         self.render_lock = threading.Lock()
         self.time_offset = float((pipeline.outputs.metadata or {}).get("time_offset", 0.0))
         self.last_render_seconds = float("nan")  # render + copy to host of the last image

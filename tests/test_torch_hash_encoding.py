@@ -283,3 +283,100 @@ def test_cpu_path_is_differentiable():
     out.square().sum().backward()
     assert all(t.grad is not None and float(t.grad.abs().sum()) > 0 for t in tabs)
     assert pos.grad is not None and bool(torch.isfinite(pos.grad).all()) and float(pos.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["cell_packed_dense_and_hashed_3d", "cell_packed_4d", "unpacked_3d",
+                                  "cell_packed_one_feature"])
+def test_plain_on_the_bf16_copy_equals_bf16_reads_of_the_master(case):
+    """bf16 reads of the fp32 master round each value to bf16 (nearest even);
+    the bf16 copy holds those values, so the plain lookup on the copy gives the
+    same bits, and both match the JAX package's bf16 lookup."""
+    d, f, (nl, lo, hi), max_rows, cell_packed, force_hash = CASES[case]
+    scales = JH.level_scales(nl, lo, hi)
+    _, dense, packs = JH.level_layout(scales, d, max_rows, cell_packed, force_hash)
+    jtabs, ttabs = _tables(14, scales, d, max_rows, f, cell_packed, force_hash)
+    pos = _positions(15, 700, d, scales)
+    std = np.random.default_rng(16).uniform(0.0, 0.05, 700).astype(np.float32)
+    buckets = [t.shape[0] * pk for t, pk in zip(ttabs, packs)]
+    args = ([float(s) for s in scales], buckets, dense, f, True, cell_packed)
+    tpos, tstd = torch.from_numpy(pos), torch.from_numpy(std)
+    master = TH.hash_grid_encode_plain(tpos, tstd, ttabs, *args)
+    holder = TH.Bf16Copies()
+    copies = holder.of(ttabs)
+    assert all(c.dtype == torch.bfloat16 and torch.equal(c, t.to(torch.bfloat16)) for c, t in zip(copies, ttabs))
+    assert torch.equal(TH.hash_grid_encode_plain(tpos, tstd, copies, *args), master)
+    # the lookup without autograd reads the copies it is given: the same bits again
+    assert torch.equal(TH.hash_grid_encode(tpos, tstd, ttabs, *args, copies=holder), master)
+    want = np.asarray(JH.hash_encode_gaussians(jnp.asarray(pos[:, None]), jnp.asarray(std[:, None, None]), jtabs,
+                                               jnp.asarray(scales), gather_dtype=jnp.bfloat16,
+                                               cell_packed=cell_packed, dense_res=dense, bucket_pack=packs))
+    mag = _magnitude(pos, ttabs, scales, dense, packs, f, cell_packed)
+    assert (np.abs(master.numpy() - want) <= BF16_REL[cell_packed] * mag + 1e-7).all()
+
+
+def test_bf16_copy_is_kept_until_the_table_changes():
+    """The owner's copy is made once per table and reused while the table is
+    unchanged; an in-place update (an optimizer step bumps `_version`) makes
+    the next call convert afresh, a table put in its place gets its own copy,
+    and a stale copy is let go. A lookup under autograd reads the master and
+    leaves the copies alone."""
+    import weakref
+
+    gen = torch.Generator().manual_seed(0)
+    table = torch.nn.Parameter(torch.rand((64, 32), generator=gen))
+    holder = TH.Bf16Copies()
+    first = holder.of([table])[0]
+    assert holder.of([table])[0] is first and torch.equal(first, table.detach().to(torch.bfloat16))
+    with torch.no_grad():
+        table.add_(0.25)
+    fresh = holder.of([table])[0]
+    assert fresh is not first and torch.equal(fresh, table.detach().to(torch.bfloat16))
+    assert not torch.equal(fresh, first)
+    assert holder.of([table])[0] is fresh
+    other = table.detach().clone()
+    again = holder.of([other])[0]
+    assert again is not fresh and torch.equal(again, fresh)
+    stale = weakref.ref(fresh)
+    del first, fresh
+    assert stale() is None, "the copy of a table that was replaced is not kept"
+    with torch.inference_mode():
+        assert TH.Bf16Copies().of([torch.rand(4, 4)]) is None  # an inference tensor keeps no version: no copy
+    # a lookup under no_grad fills the holder; one under autograd reads the master and leaves it alone
+    scales = TH.level_scales(2, 8, 16)
+    tabs = [torch.nn.Parameter(t) for t in TH.init_hash_tables(gen, scales, 3, 2**12, 4, scale=1.0, cell_packed=True)]
+    _, dense, _ = TH.level_layout(scales, 3, 2**12, True)
+    pos = torch.from_numpy(_positions(17, 50, 3, scales))
+    args = ([8.0, 16.0], [t.shape[0] for t in tabs], dense, 4, True, True)
+    holder = TH.Bf16Copies()
+    graph = TH.hash_grid_encode(pos, None, tabs, *args, copies=holder)
+    assert graph.requires_grad and holder._held == []
+    with torch.no_grad():
+        assert torch.equal(TH.hash_grid_encode(pos, None, tabs, *args, copies=holder), graph.detach())
+    assert len(holder._held) == 2 and all(torch.equal(h[3], t.detach().to(torch.bfloat16))
+                                          for h, t in zip(holder._held, tabs))
+
+
+def test_a_serving_state_reads_bf16_copies_of_its_tables():
+    """The closed-loop server state switches its model's hash grids to bf16
+    copies of their tables: a render makes them, gives the image a render from
+    the masters gives, and a model outside a server state keeps none."""
+    from neurad_tpu_torch.configs.method_configs import neurad_tiny_overrides
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.fields.neurad_encoding import HashGrid
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
+    from neurad_tpu_torch.scripts.closed_loop import ClosedLoopState
+
+    outputs = SyntheticDataParserConfig(num_frames=2, image_height=12, image_width=18, lidar_channels=4,
+                                        lidar_azimuths=12).setup().get_dataparser_outputs()
+    pipeline = ADPipeline(outputs, ADPipelineConfig(model_overrides=neurad_tiny_overrides()), device="cpu")
+    grids = [g for m in pipeline.model.modules() for g in vars(m).values() if isinstance(g, HashGrid)]
+    assert grids and all(g.copies is None for g in grids)
+    state = ClosedLoopState(pipeline, device="cpu")
+    assert all(isinstance(g.copies, TH.Bf16Copies) for g in grids)
+    pose = outputs.cameras.camera_to_worlds[0].tolist() + [[0.0, 0.0, 0.0, 1.0]]
+    image = state.render_image(pose, 0.5, "front_camera")
+    read = [g for g in grids if g.gather_dtype is not None]
+    assert read and all(len(g.copies._held) > 0 for g in read)
+    for g in grids:
+        g.copies = None
+    np.testing.assert_array_equal(state.render_image(pose, 0.5, "front_camera"), image)

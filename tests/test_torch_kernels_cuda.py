@@ -89,6 +89,49 @@ def test_lidar_kernel_matches_plain(cuda, c, k, wrap):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 16, 32])
+def test_camera_kernel_on_gated_tiles_and_the_image_edge(cuda, c):
+    """K2 (two pixels a thread, warps that skip slots whose alpha is zero for
+    all their pixels) on tiles binned from projected gaussians: the image's
+    last tile row half outside it (height 40), one tile whose 256 slots are
+    all valid and all gate to zero (a gaussian far from its pixels), C = 8, 16
+    and 32."""
+    from neurad_tpu_torch.ops import gaussians as G
+    from neurad_tpu_torch.ops.gaussian_rasterize import camera_tile_inputs
+
+    width, height, n = 96, 40, 3000
+    rng = np.random.default_rng(20 + c)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).cuda()
+    means = rng.normal(size=(n, 3)) * np.array([3.0, 1.5, 2.0]) + np.array([0.0, 0.0, 8.0])
+    covar6 = G.quat_scale_to_covar6(t(rng.normal(size=(n, 4))), t(np.exp(rng.uniform(-4.0, -1.0, size=(n, 3)))))
+    K = torch.tensor([[0.7 * width, 0, width / 2], [0, 0.7 * width, height / 2], [0, 0, 1.0]], device="cuda")
+    proj = G.project_gaussians_camera(t(means), covar6, torch.eye(4, device="cuda"), K, width, height,
+                                      velocities=t(rng.normal(size=(n, 3))))
+    binning, table, tile_valid, pix, times = camera_tile_inputs(
+        proj, t(rng.uniform(size=(n, c))), t(rng.uniform(0.05, 0.99, n)), width, height, tile_size=16,
+        max_per_tile=256, rolling_shutter_time=0.03)
+    tile_gauss = binning.tile_gauss
+    assert pix.shape[1:] == (256, 2) and bool((pix[..., 1] > height).any()), "the last tile row leaves the image"
+    # tile 0: every slot valid, all on one gaussian far to the right of its pixels
+    far = table[:1].clone()
+    far[0, 0:2] = torch.tensor([500.0, 8.0])
+    table = torch.cat([table, far])
+    tile_gauss[0] = table.shape[0] - 1
+    tile_valid[0] = 1.0
+    args = (table.contiguous(), tile_gauss.contiguous(), tile_valid.contiguous(), pix, times)
+    assert float((tile_valid[1:] > 0).float().mean()) > 0.05
+    before = TC.camera_launches
+    got = TC.tile_composite_camera(*args)
+    torch.cuda.synchronize()
+    assert TC.camera_launches == before + 1
+    want = TC.tile_composite_camera_plain(*args)
+    assert float(want[2].max()) > 0.5, "the picture is not empty"
+    assert all(float(g[0].abs().max()) == 0.0 for g in got), "a tile gated to zero composites nothing"
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_mixed_devices(cuda):
     args = _inputs(2, t=2, p=32, k=8, n=20, c=4, lidar=False)
     args[0] = args[0].cpu()
@@ -279,6 +322,79 @@ def test_hash_grid_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert all(t.grad is not None and t.grad.device.type == "cuda" for t in leaf)
     with pytest.raises(ValueError, match="g must be"):
         HE.hash_grid_encode_bwd(pos, None, tables, *args, torch.zeros((16, 16), device="cuda").double())
+
+
+# the lookup's read modes: (bf16 reads, from the bf16 copy)
+HASH_MODES = {"bf16_copy": (True, True), "bf16_master": (True, False), "fp32": (False, False)}
+
+
+def _lookup_positions(gen, kind, n, d, scale0):
+    """Positions as a chunk's rays give them (32 samples a ray along a
+    segment of the unit cube, ray-major, sorted along it; D = 4: one actor
+    coordinate a ray), all in one cell of the coarsest level (every lane of a
+    warp on one row there), or uniform with N not a multiple of 32."""
+    if kind == "rays":
+        rays = n // 32
+        a = torch.rand((rays, 1, 3), generator=gen, device="cuda")
+        b = torch.rand((rays, 1, 3), generator=gen, device="cuda")
+        pos = a + (b - a) * torch.rand((rays, 32, 1), generator=gen, device="cuda").sort(dim=1).values
+        if d == 4:
+            pos = torch.cat([pos, torch.rand((rays, 1, 1), generator=gen, device="cuda").expand(rays, 32, 1)], -1)
+        return pos.reshape(-1, d).contiguous()
+    if kind == "hot_cell":
+        cell = torch.randint(0, int(scale0), (d,), generator=gen, device="cuda")
+        return ((cell + torch.rand((n, d), generator=gen, device="cuda")) / scale0).contiguous()
+    return torch.rand((n + 13, d), generator=gen, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(HASH_MODES))
+@pytest.mark.parametrize("kind", ["rays", "hot_cell", "ragged"])
+@pytest.mark.parametrize("d,cell_packed", [(3, True), (4, True), (3, False)], ids=["static", "actor", "unpacked"])
+def test_hash_grid_kernel_on_rays_hot_cells_and_ragged_n(cuda, d, cell_packed, kind, mode):
+    """K1f (a warp a level of 32 samples, one fetch a distinct row) where
+    lanes share rows: ray-ordered positions, one hot cell, and a last block
+    of 13 samples; every read mode; the D = 4 actor grid and the unpacked
+    layout. Equal to the plain version on the fp32 master, bit for bit."""
+    read_bf16, from_copy = HASH_MODES[mode]
+    scales, dense, packs, tables, gen = _grid(d, 4, cell_packed, False, seed=40 + d)
+    pos = _lookup_positions(gen, kind, 32 * 160, d, float(scales[0]))
+    std = torch.rand((pos.shape[0],), generator=gen, device="cuda") * 0.05
+    layout = ([float(s) for s in scales], [t.shape[0] * pk for t, pk in zip(tables, packs)], dense, 4, read_bf16,
+              cell_packed)
+    before = HE.hash_grid_launches
+    with torch.no_grad():
+        got = HE.hash_grid_encode(pos, std, tables, *layout, copies=HE.Bf16Copies() if from_copy else None)
+    torch.cuda.synchronize()
+    assert HE.hash_grid_launches == before + 1
+    want = HE.hash_grid_encode_plain(pos, std, tables, *layout)
+    assert bool(want.abs().max() > 0)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(HASH_MODES))
+@pytest.mark.parametrize("levels,f", [(3, 1), (12, 4), (16, 2)])
+def test_hash_grid_kernel_level_counts(cuda, levels, f, mode):
+    """Blocks of two groups of 3 levels (an output row of 3 floats, copied out
+    float by float), of 12 and of 16 levels (one warp a level)."""
+    read_bf16, from_copy = HASH_MODES[mode]
+    scales, dense, packs, tables, gen = _grid(3, f, True, False, seed=levels, levels=levels)
+    pos = torch.rand((2000, 3), generator=gen, device="cuda")
+    layout = ([float(s) for s in scales], [t.shape[0] * pk for t, pk in zip(tables, packs)], dense, f, read_bf16, True)
+    with torch.no_grad():
+        got = HE.hash_grid_encode(pos, None, tables, *layout, copies=HE.Bf16Copies() if from_copy else None)
+    assert torch.equal(got, HE.hash_grid_encode_plain(pos, None, tables, *layout))
+
+
+@pytest.mark.cuda
+def test_hash_grid_wrapper_refuses_unaligned_cell_packed_tables(cuda):
+    scales, dense, packs, tables, gen = _grid(3, 4, True, False, seed=2)
+    shifted = torch.empty(tables[0].numel() + 1, device="cuda")[1:].view(tables[0].shape)
+    shifted.copy_(tables[0])
+    layout = ([float(s) for s in scales], [t.shape[0] * pk for t, pk in zip(tables, packs)], dense, 4, False, True)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        HE.hash_grid_encode(torch.rand((64, 3), device="cuda"), None, [shifted] + list(tables[1:]), *layout)
 
 
 SPREADS = ["uniform", "one_bucket", "one_row"]
