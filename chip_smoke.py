@@ -4,28 +4,35 @@
     python3 chip_smoke.py [--parent DIR]
 
 `--parent DIR`: another checkout of this repository (say, the parent commit
-unpacked with `git archive`); its hash-grid lookup and camera composite
+unpacked with `git archive`); its hash-grid lookup and tile composite
 wrappers are imported from it, with its own build module and C interface,
-their libraries built from its own sources, and its public entries
-(`hash_grid_encode`, `tile_composite_camera`) timed in turns with this tree's
-(parent, change, change, parent), as a call and as device time, their outputs
-compared bit for bit.
+their libraries built from its own sources, and its entries
+(`hash_grid_encode`, `tile_composite_camera`, `tile_composite_lidar`, the
+lidar backward's `_lidar_backward`) timed in turns with this tree's (parent,
+change, change, parent), as a call and as device time, their outputs
+compared bit for bit (the lidar backward's, whose atomics add in no fixed
+order, within BWD_TOL of each entry's terms' magnitude).
 
 1. Builds every CUDA kernel from `neurad_tpu_torch/csrc/` (nvcc, sm_90a; one
    nvcc per source, started together) and prints ptxas's report of every
    kernel instantiation (registers, stack frame, spills, static shared
-   memory); the lookup's backward must keep no stack frame.
+   memory); the lookup's backward must keep no stack frame, the lookup's
+   forward and the tile composites (bar the camera backward) neither stack nor
+   spill.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the full-width shapes of the main paths (camera tile composite and
    its backward: T=8160 tiles x P=256 pixels x K=256 slots, C=16; lidar tile
    composite and its backward: T=3780 x P=128 x K=128, C=16, azimuth wrap on),
    on inputs projected and binned from 500,000 seeded gaussians and, for the
    backwards, seeded cotangents that are zero on the rows outside the image,
-   and times both with CUDA events (and the device time from torch.profiler);
-   the camera composite's bound counts the least work (the plain version's
-   alpha terms, counted on the card): the quadratic form alone for pairs
-   beyond the far cut, the gated alpha for the other valid pairs, the feature
-   work only for pairs whose alpha passes the gate. After the SplatAD serving phase, so that
+   and times both with CUDA events (and the forwards' and the lidar
+   backward's device time from a CUDA graph); the bounds of the camera
+   composite and of both lidar kernels count the least work (the plain
+   version's alpha terms, counted on the card): the quadratic form alone for
+   pairs beyond the far cut, the gated alpha for the other valid pairs, the
+   feature work only for pairs whose alpha passes the gate; the lidar's only
+   over valid query slots, whose share it reports with the share of pairs and
+   of (warp, slot) steps beyond the far cut. After the SplatAD serving phase, so that
    that phase meets the card as it always did: the hash-grid lookup at the
    NeuRAD field's full width (static grid: N=1,048,576 samples, 8 levels, D=3,
    4 features, the preset's tables, on uniform positions and on a serving
@@ -49,7 +56,8 @@ compared bit for bit.
    the JSON round trip (two of them from a new thread, as the server gives
    every request one) and the lidar scan three times, checks the
    outputs and that both forward kernels were launched on that path, then
-   renders one more request under torch.profiler (device time by kernel).
+   renders one more request and one more warm scan under torch.profiler
+   (device time by kernel).
 4. Train phase (run after the NeuRAD phases): trains SplatAD through `SplatADPipeline.init_state`,
    `datamanager.next_train` and `train_step` on the same scene at full
    resolution (`num_downscales=0`), at least three camera and three lidar
@@ -118,6 +126,8 @@ NEURAD_SAMPLES = 32  # field samples per ray
 HASH_KERNEL = "hash_grid_fwd_kernel"
 HASH_BWD_KERNEL = "hash_grid_bwd_kernel"
 CAMERA_KERNEL = "camera_fwd_kernel"
+LIDAR_KERNEL = "lidar_fwd_kernel"
+LIDAR_BWD_KERNEL = "lidar_bwd_kernel"
 NEURAD_TRAIN_STEPS = 5  # the first apart, then the warm ones
 NEURAD_LOOP_STEPS = 4  # then through the train script's loop and sampler threads, the first apart
 K1B_RAYS = 8192  # one train chunk (ADPipelineConfig.train_ray_chunk) of the `neurad` preset ...
@@ -348,10 +358,12 @@ def _cotangents(rng, t_total, p, c, n_extra, outside=None):
     return cots
 
 
-def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input_bytes, c, extra_ops=0):
+def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input_bytes, c, extra_ops=0, least=None):
     """Hold a backward kernel (reached through its autograd function: `outs`
     were computed from `table`, which requires grad) against its plain version
-    and time both. Tolerance per entry of the table's gradient: BWD_TOL times
+    and time both (`least`: (operations, bytes) of the least work, the bound
+    reported where given, the formula below on every valid pair with the
+    atomic traffic beside it). Tolerance per entry of the table's gradient: BWD_TOL times
     the sum of the absolute values of the entry's per-pixel terms (the plain
     version's `magnitude`), so that a gaussian with a small gradient is held as
     tightly as one with a large gradient. The kernel adds a warp's pixels by
@@ -390,20 +402,27 @@ def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input
     ms = cuda_time_ms(grad)
     plain_ms = cuda_time_ms(plain_fn, warmup=1, reps=3)
     width = table.shape[1]
-    # per valid pair, what the function needs: alpha (~30) and the payload gradient (2c + 4) once, the gradient
-    # terms (~45 + c) and the sum over a tile's pixels of the 10 + c terms. (The kernel evaluates alpha and the
-    # payload gradient a second time, in its first pass: that is its overhead, not part of the bound.)
+    # per valid pair, what the function needs: alpha (~30) and the payload gradient (2c + 4), the gradient
+    # terms (~45 + c) and the sum over a tile's pixels of the 10 + c terms
     ops = pairs * ((34 + 2 * c) + 45 + c + width + extra_ops)
     atomic_bytes = valid_slots * width * 4 * 2  # each valid slot's row of d_table read and written
     bytes_moved = input_bytes + sum(x.numel() * 4 for x in cots) + table.numel() * 4 + atomic_bytes
     bound_ms, bound_by = _bound(bytes_moved, ops)
+    out = dict(max_abs_err=float(err.max()), max_rel_err=max(rel_col), rel_err_by_column=dict(zip(names, rel_col)),
+               max_err_over_term_sum=max(to_mag), err_over_term_sum_by_column=dict(zip(names, to_mag)),
+               rows_off_1e3_relative=rows_off, run_to_run=run_to_run,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, ops=ops,
+               bytes=bytes_moved, atomic_bytes=atomic_bytes)
+    note = f" of which {atomic_bytes:.3e} atomic traffic"
+    if least is not None:
+        out.update(bound_every_pair_ms=bound_ms, ops_every_pair=ops, bytes_every_pair=bytes_moved)
+        ops, bytes_moved = least
+        bound_ms, bound_by = _bound(bytes_moved, ops)
+        out.update(bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=bytes_moved)
+        note = f"; {out['bound_every_pair_ms']:.4f} ms on every valid pair with the atomic traffic"
     log(f"[kernels] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{ops:.3e} ops, {bytes_moved:.3e} bytes of which {atomic_bytes:.3e} atomic traffic)")
-    return dict(max_abs_err=float(err.max()), max_rel_err=max(rel_col), rel_err_by_column=dict(zip(names, rel_col)),
-                max_err_over_term_sum=max(to_mag), err_over_term_sum_by_column=dict(zip(names, to_mag)),
-                rows_off_1e3_relative=rows_off, run_to_run=run_to_run,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, ops=ops,
-                bytes=bytes_moved, atomic_bytes=atomic_bytes)
+        f"{ops:.3e} ops, {bytes_moved:.3e} bytes{note})")
+    return out
 
 
 def kernel_phase(rng):
@@ -491,13 +510,10 @@ def kernel_phase(rng):
     # total; where a running sum lies within rounding of that mark, the kernel's
     # serial sum and the plain version's cumsum may pick neighbouring slots
     ambiguous = torch.zeros_like(vmask, dtype=torch.bool)
-    med_pairs = 0
     for s, e, _g, w, _gd in TC._lidar_plain_chunks(*args, True, 128):
         acc = w.sum(-1, keepdim=True)
         cum = torch.cumsum(w, -1)
         ambiguous[s:e] = ((cum - 0.5 * acc).abs() <= 1e-5 * acc + 1e-12).any(-1) & (acc[..., 0] > 0)
-        idx = TC.median_index(w, acc)[..., 0]
-        med_pairs += int(((idx + 1) * (vmask[s:e] > 0)).sum())
     med_diff = (got[4] - ref[4]).abs()[..., 0]
     med_err = float(torch.where(ambiguous, torch.zeros_like(med_diff), med_diff).max())
     n_ambiguous = int(ambiguous.sum())
@@ -510,34 +526,138 @@ def kernel_phase(rng):
     require(errs[1] <= 1e-4 * float(ref[1].abs().max()) + 1e-4, "lidar depth within 1e-4 relative")
     require(med_err <= 1e-4 * float(ref[4].abs().max()) + 1e-4, "lidar median depth within 1e-4 relative")
     require(n_ambiguous <= 1e-3 * vmask.numel(), "few median ties")
-    ms = cuda_time_ms(lambda: TC.tile_composite_lidar(*args, True, eps, True))
+    del ref
+    k4 = lambda: TC.tile_composite_lidar(*args, True, eps, True)
+    ms, dev_ms = cuda_time_ms(k4), device_ms(k4)
     plain_ms = cuda_time_ms(lambda: TC.tile_composite_lidar_plain(*args, True, eps, True), warmup=1, reps=3)
-    # pass 1 needs every valid (query slot, gaussian slot) pair; the median pass
-    # walks each valid query slot's list up to its crossing
-    valid_per_tile = (tile_valid > 0).sum(1).to(torch.float64)
-    queries_per_tile = (vmask > 0).sum(1).to(torch.float64)
-    pairs = int((valid_per_tile * queries_per_tile).sum())
-    ops = pairs * (39 + 2 * c) + med_pairs * 35
-    bytes_moved = (tile_gauss.numel() * 4 + tile_valid.numel() * 4 + pts_slot.numel() * 4 + vmask.numel() * 4
-                   + _row_bytes(table, tile_gauss, tile_valid) + t_total * p * (c + 4) * 4)
+    n = _lidar_counts(*args)
+    pairs, far, lit = n["pairs"], n["far_pairs"], n["lit_pairs"]
+    # the least work: a valid (query, slot) pair beyond the far cut needs its quadratic form with the wrap (20
+    # operations), any other valid pair its gated alpha (36), a pair whose alpha passes the gate the feature and
+    # depth sums, acc, the line-of-sight and running sums and the transmittance (2 (c + 2) + 3); the median a
+    # search (not counted). Bytes: the index lists and validity, vmask and every query slot's time (a masked
+    # slot's median is raw slot 0's depth at that time), the rest of a valid query's point, the rows the valid
+    # slots use, and the outputs of every query slot
+    ops = far * 20 + (pairs - far) * 36 + lit * (2 * (c + 2) + 3)
+    list_bytes = tile_gauss.numel() * 4 + tile_valid.numel() * 4 + vmask.numel() * 4
+    row_bytes = _row_bytes(table, tile_gauss, tile_valid)
+    bytes_moved = (list_bytes + vmask.numel() * 4 + n["queries"] * 12  # every query slot's time, the rest valid ones'
+                   + row_bytes + t_total * p * (c + 4) * 4)
     bound_ms, bound_by = _bound(bytes_moved, ops)
-    results["lidar"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            pairs=pairs, median_pairs=med_pairs, ops=ops, bytes=bytes_moved, errs=errs,
-                            median_ties=n_ambiguous)
-    log(f"[kernels] lidar: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{ops:.3e} ops, {bytes_moved:.3e} bytes)")
+    # the bound earlier runs reported: every query slot's point read, the alpha and sums on every valid pair
+    bound_all_slots_ms, _ = _bound(bytes_moved - vmask.numel() * 4 - n["queries"] * 12 + pts_slot.numel() * 4,
+                                   pairs * (39 + 2 * c))
+    results["lidar"] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, bound_all_slots_ms=bound_all_slots_ms, ops=ops, bytes=bytes_moved,
+                            errs=errs, median_ties=n_ambiguous, **n)
+    log(f"[kernels] lidar: {n['queries']} valid query slots of {vmask.numel()} ({n['queries'] / vmask.numel():.3f}); "
+        f"of {pairs} valid (query, slot) pairs {lit / pairs:.3f} pass the alpha gate, {far / pairs:.3f} lie beyond the "
+        f"far cut; of {n['warp_slots']} (warp, slot) steps {n['far_warp_slots'] / n['warp_slots']:.3f} lie wholly "
+        f"beyond it, {n['lit_warp_slots'] / n['warp_slots']:.3f} have a positive alpha; kernel {ms:.4f} ms a call "
+        f"({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {ops:.3e} "
+        f"ops, {bytes_moved:.3e} bytes; {bound_all_slots_ms:.4f} ms with every query slot's inputs)")
+    # latency or throughput: the first four tiles an SM (a block an SM, a warp a scheduler) against all of them
+    few = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    part = [table] + [x[:few] for x in args[1:]]
+    results["lidar"].update(few_tiles=few, few_tiles_device_ms=device_ms(
+        lambda: TC.tile_composite_lidar(*part, True, eps, True)))
+    log(f"[kernels] lidar: the first {few} tiles alone (a warp a scheduler) "
+        f"{results['lidar']['few_tiles_device_ms']:.4f} ms on the device, all {t_total} {dev_ms:.4f} ms")
+    if PARENT:
+        ptc = PARENT["tile_composite"]
+        parent_k4 = lambda: ptc.tile_composite_lidar(*args, True, eps, True)
+        prev = parent_k4()
+        _sync()
+        equal = [bool(torch.equal(a, b)) for a, b in zip(got, prev)]
+        diff = [float((a - b).abs().max()) for a, b in zip(got, prev)]
+        log(f"[parent] lidar: this tree's outputs against the parent's, equal (feat, depth, acc, until, median) "
+            f"{equal}, max abs difference {diff}")
+        require(all(equal), "the lidar composite's outputs equal the parent's bit for bit")
+        results["lidar"]["parent"] = dict(turns("lidar composite (K4)", parent_k4, k4), equal=equal, max_diff=diff)
+        del prev
 
     # --- lidar backward (K5): cotangents on features, depth, accumulation and the line-of-sight sum ---
     cots = _cotangents(rng, t_total, p, c, 3)
     leaf = table.clone().requires_grad_(True)
     outs = TC.tile_composite_lidar(leaf, tile_gauss, tile_valid, pts_slot, vmask, True, eps, True)[:4]
+    # the least work: the alpha of every valid pair as above, and for a pair past the gate the payload gradient
+    # (2c + 4 + 2), the gradient terms (~45 + c) and the sum over the tile's queries of the 10 + c terms. Bytes:
+    # the index lists, vmask, a valid query's point, forward outputs and cotangents, the rows the valid slots use,
+    # the table's gradient written once
+    width = table.shape[1]
+    ops = far * 20 + (pairs - far) * 36 + lit * ((2 * c + 6) + 45 + c + width)
+    bytes_moved = list_bytes + n["queries"] * (16 + 2 * (c + 3) * 4) + row_bytes + table.numel() * 4
     results["lidar_bwd"] = backward_check(
         "lidar backward", leaf, outs, cots,
         lambda **kw: TC.tile_composite_lidar_bwd_plain(table, tile_gauss, tile_valid, pts_slot, vmask, True, eps, *cots,
                                                        **kw),
-        int((tile_valid > 0).sum()), pairs, bytes_moved - t_total * p * (c + 4) * 4, c, extra_ops=2)
+        int((tile_valid > 0).sum()), pairs, list_bytes + pts_slot.numel() * 4 + row_bytes, c, extra_ops=2,
+        least=(ops, bytes_moved))
+    fwd = [x.detach() for x in outs]
+    k5 = _lidar_bwd_call(TC, args, fwd, cots, eps)
+    results["lidar_bwd"]["device_ms"] = device_ms(k5)
+    results["lidar_bwd"]["few_tiles_device_ms"] = device_ms(
+        _lidar_bwd_call(TC, part, [x[:few] for x in fwd], [x[:few] for x in cots], eps))
+    log(f"[kernels] lidar backward: {results['lidar_bwd']['device_ms']:.4f} ms on the device (the d_table fill "
+        f"included); the first {few} tiles alone {results['lidar_bwd']['few_tiles_device_ms']:.4f} ms")
+    if PARENT:
+        ptc = PARENT["tile_composite"]
+        pleaf = table.clone().requires_grad_(True)
+        pouts = ptc.tile_composite_lidar(pleaf, tile_gauss, tile_valid, pts_slot, vmask, True, eps, True)[:4]
+        (prev,) = torch.autograd.grad(pouts, pleaf, cots)
+        (mine,) = torch.autograd.grad(outs, leaf, cots)
+        mag = TC.tile_composite_lidar_bwd_plain(table, tile_gauss, tile_valid, pts_slot, vmask, True, eps, *cots,
+                                                magnitude=True)
+        to_mag = float(((mine - prev).abs() / mag.clamp_min(1e-30)).max())
+        log(f"[parent] lidar backward: this tree's gradient against the parent's, largest difference over an "
+            f"entry's terms' magnitude {to_mag:.2e}")
+        require(to_mag <= BWD_TOL, f"the lidar backward within {BWD_TOL} of the parent's")
+        results["lidar_bwd"]["parent"] = dict(turns("lidar backward (K5)", _lidar_bwd_call(ptc, args, fwd, cots, eps),
+                                                    k5), err_over_term_sum=to_mag)
+        del prev, mine, mag, pouts
     return results
 
+
+def _lidar_bwd_call(tc, args, outs, cots, eps):
+    """One call of a checkout's lidar backward through its module's wrapper
+    (`_lidar_backward`: K5 and the zero-fill of d_table), given the forward's
+    outputs where that backward takes them."""
+    import inspect
+
+    if "feat" in inspect.signature(tc._lidar_backward).parameters:
+        return lambda: tc._lidar_backward(*args, *outs, True, eps, *cots)
+    return lambda: tc._lidar_backward(*args, True, eps, *cots)
+
+
+def _lidar_counts(table, tile_gauss, tile_valid, pts_slot, vmask, tile_chunk=128):
+    """By the plain version's alpha terms, over the lidar composite's valid
+    (query, slot) pairs (valid query slot, valid gaussian slot): all of them,
+    those whose gated alpha is positive and those beyond the far cut
+    (sigma_raw > 5.6 of a slot whose opacity is at most 1); over the (tile,
+    valid slot) steps of tiles with a valid query (a warp's in K4 and K5 where
+    a tile holds at most 32), those whose queries all lie beyond the far cut
+    and those with a positive alpha somewhere; and the valid query slots."""
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    n = dict(queries=int((vmask > 0).sum()), pairs=0, lit_pairs=0, far_pairs=0, warp_slots=0, far_warp_slots=0,
+             lit_warp_slots=0)
+    for s in range(0, pts_slot.shape[0], tile_chunk):
+        e = min(pts_slot.shape[0], s + tile_chunk)
+        valid, on = tile_valid[s:e] > 0, vmask[s:e] > 0
+        g = TC._gather(table, tile_gauss[s:e])
+        pts = pts_slot[s:e]
+        terms = TC._alpha_terms(g, valid, pts[..., 0:1], pts[..., 1:2], pts[..., 3:4], True)
+        pair = valid[:, None, :] & on[:, :, None]
+        lit = (terms[5] > 0) & pair
+        far = (terms[2] > 5.6) & (g[..., 7] <= 1.0)[:, None, :] & pair
+        n["pairs"] += int(pair.sum())
+        n["lit_pairs"] += int(lit.sum())
+        n["far_pairs"] += int(far.sum())
+        steps = valid & on.any(1, keepdim=True)
+        n["warp_slots"] += int(steps.sum())
+        n["far_warp_slots"] += int(((far | ~on[:, :, None]).all(1) & steps).sum())
+        n["lit_warp_slots"] += int((lit.any(1) & steps).sum())
+    return n
 
 
 def ptxas_report():
@@ -954,10 +1074,13 @@ def slice_phase():
     profile = {
         "camera": profiled("camera request", lambda: state.render_image(pose.tolist(), float(times[1]), "front_camera"),
                            match=CAMERA_KERNEL),
+        "lidar": profiled("lidar scan", lambda: pipeline.render_eval_lidar(scan), match=LIDAR_KERNEL),
     }
     log(f"[slice] profiled camera request: the camera composite {profile['camera']['matched_ms']:.3f} ms in "
-        f"{profile['camera']['matched_launches']} launch(es)")
+        f"{profile['camera']['matched_launches']} launch(es); profiled warm lidar scan: the lidar composite "
+        f"{profile['lidar']['matched_ms']:.3f} ms in {profile['lidar']['matched_launches']} launch(es)")
     require(profile["camera"]["matched_launches"] == 1, "the profiled request launched the camera composite once")
+    require(profile["lidar"]["matched_launches"] == 1, "the profiled scan launched the lidar composite once")
 
     # one camera train step with the default configuration: the coarse-to-fine schedule starts at a quarter
     # of the resolution
@@ -1633,14 +1756,16 @@ def main(argv=None) -> int:
     if args.parent:  # the parent's two libraries build beside this tree's
         parent_build, parent_built = load_parent(args.parent), []
         parent_thread = threading.Thread(
-            target=lambda: parent_built.append(parent_build.build_all(["hash_grid", "tile_composite"])), daemon=True)
+            target=lambda: parent_built.append(parent_build.build_all(["hash_grid", "tile_composite", "tile_composite_bwd"])),
+            daemon=True)
         parent_thread.start()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     if args.parent:
         parent_thread.join()
-        require(bool(parent_built), f"the parent checkout {args.parent} built its lookup and composite")
-        log(f"[build] the parent's hash_grid and tile_composite from {args.parent} in {time.perf_counter() - t0:.1f} s")
+        require(bool(parent_built), f"the parent checkout {args.parent} built its lookup and composites")
+        log(f"[build] the parent's hash_grid, tile_composite and tile_composite_bwd from {args.parent} in "
+            f"{time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report()
     for r in ptxas:
         log(f"[ptxas] {r['library']}: {r['kernel']}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
@@ -1655,6 +1780,9 @@ def main(argv=None) -> int:
             all(r.get("stack") == 0 and r.get("spill_stores") == 0 for r in k1f_ptxas + k2_ptxas),
             "every instantiation of the lookup's forward (D, F, read mode, layout) and of the camera composite keeps "
             "no stack frame and spills nothing")
+    k45_ptxas = [r for r in ptxas if r["kernel"].split("<")[0] in (LIDAR_KERNEL, LIDAR_BWD_KERNEL)]
+    require(len(k45_ptxas) == 6 and all(r.get("stack") == 0 and r.get("spill_stores") == 0 for r in k45_ptxas),
+            "every instantiation of the lidar composite and its backward keeps no stack frame and spills nothing")
 
     rng = np.random.default_rng(SEED)
     kernels = kernel_phase(rng)

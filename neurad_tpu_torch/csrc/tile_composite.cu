@@ -4,8 +4,9 @@
 //   tile_composite_camera_fwd <- _composite_fwd_kernel (K2, launched by _run_fwd)
 //   tile_composite_lidar_fwd  <- _make_lidar_fwd_kernel (K4, launched by run_lidar_fwd)
 // Plain PyTorch versions of the same functions: neurad_tpu_torch/ops/tile_composite.py.
-// The backward composites are in tile_composite_bwd.cu; the stage, its loader and
-// the gated alpha they share are in tile_composite_common.cuh.
+// The backward composites are in tile_composite_bwd.cu; the gated alpha they all
+// share, and the lidar kernels' stage and its loader, are in
+// tile_composite_common.cuh.
 //
 // Inputs. Unlike the TPU kernels, which take pre-gathered [T, K, ...] arrays,
 // these read the per-gaussian packed table [N, 10 + C] (mean xy, vel xy,
@@ -32,10 +33,18 @@
 // two operations in one slot: a kernel reaches at most about half of that
 // bound. Below, the far cut is taken a patch of 32 pixels at a time, which
 // holds for about half of the valid patch-slot pairs, so a pair beyond the cut
-// in a patch that is not wholly beyond it still pays for its exp. K4 at full
-// width (T = 3780, P = 128, K = 128) is the same loop plus the azimuth wrap,
-// the line-of-sight sum and the median pass; it is smaller and also
-// compute-bound.
+// in a patch that is not wholly beyond it still pays for its exp.
+//
+// K4 at full width (T = 3780 tiles of 2 x 2 degrees, P = 128 query slots, K =
+// 128 gaussian slots, C = 16; a 64 x 1024-beam scan) has 127 valid gaussian
+// slots a tile but only 17 valid query slots on average (at most 24: 14% of
+// P), filled from slot 0. Its least work is small: 8.3e6 valid (query, slot)
+// pairs, 57% of them beyond the far cut and 38% past the gate, 3.5e8
+// operations; the bytes bind (every query slot's outputs, the valid ones'
+// inputs, the rows the slots use: 52 MB, 0.016 ms at 3.35 TB/s). What holds a
+// kernel back is the work it issues for each (tile, slot) step: each query's
+// K slot steps depend on each other, and a tile has few queries to spread
+// over lanes.
 //
 // K2's design. An earlier version ran one thread a pixel over a 256-slot stage
 // loaded between two barriers with nothing overlapping the load, read the 10
@@ -65,7 +74,40 @@
 //    contraction, now written out (w = alpha * T; feature and depth sums are
 //    FMAs; alpha and T plain products and sums), so K2's outputs, from which
 //    K3 takes its G, are unchanged to the last bit.
-// K4 keeps one thread a query slot over a 256-slot stage.
+//
+// K4's design. The first version ran a block a tile and a thread a query slot:
+// of its four warps one held the tile's 17 queries and three only loaded the
+// stage and waited at its barriers; it loaded a 256-slot stage with 4-byte
+// loads between two barriers, and walked the slots a second time, recomputing
+// every alpha up to the median. Now:
+//  * a warp owns a tile (four a block, no block barrier) and gives its lanes
+//    to the tile's valid query slots only, compacted by a ballot over vmask
+//    (any pattern; rounds of 32 where a tile holds more);
+//  * the tile's valid gaussian slots, compacted, stream through two stage
+//    buffers of 16 slots as float4s (the lane that finds a slot valid copies
+//    its row with cp.async) while the previous 16 are composited;
+//  * a slot that lies beyond kFarSigma of every query skips the exp, one whose
+//    alpha no query passes the gate skips the sums (a zero weight would leave
+//    them bit-equal anyway);
+//  * no second walk for the median: at each slot it composites, the warp
+//    writes every lane's running weight sum (and the slot's depth) to a
+//    scratch in device memory; the sums only grow, so a binary search finds
+//    the first that reaches half of acc, the slot the second walk stopped at.
+//    Kept in shared memory (17 KB a warp) those sums held an SM to 8 warps and
+//    the grid to 3.6 waves; in device memory (they stay in L2) 32 warps fit,
+//    the whole full-width grid at once, and the kernel took two thirds of the
+//    time (NVIDIA H100 80GB HBM3);
+//  * the sums keep the first version's order and contraction (w = T alpha;
+//    FMAs for the features and depth; plain sums for acc and the line-of-sight
+//    sum; the running sum an FMA of alpha and T, as its second walk's), so
+//    K4's outputs are bit-equal to it.
+// At full width it is bound by the SMs' instruction issue, not by a warp's
+// latency: four tiles an SM take a third of the full grid's time, which grows
+// in proportion to the tiles beyond that (chip_smoke.py); a composited slot
+// costs about 100 instructions (alpha rounded op by op), issued for warps
+// whose lanes are half idle (17 queries on 32 lanes). Independent FMAs added
+// to a composited slot cost about a cycle each, more shared loads almost
+// nothing, and taking two slots a step (to overlap their chains) did not help.
 //
 // Semantics kept from the TPU kernels, each of which changes numbers:
 //  * no early termination: every slot is composited whatever the transmittance;
@@ -78,8 +120,11 @@
 //    features by up to 1/255 of a feature and its depth by centimetres, so
 //    alpha is rounded op by op, in the plain version's order, up to the gate;
 //  * lidar median depth is the depth of the first slot whose inclusive weight
-//    sum reaches half the total (slot 0 where the total is 0); a second pass
-//    recomputes the weights and stops at that crossing.
+//    sum reaches half the total; where the total is 0 (every masked query
+//    slot, for one) it is raw slot 0's depth, valid or not;
+//  * the lidar line-of-sight sum is always computed (the backward takes it
+//    from the saved outputs); the wrapper hands the caller zeros where it did
+//    not ask for it.
 
 #include "tile_composite_common.cuh"
 
@@ -254,82 +299,149 @@ __global__ void __launch_bounds__(CAM_WARPS * 32) camera_fwd_kernel(
   }
 }
 
+// K4: a warp a tile, over its valid query slots (rounds of 32) and its valid
+// gaussian slots (staged LID_CHUNK at a time, compacted, double-buffered).
+// records [n_tiles, k, 34]: scratch for each composited slot's running sums
+// (32 floats, a lane's each) and (depth, depth velocity).
 template <int CMAX>
-__global__ void __launch_bounds__(1024) lidar_fwd_kernel(
+__global__ void __launch_bounds__(LID_WARPS * 32) lidar_fwd_kernel(
     const float* __restrict__ table, int n_gauss, int c, const int* __restrict__ tile_gauss,
     const float* __restrict__ tile_valid, const float* __restrict__ pts, const float* __restrict__ vmask,
-    int p, int k, int wrap, float depth_eps, int compute_until, float* __restrict__ feat_out,
-    float* __restrict__ depth_out, float* __restrict__ acc_out, float* __restrict__ until_out,
-    float* __restrict__ med_out) {
-  __shared__ Stage<CMAX> s;
-  const int tile = blockIdx.x;
-  const int q = threadIdx.x;
-  const bool active = q < p;
-  const int64_t slot = (int64_t)tile * p + q;
-  float az = 0.f, el = 0.f, gt = 0.f, t = 0.f;
-  bool slot_ok = false;
-  if (active) {
-    az = pts[slot * 4];
-    el = pts[slot * 4 + 1];
-    gt = pts[slot * 4 + 2];
-    t = pts[slot * 4 + 3];
-    slot_ok = vmask[slot] > 0.f;
-  }
-  const float before_depth = __fsub_rn(gt, depth_eps);
-  float trans = 1.f, acc_d = 0.f, acc_a = 0.f, acc_u = 0.f;
-  float acc_f[CMAX];
-#pragma unroll
-  for (int ci = 0; ci < CMAX; ++ci) acc_f[ci] = 0.f;
+    int n_tiles, int p, int k, int wrap, float depth_eps, float* __restrict__ feat_out, float* __restrict__ depth_out,
+    float* __restrict__ acc_out, float* __restrict__ until_out, float* __restrict__ med_out,
+    float* __restrict__ records) {
+  constexpr int G = CMAX / 4;  // float4s of a slot's features
+  __shared__ LidarWarp<CMAX> warps[LID_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int tile = blockIdx.x * LID_WARPS + (threadIdx.x >> 5);
+  if (tile >= n_tiles) return;  // a whole warp: the kernel has no block barrier
+  LidarWarp<CMAX>& w = warps[threadIdx.x >> 5];
+  const int64_t base = (int64_t)tile * k, row = (int64_t)tile * p;
+  float* rec_sum = records + base * 34;                                 // [k][32]
+  float2* rec_depth = reinterpret_cast<float2*>(rec_sum + (int64_t)k * 32);  // [k]
+  const int width = ATTR + c;
+  const int n_raw = (k + LID_CHUNK - 1) / LID_CHUNK;
+  zero_feature_padding<CMAX>(w, c, lane);
 
-  for (int k0 = 0; k0 < k; k0 += CHUNK) {
-    const int n = min(CHUNK, k - k0);
-    __syncthreads();
-    load_chunk<CMAX>(s, table, n_gauss, c, tile_gauss, tile_valid, tile, k, k0, n);
-    if (!active || !slot_ok) continue;  // a masked query slot composites nothing
-    for (int j = 0; j < n; ++j) {
-      if (!(s.valid[j] > 0.f)) continue;
-      float alpha = slot_alpha<CMAX>(s, j, az, el, t, wrap != 0, slot_ok);
-      float w = alpha * trans;
-      const float* f = &s.feat[j * CMAX];
-#pragma unroll
-      for (int ci = 0; ci < CMAX; ++ci) acc_f[ci] += w * f[ci];
-      float gd = slot_depth<CMAX>(s, j, t);
-      acc_d += w * gd;
-      acc_a += w;
-      if (compute_until && gd < before_depth) acc_u += w;
-      trans *= (1.f - alpha);
-    }
+  // where a query's weights sum to zero (a masked query slot, or every alpha
+  // gated), its median is the depth of raw slot 0, valid or not
+  float d0 = 0.f, dv0 = 0.f;
+  if (k > 0) {
+    const int64_t g0 = min(max(tile_gauss[base], 0), n_gauss - 1);
+    d0 = table[g0 * width + 8];
+    dv0 = table[g0 * width + 9];
   }
-
-  // median pass: recompute the weights in the same order (so the running sum
-  // ends at exactly acc_a) and stop at the first slot reaching half of it
-  const float half = 0.5f * acc_a;
-  float med = 0.f, cum = 0.f;
-  bool found = !active || k == 0;
-  trans = 1.f;
-  for (int k0 = 0; k0 < k; k0 += CHUNK) {
-    if (!__syncthreads_or(!found)) break;
-    const int n = min(CHUNK, k - k0);
-    if (k > CHUNK) load_chunk<CMAX>(s, table, n_gauss, c, tile_gauss, tile_valid, tile, k, k0, n);
-    for (int j = 0; j < n && !found; ++j) {
-      float alpha = slot_alpha<CMAX>(s, j, az, el, t, wrap != 0, slot_ok);
-      cum += alpha * trans;
-      trans *= (1.f - alpha);
-      if (cum >= half) {
-        med = slot_depth<CMAX>(s, j, t);
-        found = true;
+  auto write = [&](int64_t slot, const float* f, float depth, float acc, float until, float med) {
+    float* fo = feat_out + slot * c;
+    if ((c & 3) == 0) {
+#pragma unroll
+      for (int g4 = 0; g4 < G; ++g4) {
+        if (4 * g4 < c) __stcs(reinterpret_cast<float4*>(fo) + g4, make_float4(f[4 * g4], f[4 * g4 + 1],
+                                                                               f[4 * g4 + 2], f[4 * g4 + 3]));
+      }
+    } else {
+#pragma unroll
+      for (int ci = 0; ci < CMAX; ++ci) {
+        if (ci < c) fo[ci] = f[ci];
       }
     }
-  }
-  if (!active) return;
+    depth_out[slot] = depth;
+    acc_out[slot] = acc;
+    until_out[slot] = until;
+    med_out[slot] = med;
+  };
+  const int n_q = round_queries(w, vmask, row, p, 0, lane, [&](int q) {
+    float zero[CMAX];
 #pragma unroll
-  for (int ci = 0; ci < CMAX; ++ci) {
-    if (ci < c) feat_out[slot * c + ci] = acc_f[ci];
+    for (int ci = 0; ci < CMAX; ++ci) zero[ci] = 0.f;
+    write(row + q, zero, 0.f, 0.f, 0.f, k > 0 ? slot_depth(make_float2(d0, dv0), pts[(row + q) * 4 + 3]) : 0.f);
+  });
+
+  for (int q0 = 0; q0 < n_q; q0 += 32) {
+    if (q0 > 0) round_queries(w, vmask, row, p, q0, lane, [](int) {});
+    const bool on = q0 + lane < n_q;
+    const int64_t slot = row + (on ? w.round[lane] : 0);
+    float az = 0.f, el = 0.f, gt = 0.f, t = 0.f;
+    if (on) {
+      az = pts[slot * 4];
+      el = pts[slot * 4 + 1];
+      gt = pts[slot * 4 + 2];
+      t = pts[slot * 4 + 3];
+    }
+    const float before_depth = __fsub_rn(gt, depth_eps);
+    // the first version's sums, in its order and contraction: w = T alpha,
+    // FMAs for the feature and depth sums, plain sums for acc and until; the
+    // running sum for the median an FMA of alpha and T (its second walk's)
+    float trans = 1.f, acc_d = 0.f, acc_a = 0.f, acc_u = 0.f, run = 0.f;
+    float acc_f[CMAX];
+#pragma unroll
+    for (int ci = 0; ci < CMAX; ++ci) acc_f[ci] = 0.f;
+    int steps = 0;  // slots composited (some lane's alpha positive): one record each
+
+    SlotEntry next = fetch_slot(tile_gauss, tile_valid, base, k, 0, lane);
+    int n_cur = n_raw > 0 ? issue_lidar_chunk<CMAX>(w.stage[0], table, n_gauss, c, next, lane) : 0;
+    next = fetch_slot(tile_gauss, tile_valid, base, k, 1, lane);
+    for (int r = 0; r < n_raw; ++r) {
+      int n_next = 0;
+      if (r + 1 < n_raw) {
+        n_next = issue_lidar_chunk<CMAX>(w.stage[(r + 1) & 1], table, n_gauss, c, next, lane);
+        next = fetch_slot(tile_gauss, tile_valid, base, k, r + 2, lane);
+        cp_async_wait<1>();  // this lane's copies of chunk r have landed ...
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();  // ... and every lane's
+      const LidarStage<CMAX>& s = w.stage[r & 1];
+      for (int j = 0; j < n_cur; ++j) {
+        const float4 a0 = s.attr[j * LID_ATTR4], a1 = s.attr[j * LID_ATTR4 + 1], a2 = s.attr[j * LID_ATTR4 + 2];
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const SlotSigma sg = slot_sigma(a, az, el, t, wrap != 0);
+        // beyond kFarSigma of every query, the slot gates to zero without the exp
+        if (!__any_sync(kFullMask, on && !(a1.w <= 1.f && sg.sigma_raw > kFarSigma))) continue;
+        const float alpha = gate_terms(a, sg, true, on).alpha;
+        if (!__any_sync(kFullMask, alpha > 0.f)) continue;  // a zero alpha adds nothing to any sum
+        const float wt = __fmul_rn(trans, alpha);
+#pragma unroll
+        for (int g4 = 0; g4 < G; ++g4) {
+          const float4 f = s.feat[j * G + g4];
+          acc_f[4 * g4] = __fmaf_rn(wt, f.x, acc_f[4 * g4]);
+          acc_f[4 * g4 + 1] = __fmaf_rn(wt, f.y, acc_f[4 * g4 + 1]);
+          acc_f[4 * g4 + 2] = __fmaf_rn(wt, f.z, acc_f[4 * g4 + 2]);
+          acc_f[4 * g4 + 3] = __fmaf_rn(wt, f.w, acc_f[4 * g4 + 3]);
+        }
+        const float d = slot_depth(make_float2(a2.x, a2.y), t);
+        acc_d = __fmaf_rn(wt, d, acc_d);
+        acc_a = __fadd_rn(acc_a, wt);
+        if (d < before_depth) acc_u = __fadd_rn(acc_u, wt);
+        run = __fmaf_rn(alpha, trans, run);
+        trans = __fmul_rn(trans, __fsub_rn(1.f, alpha));
+        rec_sum[steps * 32 + lane] = run;
+        if (lane == 0) rec_depth[steps] = make_float2(a2.x, a2.y);
+        ++steps;
+      }
+      __syncwarp();  // buffer r & 1 is free for chunk r + 2, the records are visible
+      n_cur = n_next;
+    }
+
+    // the median: the first slot whose running sum reaches half of acc. The
+    // sums only grow, so a binary search over the records finds it; a slot
+    // that was not composited changed no sum, so it is never the first.
+    const float half = __fmul_rn(0.5f, acc_a);
+    float med = 0.f;
+    if (!(half > 0.f)) {
+      med = k > 0 ? slot_depth(make_float2(d0, dv0), t) : 0.f;
+    } else {
+      int lo = 0, hi = steps;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (rec_sum[mid * 32 + lane] >= half) hi = mid;
+        else lo = mid + 1;
+      }
+      if (lo < steps) med = slot_depth(rec_depth[lo], t);
+    }
+    if (on) write(slot, acc_f, acc_d, acc_a, acc_u, med);
+    __syncwarp();  // the round's list and records are read before the next round writes them
   }
-  depth_out[slot] = acc_d;
-  acc_out[slot] = acc_a;
-  until_out[slot] = compute_until ? acc_u : 0.f;
-  med_out[slot] = med;
 }
 
 }  // namespace
@@ -358,26 +470,28 @@ extern "C" int tile_composite_camera_fwd(const float* table, int n_gauss, int c,
 }
 
 // pts [n_tiles, p, 4] (azimuth, elevation, gt depth, time), vmask [n_tiles, p];
-// outputs feat [n_tiles, p, c], depth/acc/until/median [n_tiles, p].
+// outputs feat [n_tiles, p, c], depth/acc/until/median [n_tiles, p] (until:
+// the line-of-sight sum, always computed); records: scratch of n_tiles * k *
+// 34 floats. c <= 32, p <= 1024.
 extern "C" int tile_composite_lidar_fwd(const float* table, int n_gauss, int c, const int* tile_gauss,
                                         const float* tile_valid, const float* pts, const float* vmask,
-                                        int n_tiles, int p, int k, int wrap, float depth_eps, int compute_until,
-                                        float* feat_out, float* depth_out, float* acc_out, float* until_out,
-                                        float* med_out, void* stream) {
+                                        int n_tiles, int p, int k, int wrap, float depth_eps, float* feat_out,
+                                        float* depth_out, float* acc_out, float* until_out, float* med_out,
+                                        float* records, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_tiles), block(round_up_to_warp(p));
+  dim3 grid((n_tiles + LID_WARPS - 1) / LID_WARPS), block(32 * LID_WARPS);
   if (c <= 8) {
-    lidar_fwd_kernel<8><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
-                                                depth_eps, compute_until, feat_out, depth_out, acc_out, until_out,
-                                                med_out);
+    lidar_fwd_kernel<8><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, n_tiles, p, k,
+                                                wrap, depth_eps, feat_out, depth_out, acc_out, until_out, med_out,
+                                                records);
   } else if (c <= 16) {
-    lidar_fwd_kernel<16><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
-                                                 depth_eps, compute_until, feat_out, depth_out, acc_out, until_out,
-                                                 med_out);
+    lidar_fwd_kernel<16><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, n_tiles, p,
+                                                 k, wrap, depth_eps, feat_out, depth_out, acc_out, until_out, med_out,
+                                                 records);
   } else {
-    lidar_fwd_kernel<32><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
-                                                 depth_eps, compute_until, feat_out, depth_out, acc_out, until_out,
-                                                 med_out);
+    lidar_fwd_kernel<32><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, n_tiles, p,
+                                                 k, wrap, depth_eps, feat_out, depth_out, acc_out, until_out, med_out,
+                                                 records);
   }
   return static_cast<int>(cudaGetLastError());
 }

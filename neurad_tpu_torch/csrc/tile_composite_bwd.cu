@@ -37,25 +37,32 @@
 // cotangents (0.15 GB) plus the atomic traffic into d_table (up to
 // T*K*26*4 B = 0.22 GB, read and written), about 0.25 ms at 3.35 TB/s. So
 // fp32 arithmetic binds, and after it the reduction over a block's pixels
-// (shuffles) and the atomics on hot rows.
+// (shuffles) and the atomics on hot rows. K5 at full width (T = 3780, P = 128,
+// K = 128, C = 16) has 127 valid gaussian slots a tile but 17 valid query
+// slots (at most 24, filled from slot 0): 8.3e6 valid pairs, 38% past the
+// gate, 6e8 operations of least work. Bytes bind there (the valid queries'
+// inputs, the forward's outputs and cotangents, the rows the slots use, the
+// table's gradient written once: 73 MB, 0.022 ms); what holds a kernel back
+// is the work it issues for each (tile, slot) step: each query's K slot steps
+// depend on each other, and a tile has few queries to spread over lanes.
 //
-// What the designs share. One block per tile, one thread per pixel or query
-// slot (a tile with more is walked in rounds of 256); the thread holds its
-// cotangents in registers and walks the slots front to back, carrying T_k and
+// What the designs share. A thread holds a pixel's or query's cotangents in
+// registers and walks the slots front to back, carrying T_k and
 // P_k; for each slot a warp whose 32 pixels all have alpha 0 skips it (every
 // term is then zero), the others reduce their 10 + C per-pixel terms over the
 // warp with a transposing butterfly (31 shuffles for 32 columns instead of 5
 // each: after it lane l holds column l's sum), and lane l adds column l to
 // d_table with one global atomicAdd (a reduction at the L2: the warp's 10 + C
 // lanes hit consecutive addresses of one row). So a row receives one add per
-// warp that touches it: up to P / 32 per tile. The gated alpha is the
+// warp that touches it. The gated alpha is the
 // forward's `slot_terms`, so both take the same side of the 1/255 step. A
 // first version summed the warps of a block in shared memory before going to
 // global memory; shared-memory float atomics on addresses that eight warps
 // share took most of the kernel's time. Atomics make the order of these fp32
 // sums vary from run to run.
 //
-// K3 (camera) walks the pairs once. G is not recomputed: the forward kernel
+// K3 (camera): one block per tile, one thread per pixel (a tile with more is
+// walked in rounds of 256), one walk of the pairs. G is not recomputed: the forward kernel
 // writes the raw sums feat = sum_k w_k f_k, depth = sum_k w_k d_k and
 // alpha = sum_k w_k (no early termination, no normalisation), so
 //   G = <gF, feat> + gD depth + gA alpha
@@ -70,9 +77,28 @@
 // normal range); front to back, the cancellation in G - P_k is rounding of
 // sums of the same |w_j g_j| terms the tolerance is stated in.
 //
-// K5 (lidar) keeps two passes (pass 1 is the forward loop again, for G,
-// which then includes the line-of-sight term) over a 256-slot stage loaded
-// between rounds.
+// K5 (lidar): one walk too, a warp a tile, as K4. Its first version ran a
+// block a tile and a thread a query slot (one busy warp of four), over a
+// 256-slot stage loaded with 4-byte loads between barriers, and walked the
+// slots twice: the first walk was the forward loop again, only for G. Now:
+//  * G from K4's outputs, the line-of-sight sum's included:
+//      G = <gF, feat> + gD depth + gA acc + gU until,
+//    since K4 writes raw sums and until = sum_k w_k [d_k < gt - eps]. The
+//    autograd function saves that sum even where the caller asked for none
+//    (K4 always computes it): the until cotangent enters g_k either way, as
+//    in JAX's backward;
+//  * a warp owns a tile (four a block) and gives its lanes to the valid query
+//    slots only, compacted by a ballot over vmask (rounds of 32 where a tile
+//    holds more); the valid gaussian slots, compacted, stream through two
+//    16-slot float4 stage buffers filled with cp.async (K4's loader);
+//  * a slot beyond kFarSigma of every query skips the exp, one whose alpha
+//    no query passes the gate the whole pair work and the butterfly.
+// Like K4 it is bound at full width by the SMs' instruction issue (four tiles
+// an SM take two fifths of the full grid's time, chip_smoke.py): a composited
+// slot costs the alpha, the gradient terms and a 31-shuffle butterfly on
+// warps whose lanes are half idle. Its 76 registers a thread give the grid
+// 1.2 waves; 64 spilled, and keeping the feature cotangents in shared memory
+// to fit them gained nothing measurable on an NVIDIA H100.
 
 #include "tile_composite_common.cuh"
 
@@ -276,106 +302,112 @@ __global__ void __launch_bounds__(MAX_THREADS) camera_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K5: lidar, two passes over a 256-slot stage
+// K5: lidar, one pass, a warp a tile over its valid query and gaussian slots
 // ---------------------------------------------------------------------------
 
-// coords = pts [T, P, 4] (azimuth, elevation, gt depth, time), aux = vmask [T, P].
+// coords = pts [T, P, 4] (azimuth, elevation, gt depth, time), aux = vmask [T, P];
+// feat_out .. until_out: the forward's outputs on the same inputs (G follows from them).
 template <int CMAX>
-__global__ void __launch_bounds__(MAX_THREADS) lidar_bwd_kernel(
+__global__ void __launch_bounds__(LID_WARPS * 32) lidar_bwd_kernel(
     const float* __restrict__ table, int n_gauss, int c, const int* __restrict__ tile_gauss,
     const float* __restrict__ tile_valid, const float* __restrict__ coords, const float* __restrict__ aux,
-    int p, int k, int wrap, float depth_eps, const float* __restrict__ g_feat, const float* __restrict__ g_depth,
-    const float* __restrict__ g_alpha, const float* __restrict__ g_until, float* __restrict__ d_table) {
+    int n_tiles, int p, int k, int wrap, float depth_eps, const float* __restrict__ feat_out,
+    const float* __restrict__ depth_out, const float* __restrict__ acc_out, const float* __restrict__ until_out,
+    const float* __restrict__ g_feat, const float* __restrict__ g_depth, const float* __restrict__ g_alpha,
+    const float* __restrict__ g_until, float* __restrict__ d_table) {
   constexpr int ROUNDS = (ATTR + CMAX + 31) / 32;  // 32-column groups of the 10 + C terms
-  __shared__ Stage<CMAX> s;
-  __shared__ int row[CHUNK];  // the slot's row of d_table, -1 where its index entry lies outside [0, N)
-  const int tile = blockIdx.x;
+  constexpr int G = CMAX / 4;                      // float4s of a slot's features
+  __shared__ LidarWarp<CMAX> warps[LID_WARPS];
   const int lane = threadIdx.x & 31;
+  const int tile = blockIdx.x * LID_WARPS + (threadIdx.x >> 5);
+  if (tile >= n_tiles) return;  // a whole warp: the kernel has no block barrier
+  LidarWarp<CMAX>& w = warps[threadIdx.x >> 5];
+  const int64_t base = (int64_t)tile * k, row = (int64_t)tile * p;
   const int width = ATTR + c;
+  const int n_raw = (k + LID_CHUNK - 1) / LID_CHUNK;
+  zero_feature_padding<CMAX>(w, c, lane);
+  auto none = [](int) {};  // a masked query slot adds nothing
+  const int n_q = round_queries(w, aux, row, p, 0, lane, none);
 
-  for (int q0 = 0; q0 < p; q0 += blockDim.x) {
-    const int q = q0 + threadIdx.x;
-    const bool active = q < p;
-    const int64_t slot = (int64_t)tile * p + q;
-    float x = 0.f, y = 0.f, t = 0.f, gt = 0.f, gd = 0.f, ga = 0.f, gu = 0.f;
-    bool slot_ok = active;
+  for (int q0 = 0; q0 < n_q; q0 += 32) {
+    if (q0 > 0) round_queries(w, aux, row, p, q0, lane, none);
+    const bool on = q0 + lane < n_q;
+    const int64_t slot = row + (on ? w.round[lane] : 0);
+    float x = 0.f, y = 0.f, gt = 0.f, t = 0.f, gd = 0.f, ga = 0.f, gu = 0.f, total = 0.f;
     float gf[CMAX];
 #pragma unroll
     for (int ci = 0; ci < CMAX; ++ci) gf[ci] = 0.f;
-    if (active) {
+    if (on) {
       x = coords[slot * 4];
       y = coords[slot * 4 + 1];
       gt = coords[slot * 4 + 2];
       t = coords[slot * 4 + 3];
-      slot_ok = aux[slot] > 0.f;
-      gu = g_until[slot];
       gd = g_depth[slot];
       ga = g_alpha[slot];
+      gu = g_until[slot];
+      // G = sum_k w_k g_k from the forward's raw sums, the line-of-sight sum's included (its cotangent
+      // enters g_k whether or not the caller asked for that sum)
+      total = ga * acc_out[slot] + gd * depth_out[slot] + gu * until_out[slot];
 #pragma unroll
       for (int ci = 0; ci < CMAX; ++ci) {
-        if (ci < c) gf[ci] = g_feat[slot * c + ci];
+        if (ci < c) {
+          gf[ci] = g_feat[slot * c + ci];
+          total += gf[ci] * feat_out[slot * c + ci];
+        }
       }
     }
     const float before_depth = __fsub_rn(gt, depth_eps);
-    const bool do_wrap = wrap != 0;
+    float prefix = 0.f, trans = 1.f;
 
-    // pass 1: the forward loop again, for G = sum_k w_k g_k
-    float total = 0.f, trans = 1.f;
-    for (int k0 = 0; k0 < k; k0 += CHUNK) {
-      const int n = min(CHUNK, k - k0);
-      __syncthreads();  // the previous chunk is no longer read
-      load_chunk<CMAX>(s, table, n_gauss, c, tile_gauss, tile_valid, tile, k, k0, n);
-      if (!slot_ok) continue;
-      for (int j = 0; j < n; ++j) {
-        if (!(s.valid[j] > 0.f)) continue;  // same j in every thread
-        float alpha = slot_alpha<CMAX>(s, j, x, y, t, do_wrap, slot_ok);
-        if (alpha == 0.f) continue;
-        float d = slot_depth<CMAX>(s, j, t);
-        const float* f = &s.feat[j * CMAX];
-        float g = ga + gd * d;
-        if (d < before_depth) g += gu;
-#pragma unroll
-        for (int ci = 0; ci < CMAX; ++ci) g += gf[ci] * f[ci];
-        total += alpha * trans * g;
-        trans *= (1.f - alpha);
+    SlotEntry next = fetch_slot(tile_gauss, tile_valid, base, k, 0, lane);
+    int n_cur = n_raw > 0 ? issue_lidar_chunk<CMAX>(w.stage[0], table, n_gauss, c, next, lane) : 0;
+    next = fetch_slot(tile_gauss, tile_valid, base, k, 1, lane);
+    for (int r = 0; r < n_raw; ++r) {
+      int n_next = 0;
+      if (r + 1 < n_raw) {
+        n_next = issue_lidar_chunk<CMAX>(w.stage[(r + 1) & 1], table, n_gauss, c, next, lane);
+        next = fetch_slot(tile_gauss, tile_valid, base, k, r + 2, lane);
+        cp_async_wait<1>();  // this lane's copies of chunk r have landed ...
+      } else {
+        cp_async_wait<0>();
       }
-    }
-
-    // pass 2: the same order again, carrying T_k and the inclusive prefix P_k
-    float prefix = 0.f;
-    trans = 1.f;
-    for (int k0 = 0; k0 < k; k0 += CHUNK) {
-      const int n = min(CHUNK, k - k0);
-      __syncthreads();
-      load_chunk<CMAX>(s, table, n_gauss, c, tile_gauss, tile_valid, tile, k, k0, n);
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        const int g = tile_gauss[(int64_t)tile * k + k0 + j];
-        row[j] = (g >= 0 && g < n_gauss) ? g : -1;
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        if (!(s.valid[j] > 0.f)) continue;
-        const float* a = &s.attr[j * ATTR];
-        SlotTerms st = slot_terms(a, true, x, y, t, do_wrap, slot_ok);
-        if (!__any_sync(0xffffffffu, st.alpha > 0.f)) continue;  // every term of this warp is zero
+      __syncwarp();  // ... and every lane's
+      const LidarStage<CMAX>& s = w.stage[r & 1];
+      for (int j = 0; j < n_cur; ++j) {
+        const float4 a0 = s.attr[j * LID_ATTR4], a1 = s.attr[j * LID_ATTR4 + 1], a2 = s.attr[j * LID_ATTR4 + 2];
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const SlotSigma sg = slot_sigma(a, x, y, t, wrap != 0);
+        // beyond kFarSigma of every query the slot's alpha is zero: every term is zero
+        if (!__any_sync(kFullMask, on && !(a1.w <= 1.f && sg.sigma_raw > kFarSigma))) continue;
+        const SlotTerms st = gate_terms(a, sg, true, on);
+        if (!__any_sync(kFullMask, st.alpha > 0.f)) continue;  // every term of this warp is zero
         float v[ROUNDS][32];
 #pragma unroll
-        for (int r = 0; r < ROUNDS; ++r) {
+        for (int rr = 0; rr < ROUNDS; ++rr) {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) v[r][i] = 0.f;
+          for (int i = 0; i < 32; ++i) v[rr][i] = 0.f;
         }
         if (st.alpha > 0.f) {
-          float d = slot_depth<CMAX>(s, j, t);
-          const float* f = &s.feat[j * CMAX];
+          const float d = slot_depth(make_float2(a2.x, a2.y), t);
           float g = ga + gd * d;
           if (d < before_depth) g += gu;
 #pragma unroll
-          for (int ci = 0; ci < CMAX; ++ci) g += gf[ci] * f[ci];
+          for (int g4 = 0; g4 < G; ++g4) {
+            const float4 f = s.feat[j * G + g4];
+            g += gf[4 * g4] * f.x;
+            g += gf[4 * g4 + 1] * f.y;
+            g += gf[4 * g4 + 2] * f.z;
+            g += gf[4 * g4 + 3] * f.w;
+          }
           pair_terms<CMAX, ROUNDS>(a, st, g, t, gd, gf, total, prefix, trans, v);
         }
-        add_columns<ROUNDS>(v, lane, width, row[j], d_table);
+        const int gauss = __float_as_int(a2.z);
+        add_columns<ROUNDS>(v, lane, width, (gauss >= 0 && gauss < n_gauss) ? gauss : -1, d_table);
       }
+      __syncwarp();  // buffer r & 1 is free for chunk r + 2
+      n_cur = n_next;
     }
+    __syncwarp();  // the round's list is read before the next round writes it
   }
 }
 
@@ -409,24 +441,31 @@ extern "C" int tile_composite_camera_bwd(const float* table, int n_gauss, int c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Inputs as tile_composite_lidar_fwd plus g_feat [n_tiles, p, c] and g_depth /
-// g_alpha / g_until [n_tiles, p] (the cotangent of the line-of-sight sum).
+// Inputs as tile_composite_lidar_fwd, its outputs feat [n_tiles, p, c], depth /
+// acc / until [n_tiles, p] on the same inputs (until: the line-of-sight sum,
+// computed whether or not the caller asked for it), and the cotangents g_feat
+// [n_tiles, p, c], g_depth / g_alpha / g_until [n_tiles, p]; adds into
+// d_table [n_gauss, 10 + c], which the caller has zero-filled. c <= 32, p <= 1024.
 extern "C" int tile_composite_lidar_bwd(const float* table, int n_gauss, int c, const int* tile_gauss,
                                         const float* tile_valid, const float* pts, const float* vmask,
-                                        int n_tiles, int p, int k, int wrap, float depth_eps, const float* g_feat,
-                                        const float* g_depth, const float* g_alpha, const float* g_until,
-                                        float* d_table, void* stream) {
+                                        int n_tiles, int p, int k, int wrap, float depth_eps, const float* feat,
+                                        const float* depth, const float* acc, const float* until,
+                                        const float* g_feat, const float* g_depth, const float* g_alpha,
+                                        const float* g_until, float* d_table, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_tiles), block = block_for(p);
+  const dim3 grid((n_tiles + LID_WARPS - 1) / LID_WARPS), block(32 * LID_WARPS);
   if (c <= 8) {
-    lidar_bwd_kernel<8><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
-                                                depth_eps, g_feat, g_depth, g_alpha, g_until, d_table);
+    lidar_bwd_kernel<8><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, n_tiles, p, k,
+                                                wrap, depth_eps, feat, depth, acc, until, g_feat, g_depth, g_alpha,
+                                                g_until, d_table);
   } else if (c <= 16) {
-    lidar_bwd_kernel<16><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
-                                                 depth_eps, g_feat, g_depth, g_alpha, g_until, d_table);
+    lidar_bwd_kernel<16><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, n_tiles, p,
+                                                 k, wrap, depth_eps, feat, depth, acc, until, g_feat, g_depth,
+                                                 g_alpha, g_until, d_table);
   } else {
-    lidar_bwd_kernel<32><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, p, k, wrap,
-                                                 depth_eps, g_feat, g_depth, g_alpha, g_until, d_table);
+    lidar_bwd_kernel<32><<<grid, block, 0, st>>>(table, n_gauss, c, tile_gauss, tile_valid, pts, vmask, n_tiles, p,
+                                                 k, wrap, depth_eps, feat, depth, acc, until, g_feat, g_depth,
+                                                 g_alpha, g_until, d_table);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,58 +1,20 @@
 // Shared pieces of the per-tile gaussian composites (forward:
-// tile_composite.cu, backward: tile_composite_bwd.cu): the shared-memory stage
-// of a tile's gaussians, its loader, the per-pair alpha with the TPU kernels'
-// clipping and gating, and the cp.async copies that double-buffer K2's and
-// K3's stages. Forward and backward must take the same side
-// of the 1/255 alpha gate, so both evaluate alpha with `slot_terms`.
+// tile_composite.cu, backward: tile_composite_bwd.cu): the per-pair alpha with
+// the TPU kernels' clipping and gating, the cp.async copies that double-buffer
+// the stages, and the lidar kernels' (K4, K5) warp-per-tile stage, its loader
+// and their query rounds. Forward and backward must take the same side of the
+// 1/255 alpha gate, so both evaluate alpha with `slot_terms`.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace tile_composite {
 
 constexpr int ATTR = 10;  // mean xy, vel xy, conic abc, opacity, depth, depth velocity
 constexpr float kMinAlpha = 1.0f / 255.0f;
-constexpr int CHUNK = 256;  // slots staged in shared memory at a time
-
-// CHUNK slots of one tile, staged in shared memory
-template <int CMAX>
-struct Stage {
-  float attr[CHUNK * ATTR];
-  float feat[CHUNK * CMAX];
-  float valid[CHUNK];
-  int idx[CHUNK];
-};
-
-// Copy slots [k0, k0 + n) of `tile` into shared memory (all threads call it).
-template <int CMAX>
-__device__ void load_chunk(Stage<CMAX>& s, const float* __restrict__ table, int n_gauss, int c,
-                           const int* __restrict__ tile_gauss, const float* __restrict__ tile_valid,
-                           int tile, int k, int k0, int n) {
-  const int width = ATTR + c;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int g = tile_gauss[(int64_t)tile * k + k0 + j];
-    s.idx[j] = min(max(g, 0), n_gauss - 1);
-    s.valid[j] = tile_valid[(int64_t)tile * k + k0 + j];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < n * width; e += blockDim.x) {
-    int j = e / width;
-    int col = e - j * width;
-    float v = table[(int64_t)s.idx[j] * width + col];
-    if (col < ATTR) {
-      s.attr[j * ATTR + col] = v;
-    } else {
-      s.feat[j * CMAX + col - ATTR] = v;
-    }
-  }
-  for (int e = threadIdx.x; e < n * (CMAX - c); e += blockDim.x) {
-    int j = e / (CMAX - c);
-    s.feat[j * CMAX + c + (e - j * (CMAX - c))] = 0.f;
-  }
-  __syncthreads();
-}
 
 // What one (slot, pixel) pair evaluates on the way to its alpha.
 struct SlotTerms {
@@ -75,7 +37,9 @@ struct SlotSigma {
 __device__ __forceinline__ SlotSigma slot_sigma(const float* __restrict__ a, float x, float y, float t, bool wrap) {
   float dx = __fsub_rn(x, __fadd_rn(a[0], __fmul_rn(a[2], t)));
   if (wrap) {
-    float m = fmodf(__fadd_rn(dx, 180.f), 360.f);  // exact
+    const float v = __fadd_rn(dx, 180.f);
+    // fmodf is exact, and the identity on [0, 360): called only for the pairs across the seam
+    float m = (v >= 0.f && v < 360.f) ? v : fmodf(v, 360.f);
     if (m < 0.f) m = __fadd_rn(m, 360.f);
     dx = __fsub_rn(m, 180.f);
   }
@@ -110,13 +74,6 @@ __device__ __forceinline__ SlotTerms slot_terms(const float* __restrict__ a, boo
 // beyond expf's rounding. (A NaN sigma_raw or opacity fails the comparisons.)
 constexpr float kFarSigma = 5.6f;
 
-// alpha of slot j at (x, y, t) with the TPU kernels' clipping and gating
-template <int CMAX>
-__device__ __forceinline__ float slot_alpha(const Stage<CMAX>& s, int j, float x, float y, float t,
-                                            bool wrap, bool slot_ok) {
-  return slot_terms(&s.attr[j * ATTR], s.valid[j] > 0.f, x, y, t, wrap, slot_ok).alpha;
-}
-
 // rolling-shutter-corrected depth of the slot whose packed attributes are at
 // a, rounded like the plain version (it meets a comparison in the lidar
 // line-of-sight sum)
@@ -124,10 +81,8 @@ __device__ __forceinline__ float slot_depth(const float* __restrict__ a, float t
   return __fadd_rn(a[8], __fmul_rn(a[9], t));
 }
 
-template <int CMAX>
-__device__ __forceinline__ float slot_depth(const Stage<CMAX>& s, int j, float t) {
-  return slot_depth(&s.attr[j * ATTR], t);
-}
+// the same from the slot's (depth, depth velocity)
+__device__ __forceinline__ float slot_depth(float2 d, float t) { return __fadd_rn(d.x, __fmul_rn(d.y, t)); }
 
 // cp.async: a 4-byte copy from global to shared memory that the thread does
 // not wait for; commit closes the thread's group of copies, wait_group<N>
@@ -145,5 +100,111 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 inline int round_up_to_warp(int p) { return ((p + 31) / 32) * 32; }
+
+// ---------------------------------------------------------------------------
+// The lidar composites (K4, K5): a warp owns a tile. It walks the tile's valid
+// query slots 32 at a time (one a lane, compacted) over the tile's valid
+// gaussian slots, compacted and staged LID_CHUNK at a time in two buffers of
+// its own.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int LID_WARPS = 4;   // warps a block: one tile each
+constexpr int LID_CHUNK = 16;  // gaussian slots in each of a warp's two stage buffers
+constexpr int LID_ATTR4 = 3;   // float4s of a slot's attributes
+
+// Up to LID_CHUNK valid slots of one tile, compacted, as float4s: (mean x,
+// mean y, vel x, vel y), (conic a, b, c, opacity), (depth, depth vel, index
+// entry as given (int bits), -), then the CMAX features (columns c .. CMAX - 1
+// zero).
+template <int CMAX>
+struct LidarStage {
+  float4 attr[LID_CHUNK * LID_ATTR4];
+  float4 feat[LID_CHUNK * (CMAX / 4)];
+};
+
+// A warp's shared memory: its two stage buffers and the query slots of its round.
+template <int CMAX>
+struct LidarWarp {
+  LidarStage<CMAX> stage[2];
+  int round[32];
+};
+
+// Zero feature columns c .. CMAX - 1 of both stage buffers (the copies never write them).
+template <int CMAX>
+__device__ __forceinline__ void zero_feature_padding(LidarWarp<CMAX>& w, int c, int lane) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    for (int e = lane; e < LID_CHUNK * CMAX; e += 32) {
+      if ((e % CMAX) >= c) reinterpret_cast<float*>(w.stage[b].feat)[e] = 0.f;
+    }
+  }
+}
+
+// Lane `lane`'s raw gaussian slot in chunk r (slots LID_CHUNK r .. + LID_CHUNK - 1)
+// of the tile whose index list starts at `base` (lanes LID_CHUNK .. 31 hold
+// none): whether it is valid, and its index entry. Plain loads, issued a chunk
+// before their use.
+struct SlotEntry {
+  bool valid;
+  int gauss;
+};
+
+__device__ __forceinline__ SlotEntry fetch_slot(const int* __restrict__ tile_gauss,
+                                                const float* __restrict__ tile_valid, int64_t base, int k, int r,
+                                                int lane) {
+  const int j = r * LID_CHUNK + lane;
+  SlotEntry e{false, 0};
+  if (lane < LID_CHUNK && j < k) {
+    e.valid = tile_valid[base + j] > 0.f;
+    e.gauss = tile_gauss[base + j];
+  }
+  return e;
+}
+
+// Start the copy of a chunk's valid slots into s, compacted in slot order:
+// the lane of each valid slot copies the slot's row (cp.async) and writes its
+// index entry; every lane commits one group. Returns the number of slots
+// staged. (Spreading a row's columns over the lanes, a row at a time, took
+// more instructions and was slower in both kernels on an NVIDIA H100.)
+template <int CMAX>
+__device__ __forceinline__ int issue_lidar_chunk(LidarStage<CMAX>& s, const float* __restrict__ table, int n_gauss,
+                                                 int c, SlotEntry e, int lane) {
+  const unsigned staged = __ballot_sync(kFullMask, e.valid);
+  if (e.valid) {
+    const int j = __popc(staged & ((1u << lane) - 1u));
+    const int width = ATTR + c;
+    const float* row = table + (int64_t)min(max(e.gauss, 0), n_gauss - 1) * width;
+    float* attr = reinterpret_cast<float*>(s.attr + j * LID_ATTR4);
+    float* feat = reinterpret_cast<float*>(s.feat + j * (CMAX / 4));
+#pragma unroll
+    for (int col = 0; col < ATTR; ++col) cp_async4(attr + col, row + col);
+    for (int col = 0; col < c; ++col) cp_async4(feat + col, row + ATTR + col);
+    attr[10] = __int_as_float(e.gauss);
+  }
+  cp_async_commit();
+  return __popc(staged);
+}
+
+// Fill w.round with the tile's valid query slots (vmask > 0) of ranks q0 ..
+// q0 + 31 in slot order; returns the number of valid query slots. `masked(q)`
+// is called by the lane of each masked slot q.
+template <int CMAX, typename Masked>
+__device__ __forceinline__ int round_queries(LidarWarp<CMAX>& w, const float* __restrict__ vmask, int64_t row, int p,
+                                             int q0, int lane, Masked masked) {
+  int n = 0;
+  for (int c0 = 0; c0 < p; c0 += 32) {
+    const int q = c0 + lane;
+    const bool in = q < p;
+    const bool valid = in && vmask[row + q] > 0.f;
+    const unsigned m = __ballot_sync(kFullMask, valid);
+    const int rank = n + __popc(m & ((1u << lane) - 1u));
+    if (valid && rank >= q0 && rank < q0 + 32) w.round[rank - q0] = q;
+    if (in && !valid) masked(q);
+    n += __popc(m);
+  }
+  __syncwarp();
+  return n;
+}
 
 }  // namespace tile_composite

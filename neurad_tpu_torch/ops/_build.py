@@ -31,14 +31,16 @@ LIBRARIES = {
         "tile_composite.cu",
         {
             "tile_composite_camera_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-            "tile_composite_lidar_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+            "tile_composite_lidar_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
         },
     ),
     "tile_composite_bwd": (
         "tile_composite_bwd.cu",
         {
             "tile_composite_camera_bwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-            "tile_composite_lidar_bwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+            "tile_composite_lidar_bwd": [
+                _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            ],
         },
     ),
     "hash_grid": (

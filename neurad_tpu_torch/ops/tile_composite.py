@@ -24,9 +24,11 @@ written in the two `.cu` sources.
 
 `tile_composite_camera` / `tile_composite_lidar` go through the
 `TileCompositeCamera` / `TileCompositeLidar` autograd functions, so rendering
-and training share one path. The camera's saves its outputs too: its
-backward takes the total G = sum_k w_k g_k from them (`payload_total`), where
-K5 sums it in a pass of its own. Dispatch is by device: tensors on the CPU go to
+and training share one path. Both save their outputs too: the backward takes
+the total G = sum_k w_k g_k from them (`payload_total`). The lidar forward
+always computes the line-of-sight sum for that (its cotangent enters the
+gradient, as in JAX, whether or not the caller asked for the sum) and hands
+the caller zeros where it did not ask. Dispatch is by device: tensors on the CPU go to
 the plain versions (forward and backward), tensors on a CUDA device to the
 kernels; anything else raises. Each launch is counted in `camera_launches` /
 `lidar_launches` / `camera_bwd_launches` / `lidar_bwd_launches`.
@@ -226,12 +228,14 @@ def _bwd_chunk(d_table, table, tile_gauss, tile_valid, x, y, t, wrap, vmask, bef
     d_table.index_add_(0, idx[keep], d_slots[keep])
 
 
-def payload_total(feat, depth, alpha, g_feat, g_depth, g_alpha):
-    """G = sum_k w_k g_k per pixel from the camera composite's outputs, which
-    are the raw sums feat = sum_k w_k f_k, depth = sum_k w_k d_k and
-    alpha = sum_k w_k: <g_feat, feat> + g_depth depth + g_alpha alpha
-    [..., 1] (K3 forms the same sum per pixel in fp32)."""
-    return g_alpha * alpha + g_depth * depth + torch.sum(g_feat * feat, dim=-1, keepdim=True)
+def payload_total(feat, depth, alpha, g_feat, g_depth, g_alpha, until=None, g_until=None):
+    """G = sum_k w_k g_k per pixel from a composite's outputs, which are the
+    raw sums feat = sum_k w_k f_k, depth = sum_k w_k d_k, alpha = sum_k w_k
+    and, for the lidar, until = sum_k w_k [d_k < gt - eps]: <g_feat, feat> +
+    g_depth depth + g_alpha alpha (+ g_until until) [..., 1] (K3 and K5 form
+    the same sum per query in fp32)."""
+    total = g_alpha * alpha + g_depth * depth + torch.sum(g_feat * feat, dim=-1, keepdim=True)
+    return total if until is None else total + g_until * until
 
 
 def tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, g_feat, g_depth, g_alpha,
@@ -259,18 +263,24 @@ def tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, g
 
 def tile_composite_lidar_bwd_plain(table, tile_gauss, tile_valid, pts_slot, vmask, wrap: bool, depth_eps: float,
                                    g_feat, g_depth, g_alpha, g_until, tile_chunk: int = 128,
-                                   magnitude: bool = False):
-    """K5's function in plain PyTorch: as the camera's (`magnitude` too), with
-    the azimuth wrap, masked query slots and the cotangent g_until [T, P, 1] of
-    the line-of-sight sum folded into the payload gradient. The median gets no
-    gradient."""
+                                   magnitude: bool = False, outputs=None):
+    """K5's function in plain PyTorch: as the camera's (`magnitude` and
+    `outputs` too), with the azimuth wrap, masked query slots and the
+    cotangent g_until [T, P, 1] of the line-of-sight sum folded into the
+    payload gradient. `outputs`: `tile_composite_lidar_plain`'s feat, depth,
+    acc and until on the same inputs, the line-of-sight sum computed (as K5
+    takes them). The median gets no gradient."""
     d_table = torch.zeros_like(table)
     for s in range(0, pts_slot.shape[0], tile_chunk):
         e = min(pts_slot.shape[0], s + tile_chunk)
         pts = pts_slot[s:e]
+        total = None
+        if outputs is not None:
+            feat, depth, acc, until = (x[s:e] for x in outputs)
+            total = payload_total(feat, depth, acc, g_feat[s:e], g_depth[s:e], g_alpha[s:e], until, g_until[s:e])
         _bwd_chunk(d_table, table, tile_gauss[s:e], tile_valid[s:e], pts[..., 0:1], pts[..., 1:2], pts[..., 3:4],
                    wrap, vmask[s:e] > 0, pts[..., 2:3] - depth_eps, g_feat[s:e], g_depth[s:e], g_alpha[s:e],
-                   g_until[s:e], magnitude)
+                   g_until[s:e], magnitude, total)
     return d_table
 
 
@@ -372,24 +382,27 @@ def _camera_backward(table, tile_gauss, tile_valid, pix, times, feat, depth, alp
     return d_table
 
 
-def _lidar_forward(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps, compute_until):
-    """K4 on a CUDA device, its plain version on the CPU."""
+def _lidar_forward(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps):
+    """K4 on a CUDA device, its plain version on the CPU; the line-of-sight
+    sum always computed."""
     global lidar_launches
     dev = _device_of(table, tile_gauss, tile_valid, pts_slot, vmask)
     t_total, p, k, c = _check(table, tile_gauss, tile_valid, (pts_slot, vmask), ((4,), ()))
     if dev.type == "cpu":
-        return tile_composite_lidar_plain(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps,
-                                          compute_until)
+        return tile_composite_lidar_plain(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps, True)
     feat = torch.empty((t_total, p, c), device=dev)
     depth, acc, until, med = (torch.empty((t_total, p, 1), device=dev) for _ in range(4))
     if t_total == 0:
         return feat, depth, acc, until, med
     lib = _build.load("tile_composite")
+    # scratch: each composited slot's running weight sums (one a query of the warp) and depth, for the median
+    records = torch.empty(t_total * k * 34, device=dev)
     with torch.cuda.device(dev):
         rc = lib.tile_composite_lidar_fwd(
             table.data_ptr(), table.shape[0], c, tile_gauss.data_ptr(), tile_valid.data_ptr(),
-            pts_slot.data_ptr(), vmask.data_ptr(), t_total, p, k, int(wrap), float(depth_eps), int(compute_until),
-            feat.data_ptr(), depth.data_ptr(), acc.data_ptr(), until.data_ptr(), med.data_ptr(), _stream(dev),
+            pts_slot.data_ptr(), vmask.data_ptr(), t_total, p, k, int(wrap), float(depth_eps),
+            feat.data_ptr(), depth.data_ptr(), acc.data_ptr(), until.data_ptr(), med.data_ptr(), records.data_ptr(),
+            _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"tile_composite_lidar_fwd launch failed: cudaError {rc}")
@@ -397,16 +410,20 @@ def _lidar_forward(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_e
     return feat, depth, acc, until, med
 
 
-def _lidar_backward(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps, g_feat, g_depth, g_alpha,
-                    g_until):
-    """K5 on a CUDA device, its plain version on the CPU -> d_table [N, 10 + C]."""
+def _lidar_backward(table, tile_gauss, tile_valid, pts_slot, vmask, feat, depth, acc, until, wrap, depth_eps,
+                    g_feat, g_depth, g_alpha, g_until):
+    """K5 on a CUDA device, its plain version on the CPU -> d_table [N, 10 + C].
+    feat, depth, acc, until: the forward's outputs on the same inputs, the
+    line-of-sight sum computed (G follows from them)."""
     global lidar_bwd_launches
-    dev = _device_of(table, tile_gauss, tile_valid, pts_slot, vmask, g_feat, g_depth, g_alpha, g_until)
-    t_total, p, k, c = _check(table, tile_gauss, tile_valid, (pts_slot, vmask, g_feat, g_depth, g_alpha, g_until),
-                              ((4,), (), (table.shape[1] - ATTR,), (1,), (1,), (1,)))
+    per_slot = (pts_slot, vmask, feat, depth, acc, until, g_feat, g_depth, g_alpha, g_until)
+    dev = _device_of(table, tile_gauss, tile_valid, *per_slot)
+    c = table.shape[1] - ATTR
+    t_total, p, k, c = _check(table, tile_gauss, tile_valid, per_slot,
+                              ((4,), (), (c,), (1,), (1,), (1,), (c,), (1,), (1,), (1,)))
     if dev.type == "cpu":
         return tile_composite_lidar_bwd_plain(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps,
-                                              g_feat, g_depth, g_alpha, g_until)
+                                              g_feat, g_depth, g_alpha, g_until, outputs=(feat, depth, acc, until))
     d_table = torch.zeros_like(table)
     if t_total == 0:
         return d_table
@@ -415,6 +432,7 @@ def _lidar_backward(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_
         rc = lib.tile_composite_lidar_bwd(
             table.data_ptr(), table.shape[0], c, tile_gauss.data_ptr(), tile_valid.data_ptr(),
             pts_slot.data_ptr(), vmask.data_ptr(), t_total, p, k, int(wrap), float(depth_eps),
+            feat.data_ptr(), depth.data_ptr(), acc.data_ptr(), until.data_ptr(),
             g_feat.data_ptr(), g_depth.data_ptr(), g_alpha.data_ptr(), g_until.data_ptr(), d_table.data_ptr(),
             _stream(dev),
         )
@@ -444,15 +462,17 @@ class TileCompositeCamera(torch.autograd.Function):
 
 class TileCompositeLidar(torch.autograd.Function):
     """Lidar tile composite: forward K4, backward K5 (plain versions on the
-    CPU). Only the packed table gets a gradient; the median depth carries none."""
+    CPU). Only the packed table gets a gradient; the median depth carries none.
+    Saves its outputs beside its inputs, the line-of-sight sum computed even
+    where the caller gets zeros for it: the backward takes G from them."""
 
     @staticmethod
     def forward(ctx, table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps, compute_until):
-        ctx.save_for_backward(table, tile_gauss, tile_valid, pts_slot, vmask)
+        feat, depth, acc, until, med = _lidar_forward(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps)
+        ctx.save_for_backward(table, tile_gauss, tile_valid, pts_slot, vmask, feat, depth, acc, until)
         ctx.wrap, ctx.depth_eps = bool(wrap), float(depth_eps)
-        out = _lidar_forward(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, depth_eps, compute_until)
-        ctx.mark_non_differentiable(out[4])
-        return out
+        ctx.mark_non_differentiable(med)
+        return feat, depth, acc, until if compute_until else torch.zeros_like(until), med
 
     @staticmethod
     def backward(ctx, g_feat, g_depth, g_alpha, g_until, _g_median):

@@ -230,6 +230,73 @@ def test_lidar_bwd_kernel_matches_plain(cuda, c, k, wrap):
     _assert_columns_close(got, lambda **kw: TC.tile_composite_lidar_bwd_plain(*args, wrap, 0.4, *cots, **kw))
 
 
+def _lidar_layout_inputs(seed, k, c):
+    """The main path's layout (`lidar_tile_inputs`): valid gaussian and query
+    slots fill each tile from slot 0 up, the query slots to about 14% of P =
+    128 (18 of them). Beside those: tile 1 holds 70 valid query slots at random
+    places (three rounds of 32), tile 2 none, and tile 3's queries lie far
+    from every gaussian with its raw slot 0 invalid (every weight sum 0: the
+    median is raw slot 0's depth)."""
+    t, p, n = 8, 128, 500
+    table, tile_gauss, tile_valid, pts, vmask = _inputs(seed, t=t, p=p, k=k, n=n, c=c, lidar=True)
+    rng = np.random.default_rng(seed + 1)
+    tile_gauss = tile_gauss.clamp(0, n - 1)
+    counts = rng.integers(k // 2, k + 1, t)
+    tile_valid = (torch.arange(k)[None, :] < torch.from_numpy(counts)[:, None]).float().cuda()
+    vmask = torch.zeros((t, p), device="cuda")
+    vmask[:, :18] = 1.0
+    vmask[1] = 0.0
+    vmask[1, torch.from_numpy(rng.choice(p, 70, replace=False)).cuda()] = 1.0
+    vmask[2] = 0.0
+    tile_valid[3, 0] = 0.0
+    pts[3, :, 0] = -5.0  # 150 degrees and more from every gaussian (azimuths 155 .. 195)
+    return [table, tile_gauss.contiguous(), tile_valid, pts.contiguous(), vmask]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_until", [True, False])
+@pytest.mark.parametrize("c", [3, 16, 32])
+@pytest.mark.parametrize("k", [40, 300])
+def test_lidar_kernels_on_the_main_paths_layout(cuda, k, c, compute_until):
+    """K4 and K5 (a warp a tile over its compacted query slots, in rounds of
+    32) against their plain versions: prefix-filled slots at 14% query
+    occupancy, a tile with more than 32 valid query slots, one with none, one
+    whose weights all sum to zero over an invalid raw slot 0, K above one stage
+    chunk of 32, C = 3, 16, 32; without the line-of-sight sum the caller gets
+    zeros for it while its cotangent still enters the gradient; two K5
+    launches agree within the atomics' order."""
+    args = _lidar_layout_inputs(11, k, c)
+    table, tile_gauss, tile_valid, pts, vmask = args
+    got = TC.tile_composite_lidar(*args, True, 0.4, compute_until)
+    want = TC.tile_composite_lidar_plain(*args, True, 0.4, compute_until)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    feat, depth, acc, until, med = got
+    assert float(acc[0].max()) > 0.0 and float(acc[1].max()) > 0.0, "the tiles composite something"
+    assert float(acc[2].abs().max()) == 0.0 and float(acc[3].abs().max()) == 0.0
+    slot0 = table[tile_gauss[:, 0].long()]
+    depth0 = slot0[:, None, 8:9] + slot0[:, None, 9:10] * pts[..., 3:4]
+    assert torch.equal(med[2:4], depth0[2:4]), "where the weights sum to zero the median is raw slot 0's depth"
+    masked = vmask == 0
+    assert torch.equal(med[masked], depth0[masked]) and float(feat[masked].abs().max()) == 0.0
+    if not compute_until:
+        assert float(until.abs().max()) == 0.0
+
+    cots = _cotangents(12, 8, 128, c, 3)
+    leaf = table.clone().requires_grad_(True)
+    outs = TC.tile_composite_lidar(leaf, tile_gauss, tile_valid, pts, vmask, True, 0.4, compute_until)
+    before = TC.lidar_bwd_launches
+    (grad,) = torch.autograd.grad(outs[:4], leaf, cots, retain_graph=True)
+    (again,) = torch.autograd.grad(outs[:4], leaf, cots)
+    torch.cuda.synchronize()
+    assert TC.lidar_bwd_launches == before + 2
+    plain = lambda **kw: TC.tile_composite_lidar_bwd_plain(*args, True, 0.4, *cots, **kw)
+    _assert_columns_close(grad, plain)
+    ratio = float(((grad - again).abs() / plain(magnitude=True).clamp_min(1e-30)).max())
+    assert ratio <= BWD_TOL, f"two K5 launches differ by {ratio:.2e} of an entry's terms' magnitude"
+
+
 # ---------------------------------------------------------------------------
 # hash-grid lookup (K1 forward) and the gather probes (P1, P2, P5): gathers and
 # fixed-order sums without atomics, so the kernels are held to the plain

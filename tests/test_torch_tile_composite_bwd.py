@@ -18,11 +18,13 @@ The same plain backward is held against torch.autograd through the plain
 forward, where only the order of sums differs.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from neurad_tpu.ops import gaussian_rasterize as JGR
 from neurad_tpu.ops.pallas_composite import _run_bwd, run_lidar_bwd
 from neurad_tpu_torch.ops import tile_composite as TC
 
@@ -163,6 +165,17 @@ def _lidar_bwd_case(seed, wrap, until_cotangent):
     return (table, tile_gauss, tile_valid, pts_slot, vmask), (gf, gd, ga, gu)
 
 
+def _pallas_lidar_bwd(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, gf, gd, ga, gu):
+    """JAX's K5 in interpret mode, scattered into the packed table's layout."""
+    means, vel, con, opac, feats, depth, dvel = _gathered(table, tile_gauss)
+    j = run_lidar_bwd(
+        wrap, 0.4, jnp.asarray(pts_slot), jnp.asarray(vmask), jnp.asarray(means), jnp.asarray(vel),
+        jnp.asarray(con), jnp.asarray(opac), jnp.asarray(feats), jnp.asarray(depth), jnp.asarray(dvel),
+        jnp.asarray(tile_valid), jnp.asarray(gf), jnp.asarray(gd), jnp.asarray(ga), jnp.asarray(gu),
+    )
+    return _scatter(table.shape, tile_gauss, tile_valid, j)
+
+
 @pytest.mark.parametrize("wrap", [True, False])
 @pytest.mark.parametrize("until_cotangent", [True, False])
 def test_lidar_bwd_plain_matches_pallas_bwd(wrap, until_cotangent):
@@ -170,13 +183,7 @@ def test_lidar_bwd_plain_matches_pallas_bwd(wrap, until_cotangent):
     zero/non-zero, invalid gaussian slots, masked query slots, an empty tile."""
     (table, tile_gauss, tile_valid, pts_slot, vmask), (gf, gd, ga, gu) = _lidar_bwd_case(1, wrap, until_cotangent)
     assert (tile_valid == 0).any() and (vmask == 0).any() and (tile_valid[3] == 0).all()
-    means, vel, con, opac, feats, depth, dvel = _gathered(table, tile_gauss)
-    j = run_lidar_bwd(
-        wrap, 0.4, jnp.asarray(pts_slot), jnp.asarray(vmask), jnp.asarray(means), jnp.asarray(vel),
-        jnp.asarray(con), jnp.asarray(opac), jnp.asarray(feats), jnp.asarray(depth), jnp.asarray(dvel),
-        jnp.asarray(tile_valid), jnp.asarray(gf), jnp.asarray(gd), jnp.asarray(ga), jnp.asarray(gu),
-    )
-    want = _scatter(table.shape, tile_gauss, tile_valid, j)
+    want = _pallas_lidar_bwd(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, gf, gd, ga, gu)
     got = TC.tile_composite_lidar_bwd_plain(
         *map(torch.from_numpy, (table, tile_gauss, tile_valid, pts_slot, vmask)), wrap, 0.4,
         *map(torch.from_numpy, (gf, gd, ga, gu)),
@@ -188,6 +195,73 @@ def test_lidar_bwd_plain_matches_pallas_bwd(wrap, until_cotangent):
             *map(torch.from_numpy, (gf, gd, ga, gu)),
         )
         assert float((no_wrap - got).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("until_cotangent", [True, False])
+def test_lidar_bwd_plain_with_total_from_outputs_matches_pallas_bwd(wrap, until_cotangent):
+    """K5 takes G = sum_k w_k g_k from the forward's outputs, the line-of-sight
+    sum's included: the plain backward given them equals the one that sums G
+    itself (to 1e-5 of each entry's terms' magnitude, the card's tolerance)
+    and JAX's kernel, whose loop sums G."""
+    arrays, cots = _lidar_bwd_case(2, wrap, until_cotangent)
+    args, cot = list(map(torch.from_numpy, arrays)), list(map(torch.from_numpy, cots))
+    outputs = TC.tile_composite_lidar_plain(*args, wrap, 0.4, True)[:4]
+    got = TC.tile_composite_lidar_bwd_plain(*args, wrap, 0.4, *cot, outputs=outputs)
+    own = TC.tile_composite_lidar_bwd_plain(*args, wrap, 0.4, *cot)
+    mag = TC.tile_composite_lidar_bwd_plain(*args, wrap, 0.4, *cot, magnitude=True)
+    assert float(((got - own).abs() / mag.clamp_min(1e-30)).max()) <= 1e-5
+    _assert_grads_close(got.numpy(), _pallas_lidar_bwd(*arrays, wrap, *cots))
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+def test_lidar_bwd_plain_with_total_from_outputs_matches_autograd_of_plain_forward(wrap):
+    arrays, cots = _lidar_bwd_case(5, wrap, True)
+    table, tile_gauss, tile_valid, pts_slot, vmask = map(torch.from_numpy, arrays)
+    gf, gd, ga, gu = map(torch.from_numpy, cots)
+    leaf = table.clone().requires_grad_(True)
+    outs = TC.tile_composite_lidar_plain(leaf, tile_gauss, tile_valid, pts_slot, vmask, wrap, 0.4, True)
+    (want,) = torch.autograd.grad(outs[:4], leaf, (gf, gd, ga, gu))
+    got = TC.tile_composite_lidar_bwd_plain(table, tile_gauss, tile_valid, pts_slot, vmask, wrap, 0.4, gf, gd, ga, gu,
+                                            outputs=[x.detach() for x in outs[:4]])
+    _assert_grads_close(got.numpy(), want.numpy())
+
+
+def _jax_lidar_composite(arrays, wrap, compute_until, cots):
+    """JAX's full-Pallas lidar composite (interpret mode): its outputs and, by
+    jax.vjp, its gradient for cotangents (gf, gd, ga, gu) and none on the
+    median, scattered into the packed table's layout."""
+    table, tile_gauss, tile_valid, pts_slot, vmask = arrays
+    prims = [jnp.asarray(x) for x in _gathered(table, tile_gauss)]
+    fn = lambda *g: JGR._pallas_lidar_composite(wrap, 0.4, compute_until, 512, jnp.asarray(pts_slot),
+                                                jnp.asarray(vmask), *g, jnp.asarray(tile_valid))
+    out, vjp = jax.vjp(fn, *prims)
+    grads = vjp(tuple(jnp.asarray(x) for x in cots) + (jnp.zeros_like(out[4]),))
+    return out, _scatter(table.shape, tile_gauss, tile_valid, grads)
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+def test_lidar_function_without_the_until_sum_gives_jaxs_gradient(wrap):
+    """`compute_until=False`: the caller gets zeros for the line-of-sight sum,
+    as from JAX, yet that sum's cotangent still enters the gradient, as JAX's
+    backward folds it in whatever `compute_until` says; the autograd function
+    takes G from the sum it saved, computed all the same. CPU tensors reach
+    the plain versions: no kernel is launched."""
+    arrays, cots = _lidar_bwd_case(12, wrap, True)
+    assert np.abs(cots[3]).max() > 0.0
+    out, want = _jax_lidar_composite(arrays, wrap, False, cots)
+    before = (TC.lidar_launches, TC.lidar_bwd_launches)
+    leaf = torch.from_numpy(arrays[0]).requires_grad_(True)
+    rest = list(map(torch.from_numpy, arrays[1:]))
+    outs = TC.tile_composite_lidar(leaf, *rest, wrap, 0.4, False)
+    assert float(np.abs(np.asarray(out[3])).max()) == 0.0 and float(outs[3].detach().abs().max()) == 0.0
+    (got,) = torch.autograd.grad(outs[:4], leaf, tuple(map(torch.from_numpy, cots)))
+    assert (TC.lidar_launches, TC.lidar_bwd_launches) == before
+    _assert_grads_close(got.numpy(), want)
+    no_until = [torch.from_numpy(x) for x in cots[:3]] + [torch.zeros_like(torch.from_numpy(cots[3]))]
+    outs = TC.tile_composite_lidar(leaf, *rest, wrap, 0.4, False)
+    (without,) = torch.autograd.grad(outs[:4], leaf, tuple(no_until))
+    assert float((without - got).abs().max()) > 1e-4 * float(got.abs().max()), "the until cotangent matters"
 
 
 def test_camera_bwd_plain_matches_autograd_of_plain_forward():
@@ -215,8 +289,8 @@ def test_lidar_bwd_plain_matches_autograd_of_plain_forward(wrap):
 
 def test_functions_route_cpu_tensors_to_the_plain_backward():
     """`tile_composite_camera/lidar` are differentiable in the table only, give
-    the plain backward on CPU tensors (the camera's given G from the forward's
-    outputs, as K3 takes it) and launch no kernel there."""
+    the plain backward on CPU tensors (given G from the forward's outputs, as
+    K3 and K5 take it) and launch no kernel there."""
     arrays, cots = _camera_bwd_case(5)
     table, tile_gauss, tile_valid, pix, times = map(torch.from_numpy, arrays)
     before = (TC.camera_bwd_launches, TC.lidar_bwd_launches)
@@ -236,8 +310,9 @@ def test_functions_route_cpu_tensors_to_the_plain_backward():
     outs = TC.tile_composite_lidar(leaf, tile_gauss, tile_valid, pts_slot, vmask, True, 0.4, True)
     assert not outs[4].requires_grad, "the median depth carries no gradient"
     (d_table,) = torch.autograd.grad(outs[:4], leaf, tuple(map(torch.from_numpy, cots)))
+    fwd = TC.tile_composite_lidar_plain(table, tile_gauss, tile_valid, pts_slot, vmask, True, 0.4, True)
     want = TC.tile_composite_lidar_bwd_plain(table, tile_gauss, tile_valid, pts_slot, vmask, True, 0.4,
-                                             *map(torch.from_numpy, cots))
+                                             *map(torch.from_numpy, cots), outputs=fwd[:4])
     torch.testing.assert_close(d_table, want, rtol=0, atol=0)
     assert (TC.camera_bwd_launches, TC.lidar_bwd_launches) == before
 
