@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--parent DIR]
 
 `--parent DIR`: another checkout of this repository (say, the parent commit
-unpacked with `git archive`); its hash-grid lookup and tile composite
-wrappers are imported from it, with its own build module and C interface,
-their libraries built from its own sources, and its entries
+unpacked with `git archive`); its hash-grid lookup, tile composite and
+gather-probe wrappers are imported from it, with its own build module and C
+interface, their libraries built from its own sources, and its entries
 (`hash_grid_encode`, `tile_composite_camera`, `tile_composite_lidar`, the
-lidar backward's `_lidar_backward`) timed in turns with this tree's (parent,
+lidar backward's `_lidar_backward`, the coalesced and serial gathers P1 and
+P5 at every probe table shape) timed in turns with this tree's (parent,
 change, change, parent), as a call and as device time, their outputs
 compared bit for bit (the lidar backward's, whose atomics add in no fixed
 order, within BWD_TOL of each entry's terms' magnitude).
@@ -17,8 +18,8 @@ order, within BWD_TOL of each entry's terms' magnitude).
    nvcc per source, started together) and prints ptxas's report of every
    kernel instantiation (registers, stack frame, spills, static shared
    memory); the lookup's backward must keep no stack frame, the lookup's
-   forward and the tile composites (bar the camera backward) neither stack nor
-   spill.
+   forward, the tile composites (bar the camera backward) and the serial
+   gather probe neither stack nor spill.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the full-width shapes of the main paths (camera tile composite and
    its backward: T=8160 tiles x P=256 pixels x K=256 slots, C=16; lidar tile
@@ -47,8 +48,10 @@ order, within BWD_TOL of each entry's terms' magnitude).
    magnitude), beside torch.index_select and index_add_, and the three
    scatter-adds once more at (131072, 32) on skewed indices (half in one row,
    a quarter in the last 16); the bucketed one-hot scatter must give the same
-   bits on a second launch. Then the bucketed probes' (P2, P3, P4) device
-   time kernel by kernel and their host time before the first launch.
+   bits on a second launch; every probe and yardstick is timed as a call and
+   as device time (a CUDA graph of 10 calls). Then the bucketed probes' (P2,
+   P3, P4) device time kernel by kernel and their host time before the first
+   launch.
 3. Serving phase: builds the SplatAD pipeline on the synthetic scene at
    1920x1080 with 500,000 gaussians and a 64x1024-beam lidar, starts the
    closed-loop HTTP server on localhost, answers two /render_image requests at
@@ -84,8 +87,17 @@ order, within BWD_TOL of each entry's terms' magnitude).
    through `ADPipeline.train_step` (K1f and K1b twice a chunk), 4 more through
    the train script's loop with the preset's sampler threads, one profiled
    step, a checkpoint and a 1080p request served from it.
-7. Checks the card's renders (SplatAD and NeuRAD) and one train step's
-   gradients of each model against the CPU path on small scenes.
+7. Eval: `eval_metrics` of the pipelines the two train phases trained (the
+   scene's eval camera at 1920x1080 and its 64x1024-beam scan; NeuRAD's once
+   more under torch.profiler), timed, finite, through K2 and K4 (SplatAD) and
+   K1f (NeuRAD); `python -m neurad_tpu_torch.scripts.eval` in process on the
+   SplatAD train phase's run directory; `eval_fid_suite(max_images=2)` of both
+   models at full width on the scene cut to 8 frames with 2 held out.
+8. Checks the card's renders (SplatAD and NeuRAD) and one train step's
+   gradients of each model against the CPU path on small scenes, and the
+   metric functions (exact LPIPS and Inception pool3 from seeded weights
+   written by the port's converter, the VGG19 fallback LPIPS, the chamfer
+   distance) on the card against the CPU on the same inputs.
 
 Prints the card's name and power limit, one JSON line with the twelve
 kernels' numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
@@ -103,6 +115,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -128,8 +141,19 @@ HASH_BWD_KERNEL = "hash_grid_bwd_kernel"
 CAMERA_KERNEL = "camera_fwd_kernel"
 LIDAR_KERNEL = "lidar_fwd_kernel"
 LIDAR_BWD_KERNEL = "lidar_bwd_kernel"
+SERIAL_GATHER_KERNEL = "gather_serial_kernel"
 NEURAD_TRAIN_STEPS = 5  # the first apart, then the warm ones
 NEURAD_LOOP_STEPS = 4  # then through the train script's loop and sampler threads, the first apart
+SPLATAD_EVAL_KEYS = {"psnr", "ssim", "depth_median_l2", "depth_mean_rel_l2"}
+NEURAD_EVAL_KEYS = SPLATAD_EVAL_KEYS | {"lpips", "actor_psnr", "actor_coverage", "intensity_rmse",
+                                        "ray_drop_accuracy", "chamfer_distance"}
+FID_KEYS = {"fid_actor_shift_rot", "fid_actor_shift_trans", "fid_lane_shift_2m", "fid_lane_shift_3m",
+            "fid_vertical_shift_1m"}
+FID_SCENE = dict(SCENE, num_frames=8, train_split_fraction=0.75)  # the last 2 frames held out: two eval cameras
+FID_IMAGES = 2
+LPIPS_TOL = 1e-4  # metric functions, card against CPU (fp32, TF32 off): relative
+POOL3_TOL = dict(rtol=2e-3, atol=2e-4)  # as the CPU tests hold the pool3 features to JAX's
+CHAMFER_TOL = 1e-5  # relative
 K1B_RAYS = 8192  # one train chunk (ADPipelineConfig.train_ray_chunk) of the `neurad` preset ...
 K1B_SAMPLES = 32  # ... times its field samples: the static lookup's N in a train step
 REPORT = {}
@@ -153,7 +177,7 @@ def require(cond: bool, msg: str) -> None:
 
 
 def load_parent(tree):
-    """Import the lookup and composite wrappers of another checkout of this
+    """Import the lookup and composite wrappers and the gather probes of another checkout of this
     repository (`--parent DIR`), each with that checkout's own build module and
     C interface, under this tree's package name and without replacing this
     tree's modules, so that its kernels and this tree's run in turns on one
@@ -167,7 +191,9 @@ def load_parent(tree):
     sys.path.insert(0, str(Path(tree).resolve()))
     try:
         PARENT.update(hash_encoding=importlib.import_module(prefix + ".ops.hash_encoding"),
-                      tile_composite=importlib.import_module(prefix + ".ops.tile_composite"), tree=str(tree))
+                      tile_composite=importlib.import_module(prefix + ".ops.tile_composite"),
+                      gather_microbench=importlib.import_module(prefix + ".benchmarks.gather_microbench"),
+                      tree=str(tree))
         return importlib.import_module(prefix + ".ops._build")
     finally:
         for k in ours():
@@ -192,30 +218,12 @@ def turns(label, parent_fn, fn):
 def device_ms(fn, reps: int = 10) -> float:
     """Device time a call: `reps` calls captured in one CUDA graph, the graph
     replayed between CUDA events (no host time between the launches), the
-    median of 3 replays over `reps`."""
+    median of 3 replays over `reps` (`gather_microbench.device_ms`)."""
     import torch
 
-    fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(3):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
-    return statistics.median(times)
+    from neurad_tpu_torch.benchmarks.gather_microbench import device_ms as graph_device_ms
+
+    return graph_device_ms(fn, torch.device("cuda"), reps)
 
 
 def cuda_time_ms(fn, warmup: int = 2, reps: int = 10) -> float:
@@ -960,7 +968,31 @@ def probe_phase():
             log(f"[gather] {r['name']} T={r['T']} F={r['F']} ({r['skew']} indices): the bucketing pass's scratch "
                 f"{r['scratch_bytes']} bytes")
     # after the counts: where a bucketed probe's time goes, kernel by kernel
-    return dict(records=records, launches=launches, bucketed_profile=GM.profile_bucketed(DEVICE, log=log))
+    return dict(records=records, launches=launches, bucketed_profile=GM.profile_bucketed(DEVICE, log=log),
+                parent=_parent_gathers(GM))
+
+
+def _parent_gathers(GM):
+    """`--parent`: the parent checkout's coalesced and serial gathers (P1,
+    P5) and this tree's on the same inputs at every table shape, outputs
+    bit for bit, then timed in turns (call and device time)."""
+    import torch
+
+    if "gather_microbench" not in PARENT:
+        return {}
+    PGM = PARENT["gather_microbench"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {}
+    for t_rows, f in GM.TABLE_SHAPES:
+        table = torch.randn((t_rows, f), generator=gen, device=DEVICE).to(torch.bfloat16)
+        idx = torch.randint(0, t_rows, (GM.NUM_QUERIES,), generator=gen, device=DEVICE, dtype=torch.int32)
+        for key in ("coalesced", "serial"):
+            ours, theirs = getattr(GM, f"gather_rows_{key}"), getattr(PGM, f"gather_rows_{key}")
+            require(torch.equal(ours(table, idx), theirs(table, idx)),
+                    f"the {key} gather equals the parent's at T={t_rows}, F={f}")
+            out[f"{key}_{t_rows}x{f}"] = turns(f"{key} gather T={t_rows} F={f}",
+                                               lambda fn=theirs: fn(table, idx), lambda fn=ours: fn(table, idx))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1192,15 +1224,19 @@ def train_phase(outputs):
             f"{profile[kind]['device_busy_ms']:.2f} ms busy")
         require(profile[kind]["matched_launches"] == 1, f"the profiled {kind} step launched its backward kernel once")
 
+    evaluated = eval_metrics_check("splatad", pipeline, SPLATAD_EVAL_KEYS, {"camera": 1, "lidar": 1})
+
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         run_dir = write_run_config(Path(tmp) / "run", "splatad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
         ckpt = pipeline.save_checkpoint(state, run_dir / "checkpoints")
         size_mb = ckpt.stat().st_size / 2**20
+        step = state.step
         del pipeline, state, before
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         served = ClosedLoopState.from_run_dir(run_dir, device=DEVICE)
         load_s = time.perf_counter() - t0
+        evaluated["script"] = eval_script_check(run_dir, step, SPLATAD_EVAL_KEYS)
     pose = np.eye(4, dtype=np.float32)
     pose[:3] = outputs.cameras.camera_to_worlds[0].numpy()
     pose[:3, 3] += pose[:3, 0] * 1.0
@@ -1212,7 +1248,7 @@ def train_phase(outputs):
         require(torch.equal(p.detach(), dict(model.named_parameters())[name].detach()), f"{name} loaded as trained")
     return dict(steps=steps, refines=refines, launches=launches, moved=moved, profile=profile,
                 repeated_frames=repeated, checkpoint_mib=size_mb, load_run_s=load_s,
-                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, eval=evaluated)
 
 
 # ---------------------------------------------------------------------------
@@ -1517,6 +1553,8 @@ def neurad_train_phase(outputs):
         f"{100 - 100 * prof['device_busy_ms'] / prof['host_ms']:.0f}% of the step (profiler on)")
     require(k1b_n == 2 * n_chunks and k1b_ms > 0, "the profile shows K1b's launches")
 
+    evaluated = eval_metrics_check("neurad", pipeline, NEURAD_EVAL_KEYS, {"hash_grid": 1}, profile=True)
+
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         run_dir = write_run_config(Path(tmp) / "run", "neurad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
         ckpt = pipeline.save_checkpoint(state, run_dir / "checkpoints")
@@ -1545,7 +1583,176 @@ def neurad_train_phase(outputs):
                 dense_grad_ms=dense_grad_ms,
                 zero_fill_ms=zero_ms, add_ms=add_ms, profile={k: v for k, v in prof.items() if k != "all"},
                 k1b_profile_ms=k1b_ms, k1f_profile_ms=k1f_ms, checkpoint_mib=size_mb, load_run_s=load_s,
-                served_render_ms=render_ms)
+                served_render_ms=render_ms, eval=evaluated)
+
+
+# ---------------------------------------------------------------------------
+# eval phase
+# ---------------------------------------------------------------------------
+
+
+def eval_metrics_check(label, pipeline, keys, kernels, profile=False):
+    """`pipeline.eval_metrics()` on a pipeline a train phase trained (the
+    scene's eval camera and scan): timed on the host clock, synchronised,
+    twice (the first apart), every value finite, the expected keys, and its
+    renders through the ported kernels (`kernels`: the least launches of
+    each counter, in the ops module that counts it); with `profile`, once
+    more under torch.profiler."""
+    import torch
+
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    counts = lambda: {"camera": TC.camera_launches, "lidar": TC.lidar_launches, "hash_grid": HE.hash_grid_launches}
+    before = counts()
+    times, metrics = [], None
+    for _ in range(2):
+        _sync()
+        t0 = time.perf_counter()
+        metrics = pipeline.eval_metrics()
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launched = {k: (v - before[k]) // 2 for k, v in counts().items() if k in kernels}
+    log(f"[eval] {label} eval_metrics: first {times[0]:.1f} ms, then {times[1]:.1f} ms (synchronised); kernel launches "
+        f"a call {launched}; " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
+    require(set(metrics) == keys and all(math.isfinite(v) for v in metrics.values()),
+            f"{label} eval_metrics gives finite values for {sorted(keys)}")
+    require(all(launched[k] >= n for k, n in kernels.items()), f"{label} eval renders ran the ported kernels")
+    out = dict(metrics=metrics, first_ms=times[0], ms=times[1], launches=launched)
+    if profile:
+        prof = profiled(f"{label} eval_metrics", pipeline.eval_metrics, rows=20)
+        out["profile"] = {k: v for k, v in prof.items() if k != "all"}
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_script_check(run_dir, step, keys):
+    """`python -m neurad_tpu_torch.scripts.eval <run_dir>`, in process through
+    its entry point: the JSON it writes holds the checkpoint's step and
+    finite results with the expected keys."""
+    from neurad_tpu_torch.scripts import eval as eval_script
+
+    t0 = time.perf_counter()
+    res = eval_script.entrypoint([str(run_dir)])
+    seconds = time.perf_counter() - t0
+    written = json.loads((Path(run_dir) / "eval.json").read_text())
+    log(f"[eval] scripts.eval on the run directory: {seconds:.1f} s (the pipeline's build and load included), "
+        f"checkpoint step {written['checkpoint_step']}")
+    require(written == res and written["checkpoint_step"] == step and set(written["results"]) == keys and
+            all(math.isfinite(v) for v in written["results"].values()),
+            "scripts.eval wrote the checkpoint's step and finite results")
+    return dict(seconds=seconds, json=written)
+
+
+def fid_phase():
+    """`eval_fid_suite(max_images=FID_IMAGES)` of both models at full width on
+    the scene cut to 8 frames, the last 2 held out (the FID of one image is
+    NaN): SplatAD at 500,000 gaussians from the seed, NeuRAD at the `neurad`
+    preset, livened. Timed, every value finite."""
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+    from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
+
+    outputs = SyntheticDataParserConfig(**FID_SCENE).setup().get_dataparser_outputs()
+    require(len(outputs.eval_camera_indices) >= FID_IMAGES, f"the FID scene holds {FID_IMAGES} eval cameras")
+    res = {}
+    for label in ("splatad", "neurad"):
+        if label == "splatad":
+            pipeline = SplatADPipeline(outputs, SplatADPipelineConfig(cap_max=N_GAUSS, seed=SEED), device=DEVICE)
+        else:
+            cfg = METHODS["neurad"]().pipeline
+            cfg.seed = SEED
+            pipeline = ADPipeline(outputs, cfg, device=DEVICE)
+            _liven(pipeline.model)
+        _sync()
+        t0 = time.perf_counter()
+        fids = pipeline.eval_fid_suite(max_images=FID_IMAGES)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"[eval] {label} eval_fid_suite(max_images={FID_IMAGES}) at {WIDTH}x{HEIGHT}: {ms:.1f} ms; "
+            + ", ".join(f"{k}={v:.5g}" for k, v in sorted(fids.items())))
+        require(set(fids) == FID_KEYS and all(math.isfinite(v) for v in fids.values()),
+                f"{label} eval_fid_suite gives finite values for {sorted(FID_KEYS)}")
+        res[label] = dict(ms=ms, fid=fids)
+        del pipeline
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _seeded_state(kind, rng):
+    """A state dict (numpy) of the LPIPS (VGG16 + heads) or Inception network,
+    He-scaled convolutions, batch norm near identity."""
+    from neurad_tpu_torch.model_components import inception, lpips_exact
+
+    conv = lambda o, i, kh, kw: (rng.normal(size=(o, i, kh, kw)) * math.sqrt(2.0 / (i * kh * kw))).astype("float32")
+    small = lambda *shape: (rng.normal(size=shape) * 0.1).astype("float32")
+    state = {}
+    if kind == "lpips":
+        for fi, i, o in lpips_exact._VGG16_CONVS:
+            state[f"features.{fi}.weight"], state[f"features.{fi}.bias"] = conv(o, i, 3, 3), small(o)
+        for i, c in enumerate(lpips_exact._HEAD_CH):
+            state[f"lin{i}.model.1.weight"] = abs(small(1, c, 1, 1))
+    else:
+        for name, i, o, k, _s, _p in inception.conv_specs():
+            state[f"{name}.conv.weight"] = conv(o, i, k[0], k[1])
+            state[f"{name}.bn.weight"], state[f"{name}.bn.bias"] = 1.0 + small(o), small(o)
+            state[f"{name}.bn.running_mean"], state[f"{name}.bn.running_var"] = small(o), abs(1.0 + small(o))
+    return state
+
+
+def metrics_reference_phase():
+    """The metric functions on the card against the CPU on the same numpy
+    inputs: the exact LPIPS (135x240 images) and the Inception pool3 features (299x299, and
+    the resize path from 270x480) with seeded weights that the port's
+    converter writes to .npz files, the VGG19 fallback LPIPS (seed 0) and the
+    chamfer distance with masks. TF32 off; tolerances LPIPS_TOL, POOL3_TOL,
+    CHAMFER_TOL."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.core.math_utils import chamfer_distance
+    from neurad_tpu_torch.model_components import inception, lpips_exact
+    from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
+    from neurad_tpu_torch.scripts import convert_perceptual_weights as convert
+    from neurad_tpu_torch.utils.eval_metrics import lpips
+
+    rng = np.random.default_rng(SEED)
+    res = {}
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        np.savez(Path(tmp) / "lpips.npz", **convert.convert_lpips(_seeded_state("lpips", rng)))
+        np.savez(Path(tmp) / "inception.npz", **convert.convert_inception(_seeded_state("inception", rng)))
+        lp = {d: lpips_exact.load_lpips_params(str(Path(tmp) / "lpips.npz"), d) for d in ("cpu", DEVICE)}
+        inc = {d: inception.load_inception_params(str(Path(tmp) / "inception.npz"), d) for d in ("cpu", DEVICE)}
+    a, b = (rng.uniform(0, 1, (1, 135, 240, 3)).astype(np.float32) for _ in range(2))
+    on = lambda x, d: torch.from_numpy(x).to(d)
+    with torch.no_grad():
+        got, want = (float(lpips_exact.lpips_exact(lp[d], on(a, d), on(b, d))) for d in (DEVICE, "cpu"))
+        res["lpips_exact"] = dict(card=got, cpu=want, rel_err=abs(got - want) / abs(want))
+        for name, hw, resize in (("pool3_299", (299, 299), False), ("pool3_resized", (270, 480), True)):
+            img = rng.uniform(0, 1, (1, *hw, 3)).astype(np.float32)
+            g, w = (inception.inception_pool3(inc[d], on(img, d), resize=resize).cpu().numpy() for d in (DEVICE, "cpu"))
+            require(bool(np.allclose(g, w, **POOL3_TOL)), f"{name} features on the card match the CPU's")
+            res[name] = dict(max_abs_err=float(np.abs(g - w).max()), max_abs=float(np.abs(w).max()))
+        vgg = {d: load_vgg19_params(torch.Generator().manual_seed(0), device=d) for d in ("cpu", DEVICE)}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # the fallback's warning
+            got, want = (float(lpips(vgg[d], on(a[0], d), on(b[0], d))) for d in (DEVICE, "cpu"))
+        res["lpips_vgg19"] = dict(card=got, cpu=want, rel_err=abs(got - want) / abs(want))
+        pred, gt = rng.normal(size=(8192, 3)).astype(np.float32) * 10, rng.normal(size=(6000, 3)).astype(np.float32) * 10
+        pm, gm = rng.uniform(size=8192) < 0.8, rng.uniform(size=6000) < 0.7
+        got, want = (float(chamfer_distance(on(pred, d), on(gt, d), on(pm, d), on(gm, d))) for d in (DEVICE, "cpu"))
+        res["chamfer_distance"] = dict(card=got, cpu=want, rel_err=abs(got - want) / abs(want))
+    log("[eval-ref] card vs CPU: " + "; ".join(f"{k} {v}" for k, v in res.items()))
+    require(res["lpips_exact"]["rel_err"] <= LPIPS_TOL and res["lpips_vgg19"]["rel_err"] <= LPIPS_TOL,
+            f"LPIPS (exact and VGG19 fallback) on the card within {LPIPS_TOL} of the CPU's")
+    require(res["chamfer_distance"]["rel_err"] <= CHAMFER_TOL, f"chamfer distance within {CHAMFER_TOL}")
+    return res
 
 
 def neurad_train_reference_phase():
@@ -1756,16 +1963,17 @@ def main(argv=None) -> int:
     if args.parent:  # the parent's two libraries build beside this tree's
         parent_build, parent_built = load_parent(args.parent), []
         parent_thread = threading.Thread(
-            target=lambda: parent_built.append(parent_build.build_all(["hash_grid", "tile_composite", "tile_composite_bwd"])),
+            target=lambda: parent_built.append(parent_build.build_all(
+                ["hash_grid", "tile_composite", "tile_composite_bwd", "gather_probes"])),
             daemon=True)
         parent_thread.start()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     if args.parent:
         parent_thread.join()
-        require(bool(parent_built), f"the parent checkout {args.parent} built its lookup and composites")
-        log(f"[build] the parent's hash_grid, tile_composite and tile_composite_bwd from {args.parent} in "
-            f"{time.perf_counter() - t0:.1f} s")
+        require(bool(parent_built), f"the parent checkout {args.parent} built its lookup, composites and probes")
+        log(f"[build] the parent's hash_grid, tile_composite, tile_composite_bwd and gather_probes from {args.parent} "
+            f"in {time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report()
     for r in ptxas:
         log(f"[ptxas] {r['library']}: {r['kernel']}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
@@ -1783,30 +1991,45 @@ def main(argv=None) -> int:
     k45_ptxas = [r for r in ptxas if r["kernel"].split("<")[0] in (LIDAR_KERNEL, LIDAR_BWD_KERNEL)]
     require(len(k45_ptxas) == 6 and all(r.get("stack") == 0 and r.get("spill_stores") == 0 for r in k45_ptxas),
             "every instantiation of the lidar composite and its backward keeps no stack frame and spills nothing")
+    p5_ptxas = [r for r in ptxas if r["kernel"].startswith(SERIAL_GATHER_KERNEL + "<")]
+    require(len(p5_ptxas) == 4 and all(r.get("stack") == 0 and r.get("spill_stores") == 0 for r in p5_ptxas),
+            "every instantiation of the serial gather probe (1, 2, 4, 8 pieces a pass) keeps no stack frame and "
+            "spills nothing")
+
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        log(f"[time] {name} phase: {phase_s[name]:.1f} s")
+        return out
 
     rng = np.random.default_rng(SEED)
-    kernels = kernel_phase(rng)
+    kernels = timed("kernel", kernel_phase, rng)
     torch.cuda.empty_cache()
     OUT_DIR.mkdir(exist_ok=True)
-    slice_res, outputs = slice_phase()
+    slice_res, outputs = timed("slice", slice_phase)
     torch.cuda.empty_cache()
-    hash_kernels = hash_grid_phase(outputs, rng)
+    hash_kernels = timed("hash_grid", hash_grid_phase, outputs, rng)
     torch.cuda.empty_cache()
-    hash_bwd = hash_grid_bwd_phase(outputs, rng)
+    hash_bwd = timed("hash_grid_bwd", hash_grid_bwd_phase, outputs, rng)
     torch.cuda.empty_cache()
-    probes = probe_phase()
+    probes = timed("probe", probe_phase)
     torch.cuda.empty_cache()
-    neurad_res = neurad_phase(outputs)
+    neurad_res = timed("neurad", neurad_phase, outputs)
     gc.collect()  # the serving state's reference cycles (server, handler) go with their tables and copies
     torch.cuda.empty_cache()
-    neurad_train_res = neurad_train_phase(outputs)
+    neurad_train_res = timed("neurad_train", neurad_train_phase, outputs)
     torch.cuda.empty_cache()
-    train_res = train_phase(outputs)
+    train_res = timed("train", train_phase, outputs)
     del outputs
     torch.cuda.empty_cache()
-    ref = reference_phase()
-    ref["neurad"] = neurad_reference_phase()
-    ref["neurad_train"] = neurad_train_reference_phase()
+    fid_res = timed("fid", fid_phase)
+    ref = timed("reference", reference_phase)
+    ref["neurad"] = timed("neurad_reference", neurad_reference_phase)
+    ref["neurad_train"] = timed("neurad_train_reference", neurad_train_reference_phase)
+    ref["metrics"] = timed("metrics_reference", metrics_reference_phase)
 
     # name, source, the TPU kernel it replaces, and the main path whose launches are reported: the SplatAD
     # serving path for the forward composites (the train path launches them too: "train_launches"), the train
@@ -1864,15 +2087,18 @@ def main(argv=None) -> int:
         line["kernels"].append({
             "name": name, "route": "cuda", "source": "neurad_tpu_torch/csrc/gather_probes.cu", "replaces": replaces,
             "launches": probes["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "table": [r["T"], r["F"]], "queries": r["N"]})
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+            "table": [r["T"], r["F"]], "queries": r["N"]})
+        if f"{key}_131072x32" in probes["parent"]:
+            line["kernels"][-1]["parent"] = probes["parent"][f"{key}_131072x32"]
         if "hot" in at:
             line["kernels"][-1]["skewed"] = {m: at["hot"][m] for m in ("ms", "library_ms", "max_rel_err")}
     require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 12,
             "all twelve kernels were launched on their main path")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
                   hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res, ptxas=ptxas,
-                  neurad_train=neurad_train_res, train=train_res, reference=ref,
+                  neurad_train=neurad_train_res, train=train_res, fid=fid_res, reference=ref, phase_seconds=phase_s,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
     print(smi)

@@ -11,7 +11,9 @@ training (ray batches, losses, VGG, five Adam groups, checkpoints, the presets
 of `configs/method_configs.py`), with the fused hash-grid lookup and its
 backward as hand-written kernels (`ops/hash_encoding.py`, `csrc/hash_grid.cu`)
 and three row-gather and three row-scatter probes
-(`benchmarks/gather_microbench.py`, `csrc/gather_probes.cu`).
+(`benchmarks/gather_microbench.py`, `csrc/gather_probes.cu`); eval and
+metrics of both models (`eval_metrics`, the novel-view FID suite,
+`utils/eval_metrics.py`, `scripts/eval.py`).
 The module layout mirrors `neurad_tpu/` so each counterpart is easy to find.
 """
 

@@ -40,8 +40,10 @@ update (N = 0) launches nothing. Launches are counted in `coalesced_launches`, `
 
 prints, per table shape (T rows x F columns: bf16 for the gathers, fp32 for
 the scatter-adds' output; the scatter-adds once more at `SKEWED_SHAPE` on
-`skewed_indices`), each kernel's time (CUDA events: median of 10
-launches after 2 warm-ups) and rate in M rows/s, beside `torch.index_select`
+`skewed_indices`), each kernel's time as a call (CUDA events: median of 10
+calls after 2 warm-ups, the wrapper's host time included) and as device time
+(`device_ms`: a CUDA graph of 10 calls replayed between events, median of 3)
+and its rate in M rows/s, beside `torch.index_select`
 and `index_add_` (yardsticks that no path of the port calls) and the least
 time the card could take for the function (its bytes over the memory rate:
 neither function needs arithmetic to speak of). The one-hot products' own
@@ -317,6 +319,36 @@ def _time_ms(fn: Callable[[], torch.Tensor], device: torch.device, warmup: int =
     return statistics.median(times)
 
 
+def device_ms(fn: Callable[[], torch.Tensor], device: torch.device, reps: int = 10) -> Optional[float]:
+    """Device time of fn() on the card: `reps` calls captured in one CUDA
+    graph, the graph replayed between CUDA events (no host time between the
+    launches), the median of 3 replays over `reps`. None on the CPU, which has
+    no device time."""
+    if device.type != "cuda":
+        return None
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def bounds_ms(n: int, t_rows: int, f: int) -> Dict[str, Tuple[float, str]]:
     """The least time an H100 SXM could take for each probe's function, and
     what sets it: the indices and the rows they name read once (at most the
@@ -360,9 +392,9 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
         log: Optional[Callable[[str], None]] = print) -> List[dict]:
     """Check and time every probe at every table shape, and the scatter-adds
     once more at `SKEWED_SHAPE` on `skewed_indices`. Returns one record per
-    (shape, probe, skew): name, T, F, skew ("uniform" or "hot"), ms, rows_per_s, max_abs_err against the plain
-    version, plain_ms, library_ms (`torch.index_select` for the gathers,
-    `index_add_` for the scatter-adds), bound_ms, bound_by; the one-hot probes'
+    (shape, probe, skew): name, T, F, skew ("uniform" or "hot"), ms (a call), device_ms (`device_ms`; None on
+    the CPU), rows_per_s, max_abs_err against the plain version, plain_ms, library_ms and library_device_ms
+    (`torch.index_select` for the gathers, `index_add_` for the scatter-adds), bound_ms, bound_by; the one-hot probes'
     records also hold mechanism_ops_ms and, on the card, scratch_bytes (the
     bucketing pass's); the scatter-adds' hold max_rel_err (error over the sum
     of the absolute values of the entry's terms) and relaunch_equal (a second
@@ -379,9 +411,11 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
         plain_ms = _time_ms(lambda: gather_rows_plain(table, idx), dev, 1, 3)
         idx64 = idx.long()
         library_ms = _time_ms(lambda: torch.index_select(table, 0, idx64), dev, 2, reps)
+        library_device_ms = device_ms(lambda: torch.index_select(table, 0, idx64), dev)
         bound = bounds_ms(queries, t_rows, f)
         if log:
-            log(f"[gather] T={t_rows} F={f} N={queries}: table[idx] {plain_ms:.4f} ms, index_select {library_ms:.4f} ms")
+            log(f"[gather] T={t_rows} F={f} N={queries}: table[idx] {plain_ms:.4f} ms, index_select {library_ms:.4f} ms"
+                + _device_note(library_device_ms))
         for name, fn in probes:
             got = fn(table, idx)
             want = ref.float() if name == "onehot" else ref
@@ -392,22 +426,27 @@ def run(device="cuda", queries: int = NUM_QUERIES, shapes=TABLE_SHAPES, seed: in
                 raise RuntimeError(f"{name} gather differs from table[idx] at T={t_rows}, F={f}: max abs err {err}")
             ms = _time_ms(lambda: fn(table, idx), dev, 2, reps)
             rec = dict(name=name, T=t_rows, F=f, N=queries, skew="uniform", ms=ms,
+                       device_ms=device_ms(lambda: fn(table, idx), dev),
                        rows_per_s=queries / (ms * 1e-3) if ms else 0.0,
-                       max_abs_err=err, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[name][0],
-                       bound_by=bound[name][1])
+                       max_abs_err=err, plain_ms=plain_ms, library_ms=library_ms,
+                       library_device_ms=library_device_ms, bound_ms=bound[name][0], bound_by=bound[name][1])
             if name == "onehot":
                 rec["mechanism_ops_ms"] = onehot_mechanism_ops_ms(queries, f)
                 rec["scratch_bytes"] = _scratch_bytes(queries, t_rows, dev)
             records.append(rec)
             if log:
                 log(f"[gather]   {name:10s} {ms:10.4f} ms  {rec['rows_per_s'] / 1e6:10.1f} M rows/s  "
-                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})" + _device_note(rec["device_ms"])
                     + (_onehot_note(rec) if name == "onehot" else "")
                     + "  exact")
         records += _run_scatter(dev, gen, idx, t_rows, f, reps, log)
         if (t_rows, f) == SKEWED_SHAPE:
             records += _run_scatter(dev, gen, skewed_indices(queries, t_rows, gen, dev), t_rows, f, reps, log, "hot")
     return records
+
+
+def _device_note(ms: Optional[float]) -> str:
+    return "" if ms is None else f", device {ms:.4f} ms"
 
 
 def _scratch_bytes(n: int, t_rows: int, device: torch.device) -> Optional[int]:
@@ -427,13 +466,14 @@ def _run_scatter(dev, gen, idx, t_rows, f, reps, log, skew="uniform") -> List[di
     g = torch.randn((n, f), generator=gen, device=dev)
     idx64 = idx.long()
     plain_ms = _time_ms(lambda: scatter_rows_plain(idx, g, t_rows), dev, 1, 3)
-    library_ms = _time_ms(
-        lambda: torch.zeros((t_rows, f), dtype=torch.float32, device=dev).index_add_(0, idx64, g), dev, 2, reps)
+    library = lambda: torch.zeros((t_rows, f), dtype=torch.float32, device=dev).index_add_(0, idx64, g)
+    library_ms = _time_ms(library, dev, 2, reps)
+    library_device_ms = device_ms(library, dev)
     magnitude = scatter_rows_plain(idx, g.abs(), t_rows)
     bound = scatter_bound_ms(n, t_rows, f)
     if log:
         log(f"[scatter] T={t_rows} F={f} N={n} ({skew} indices): plain {plain_ms:.4f} ms, "
-            f"index_add_ {library_ms:.4f} ms")
+            f"index_add_ {library_ms:.4f} ms" + _device_note(library_device_ms))
     probes = (("scatter_onehot", scatter_rows_onehot), ("scatter_blocked", scatter_rows_blocked),
               ("scatter_serial", scatter_rows_serial))
     records = []
@@ -453,16 +493,17 @@ def _run_scatter(dev, gen, idx, t_rows, f, reps, log, skew="uniform") -> List[di
         if name == "scatter_onehot" and not relaunch_equal:
             raise RuntimeError(f"{name} gave other bits on a second launch at T={t_rows}, F={f} ({skew} indices)")
         ms = _time_ms(lambda: fn(idx, g, t_rows), dev, 1, reps)
-        rec = dict(name=name, T=t_rows, F=f, N=n, skew=skew, ms=ms, rows_per_s=n / (ms * 1e-3) if ms else 0.0,
-                   max_abs_err=err, max_rel_err=rel, relaunch_equal=relaunch_equal, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
+        rec = dict(name=name, T=t_rows, F=f, N=n, skew=skew, ms=ms, device_ms=device_ms(lambda: fn(idx, g, t_rows), dev),
+                   rows_per_s=n / (ms * 1e-3) if ms else 0.0, max_abs_err=err, max_rel_err=rel,
+                   relaunch_equal=relaunch_equal, plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=library_device_ms, bound_ms=bound[0], bound_by=bound[1])
         if name == "scatter_onehot":
             rec["mechanism_ops_ms"] = onehot_mechanism_ops_ms(n, f)
             rec["scratch_bytes"] = _scratch_bytes(n, t_rows, dev)
         records.append(rec)
         if log:
             log(f"[scatter]  {name:16s} {skew:7s} {ms:10.4f} ms  {rec['rows_per_s'] / 1e6:10.1f} M rows/s  "
-                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})" + _device_note(rec["device_ms"])
                 + (_onehot_note(rec) if name == "scatter_onehot" else "")
                 + f"  max err {rel:.2e} of the terms' magnitude, "
                 + ("bit-equal on a second launch" if relaunch_equal else "other bits on a second launch"))

@@ -35,6 +35,7 @@ class TrainerConfig:
     max_num_iterations: int = 30001
     steps_per_save: int = 2000
     steps_per_log: int = 100
+    steps_per_eval_batch: int = 500  # the train loop runs `pipeline.eval_metrics()` every this many steps
 
 
 @dataclasses.dataclass
@@ -64,7 +65,7 @@ def neurad_tiny_overrides() -> dict:
 def _neurad() -> MethodConfig:
     return MethodConfig(
         "neurad",
-        TrainerConfig(max_num_iterations=20001, steps_per_save=2000, steps_per_log=100),
+        TrainerConfig(max_num_iterations=20001, steps_per_save=2000, steps_per_log=100, steps_per_eval_batch=500),
         ADPipelineConfig(
             datamanager=ADDataManagerConfig(num_cam_patches=40, patch_size=32, num_lidar_rays=16384),
             model_overrides=dict(sampling=SamplingSettings()),
@@ -96,7 +97,7 @@ def _neurad_parity() -> MethodConfig:
 def _neurad_tiny() -> MethodConfig:
     return MethodConfig(
         "neurad-tiny",
-        TrainerConfig(max_num_iterations=200, steps_per_save=10**9, steps_per_log=20),
+        TrainerConfig(max_num_iterations=200, steps_per_save=10**9, steps_per_log=20, steps_per_eval_batch=100),
         ADPipelineConfig(
             datamanager=ADDataManagerConfig(num_cam_patches=4, patch_size=6, num_lidar_rays=256),
             model_overrides=neurad_tiny_overrides(),
@@ -113,13 +114,14 @@ def _neurad_tiny() -> MethodConfig:
 
 def _splatad(strategy: str = "mcmc") -> MethodConfig:
     name = "splatad" if strategy == "mcmc" else "splatad-default"
-    return MethodConfig(name, TrainerConfig(), SplatADPipelineConfig(strategy=strategy), pipeline_type="splatad")
+    return MethodConfig(name, TrainerConfig(steps_per_eval_batch=500), SplatADPipelineConfig(strategy=strategy),
+                        pipeline_type="splatad")
 
 
 def _splatad_tiny() -> MethodConfig:
     return MethodConfig(
         "splatad-tiny",
-        TrainerConfig(max_num_iterations=100, steps_per_save=10**9, steps_per_log=10),
+        TrainerConfig(max_num_iterations=100, steps_per_save=10**9, steps_per_log=10, steps_per_eval_batch=50),
         SplatADPipelineConfig(
             datamanager=FullImageLidarDataManagerConfig(max_lidar_points=512),
             model=SplatADConfig(num_downscales=0, feature_dim=8, appearance_dim=4, max_per_tile=64, lidar_max_per_tile=32),

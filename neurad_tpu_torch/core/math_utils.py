@@ -6,7 +6,7 @@ right=True)` and `torch.gather` compute the same values."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,3 +59,37 @@ def inv_power_fn(x: torch.Tensor, lam: float = -1.5, eps: float = 1e-10, max_bou
         return -torch.log(1.0 - x)
     lam_1 = abs(lam - 1)
     return ((x * lam / lam_1 + 1.0).clamp_min(eps) ** (1.0 / lam) - 1.0) * lam_1
+
+
+def chamfer_distance(
+    pred: torch.Tensor, gt: torch.Tensor, pred_mask: Optional[torch.Tensor] = None,
+    gt_mask: Optional[torch.Tensor] = None, chunk: int = 4096,
+) -> torch.Tensor:
+    """Symmetric chamfer distance between point clouds pred [N, 3] and gt
+    [M, 3], on their device: the mean distance from each valid point of one
+    cloud to the nearest valid point of the other, both ways. The optional
+    bool masks mark the valid points. The pairwise distances are taken
+    `chunk` points of the first cloud at a time."""
+    big = 1e12
+    if pred_mask is None:
+        pred_mask = torch.ones(pred.shape[0], dtype=torch.bool, device=pred.device)
+    if gt_mask is None:
+        gt_mask = torch.ones(gt.shape[0], dtype=torch.bool, device=gt.device)
+
+    def min_dists(a, a_mask, b, b_mask):
+        # for each point of a: the distance to the nearest valid point of b (0 where a is not valid)
+        out = []
+        for start in range(0, a.shape[0], chunk):
+            ac = a[start:start + chunk]
+            d2 = (ac[:, None, 0] - b[None, :, 0]) ** 2
+            d2 = d2 + (ac[:, None, 1] - b[None, :, 1]) ** 2
+            d2 = d2 + (ac[:, None, 2] - b[None, :, 2]) ** 2
+            dmin = torch.sqrt(torch.where(b_mask[None, :], d2, big).amin(dim=-1))
+            out.append(torch.where(a_mask[start:start + chunk], dmin, 0.0))
+        return torch.cat(out) if out else a.new_zeros((0,))
+
+    d_pred = min_dists(pred, pred_mask, gt, gt_mask)
+    d_gt = min_dists(gt, gt_mask, pred, pred_mask)
+    n_pred = pred_mask.sum().clamp_min(1)
+    n_gt = gt_mask.sum().clamp_min(1)
+    return d_pred.sum() / n_pred + d_gt.sum() / n_gt

@@ -23,9 +23,27 @@
 //  * P1 (a block of queries at once): neighbouring lanes read neighbouring
 //    16-byte pieces of a row through the read-only path (4 lanes for a 64-byte
 //    row) and write them to neighbouring addresses: loads use every byte of the
-//    sectors they touch and stores are coalesced.
-//  * P5 (one query at a time): one thread per query copies its whole row, 16
-//    bytes at a time, serially: the naive form.
+//    sectors they touch and stores are coalesced. Measured by device time (a
+//    CUDA graph of calls) at 71% of its bytes bound at N = 2^20, T = 131072,
+//    F = 32 on an H100 (NVIDIA H100 80GB HBM3, 700 W), it is left as it was.
+//  * P5 (one query at a time): one thread owns one query's whole row, as the
+//    TPU kernel's scalar loop copies one row at a time. The first form (a
+//    thread copying its row piece by piece straight to its output row) reached
+//    38% of the bound: a warp's store touched 32 rows 64 bytes apart, half a
+//    sector each; the piece loop had a run-time count, so a row's loads did not
+//    all issue before its stores; and the 64 MB output stream, larger than the
+//    50 MB L2, pushed the table out of L2, so rows came again from device
+//    memory. Now (`gather_serial_kernel<CHUNK>`): a persistent grid of 6 blocks
+//    an SM (4 for 8-piece rows) walks blocks of 256 queries; a thread loads its
+//    query's index (the owners of neighbouring queries load neighbouring
+//    indices: one coalesced load a warp, so no staging is needed for them),
+//    issues all CHUNK 16-byte loads of its row at once (CHUNK = F / 8 up to 8,
+//    a template, unrolled) with an L2 evict-last cache policy, so the table
+//    stays in L2 as the TPU probe keeps it in VMEM, and copies them into the
+//    block's stage in shared memory (rotated by row: no bank conflicts); the
+//    block then writes its [256, F] output tile whole, neighbouring threads on
+//    neighbouring 16-byte pieces, with streaming evict-first stores (st.cs),
+//    so the output does not displace the table.
 //  * P2 and P3 (the matrix unit): a one-hot product on the tensor cores, bf16
 //    inputs and fp32 sums (mma.sync m16n8k16), as the TPU kernels multiply a
 //    one-hot block with the table (P2) or its transpose with the updates (P3).
@@ -106,7 +124,7 @@
 // mechanism. A gather reads the indices and the rows they name once and writes
 // the result once; a scatter-add reads the indices and the updates once and
 // writes the output once (N * 4 + N * F * 4 + T * F * 4 bytes).
-// All six are bound by bytes. P1 and P5 write bf16 (80 MB, 0.024 ms at
+// All six are bound by bytes. P1 and P5 move 80 MB (bf16 rows; 0.024 ms at
 // N = 2^20, T = 131072, F = 32 on an H100 SXM); P2 writes fp32 (147 MB,
 // 0.0438 ms); P3, P4 and P6 move 155 MB (0.0463 ms). The bucketing pass (P2,
 // P3, P4) adds about 20-30 MB of index traffic of its own (the indices read
@@ -138,6 +156,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMS = 132;  // streaming multiprocessors of an H100 SXM: the persistent grids' width
 
 // P1: thread -> (query, 16-byte piece); pieces = row bytes / 16.
 __global__ void __launch_bounds__(THREADS) gather_coalesced_kernel(
@@ -149,14 +168,73 @@ __global__ void __launch_bounds__(THREADS) gather_coalesced_kernel(
   out[t] = __ldg(table + (int64_t)__ldg(idx + q) * pieces + piece);
 }
 
-// P5: thread -> query; the row is copied piece by piece.
-__global__ void __launch_bounds__(THREADS) gather_serial_kernel(
+// P5: a thread owns one query's whole row. A block takes THREADS queries at a
+// time (a persistent grid walks the blocks of queries); each thread loads its
+// query's index (a warp's indices are one coalesced load), then its row's
+// CHUNK pieces, all issued before any is used, with an L2 evict-last policy,
+// and copies them into the block's stage in shared memory; the block then
+// writes its [queries, CHUNK pieces] tile of the output whole, neighbouring
+// threads on neighbouring 16-byte pieces, with streaming (evict-first) stores.
+// A row wider than CHUNK pieces takes pieces / CHUNK such passes.
+constexpr int SERIAL_MAX_CHUNK = 8;  // pieces a thread holds at once (F = 64 bf16)
+
+__host__ __device__ constexpr int serial_blocks_per_sm(int chunk) { return chunk >= 8 ? 4 : 6; }
+
+__device__ __forceinline__ uint64_t l2_evict_last_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint4 load_keep(const uint4* ptr, uint64_t policy) {
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(ptr), "l"(policy));
+  return v;
+}
+
+// Where piece p of the tile's row r lies in the stage: rotated by the row so
+// that any 8 consecutive (row, piece) chunks, written by the rows' owners or
+// read in tile order, fall in 8 distinct 16-byte bank groups.
+template <int CHUNK>
+__device__ __forceinline__ int stage_slot(int r, int p) {
+  return r * CHUNK + (p + r / (8 / CHUNK)) % CHUNK;
+}
+
+template <int CHUNK>
+__global__ void __launch_bounds__(THREADS, serial_blocks_per_sm(CHUNK)) gather_serial_kernel(
     const uint4* __restrict__ table, const int* __restrict__ idx, uint4* __restrict__ out, int64_t n, int pieces) {
-  const int64_t q = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (q >= n) return;
-  const uint4* src = table + (int64_t)idx[q] * pieces;
-  uint4* dst = out + q * pieces;
-  for (int p = 0; p < pieces; ++p) dst[p] = src[p];
+  static_assert(CHUNK >= 1 && CHUNK <= SERIAL_MAX_CHUNK && (CHUNK & (CHUNK - 1)) == 0, "CHUNK: 1, 2, 4 or 8");
+  __shared__ uint4 stage[THREADS * CHUNK];
+  const uint64_t keep = l2_evict_last_policy();
+  const int t = threadIdx.x;
+  for (int64_t base = (int64_t)blockIdx.x * THREADS; base < n; base += (int64_t)gridDim.x * THREADS) {
+    const int rows = (int)(n - base < THREADS ? n - base : THREADS);
+    const uint4* src = t < rows ? table + (int64_t)__ldcs(idx + base + t) * pieces : table;
+    for (int pass = 0; pass < pieces; pass += CHUNK) {
+      if (t < rows) {
+        uint4 v[CHUNK];
+#pragma unroll
+        for (int p = 0; p < CHUNK; ++p) v[p] = load_keep(src + pass + p, keep);
+#pragma unroll
+        for (int p = 0; p < CHUNK; ++p) stage[stage_slot<CHUNK>(t, p)] = v[p];
+      }
+      __syncthreads();
+      for (int j = t; j < rows * CHUNK; j += THREADS) {
+        const int r = j / CHUNK, p = j % CHUNK;
+        __stcs(out + (base + r) * pieces + pass + p, stage[stage_slot<CHUNK>(r, p)]);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <int CHUNK>
+void launch_serial(const uint4* table, const int* idx, uint4* out, int64_t n, int pieces, cudaStream_t st) {
+  const int64_t blocks_of_queries = (n + THREADS - 1) / THREADS;
+  const int grid = (int)std::min<int64_t>(blocks_of_queries, (int64_t)serial_blocks_per_sm(CHUNK) * SMS);
+  gather_serial_kernel<CHUNK><<<grid, THREADS, 0, st>>>(table, idx, out, n, pieces);
 }
 
 // ---------------------------------------------------------------------------
@@ -171,7 +249,6 @@ constexpr int SMEM_CAP = 200 * 1024;          // dynamic shared memory of the co
 constexpr int SCAN_THREADS = 256;
 constexpr int SCAN_TILE = SCAN_THREADS * 16;  // table entries a scan block
 constexpr int SCAN_CTRL = 68;                 // ints before the table: [0] arrivals, [4, 68) the tiles' sums
-constexpr int SMS = 132;
 
 // n indices from `first` on, one a lane every 32, -1 past `end`; loaded together.
 __device__ __forceinline__ void load_batch(const int* __restrict__ idx, int64_t first, int64_t end, int (&raw)[BATCH]) {
@@ -720,8 +797,14 @@ extern "C" int gather_rows_serial(const void* table, const int* idx, void* out, 
                                   void* stream) {
   if ((f * 2) % 16 != 0 || f < 8 || n < 0) return -1;
   if (n == 0) return 0;
-  gather_serial_kernel<<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(table), idx, static_cast<uint4*>(out), n, f / 8);
+  const int pieces = f / 8;
+  const uint4* tbl = static_cast<const uint4*>(table);
+  uint4* dst = static_cast<uint4*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pieces % 8 == 0) launch_serial<8>(tbl, idx, dst, n, pieces, st);
+  else if (pieces % 4 == 0) launch_serial<4>(tbl, idx, dst, n, pieces, st);
+  else if (pieces % 2 == 0) launch_serial<2>(tbl, idx, dst, n, pieces, st);
+  else launch_serial<1>(tbl, idx, dst, n, pieces, st);
   return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,9 @@ the step's random draws. `train_step` is the JAX package's
 backward kernel on a CUDA device), one update of every group. Random draws
 are explicit (`TrainDraws`), taken from the state's generator unless a caller
 passes them. Checkpoints hold the model, the optimizers, the step and both
-generators' states, for an exact resume. The nerfacto models, the FID suite,
-the mesh-sharded eval and the batched multi-host steps are not ported.
+generators' states, for an exact resume. `eval_metrics` and `eval_fid_suite`
+score the eval split. The nerfacto models, the mesh-sharded eval and the
+batched multi-host steps are not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from neurad_tpu_torch import resolve_device
 from neurad_tpu_torch.cameras.cameras import CameraType, Cameras, full_image_coords, generate_rays
+from neurad_tpu_torch.core.math_utils import chamfer_distance
 from neurad_tpu_torch.core.structs import RayBundle, map_tensors
 from neurad_tpu_torch.data.datamanager import ADDataManager, ADDataManagerConfig
 from neurad_tpu_torch.data.dataparsers.base import ADDataparserOutputs
@@ -37,6 +39,7 @@ from neurad_tpu_torch.engine.optimizers import (
     Optimizers,
 )
 from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
+from neurad_tpu_torch.model_components import losses as L
 from neurad_tpu_torch.model_components.dynamic_actors import (
     ActorEdits,
     actor_data_from_trajectories,
@@ -44,6 +47,7 @@ from neurad_tpu_torch.model_components.dynamic_actors import (
 )
 from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
 from neurad_tpu_torch.models.neurad import LossSettings, MLPProposalSettings, NeuRADModel, SamplingSettings
+from neurad_tpu_torch.utils.eval_metrics import fid, fid_suite_shifts, lpips
 
 CHECKPOINT_PATTERN = "step-*.pt"
 VGG_SEED = 1234
@@ -320,30 +324,45 @@ class ADPipeline:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
+    def _render_camera(self, cam_idx: int, edits: Optional[ActorEdits] = None, shift: Optional[np.ndarray] = None
+                       ) -> Tuple[torch.Tensor, np.ndarray]:
+        """An eval camera's full-image render -> (pred rgb [H', W', 3] on the
+        device, gt rgb). `edits`: actor edits applied at render time; `shift`:
+        a world offset [3] added to every ray's origin."""
+        bundle, gt, (hs, ws) = self.datamanager.eval_camera_bundle(cam_idx)
+        if shift is not None:
+            bundle = bundle.replace(origins=bundle.origins + torch.as_tensor(shift, device=self.device))
+        nff = self._chunked_nff(bundle, all_camera=True, edits=edits)
+        rgb = self.model.decode_features(nff["features"], (hs, ws), hs * ws)[0]
+        return rgb[0], gt
+
+    @torch.no_grad()
     def render_eval_camera(self, cam_idx: int, edits: Optional[ActorEdits] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Full-image render -> (pred rgb [H', W', 3], gt rgb). `edits`: actor
         edits applied at render time."""
-        bundle, gt, (hs, ws) = self.datamanager.eval_camera_bundle(cam_idx)
-        nff = self._chunked_nff(bundle, all_camera=True, edits=edits)
-        rgb = self.model.decode_features(nff["features"], (hs, ws), hs * ws)[0]
-        return rgb[0].cpu().numpy(), gt
+        rgb, gt = self._render_camera(cam_idx, edits)
+        return rgb.cpu().numpy(), gt
 
     @torch.no_grad()
-    def render_eval_lidar(self, scan_idx: int) -> Dict[str, np.ndarray]:
+    def _render_lidar(self, scan_idx: int) -> Dict[str, torch.Tensor]:
+        """An eval scan's render and its ground truth, on the device."""
         bundle, pts = self.datamanager.eval_lidar_bundle(scan_idx)
         nff = self._chunked_nff(bundle, all_camera=False)
         _, intensity, ray_drop = self.model.decode_features(nff["features"], (1, 1), 0)
-        host = lambda x: x.cpu().numpy()
         return {
-            "depth": host(nff["depth"]),
-            "intensity": host(intensity),
-            "ray_drop_logits": host(ray_drop),
-            "gt_distance": host(bundle.metadata["directions_norm"]),
-            "gt_intensity": pts[:, 3:4],
-            "did_return": host(bundle.metadata["did_return"]),
-            "origins": host(bundle.origins),
-            "directions": host(bundle.directions),
+            "depth": nff["depth"],
+            "intensity": intensity,
+            "ray_drop_logits": ray_drop,
+            "gt_distance": bundle.metadata["directions_norm"],
+            "gt_intensity": torch.as_tensor(pts[:, 3:4], device=self.device),
+            "did_return": bundle.metadata["did_return"],
+            "origins": bundle.origins,
+            "directions": bundle.directions,
         }
+
+    @torch.no_grad()
+    def render_eval_lidar(self, scan_idx: int) -> Dict[str, np.ndarray]:
+        return {k: v.cpu().numpy() for k, v in self._render_lidar(scan_idx).items()}
 
     # ------------------------------------------------------------------
     # viewer renders
@@ -410,3 +429,152 @@ class ADPipeline:
         keep = 1.0 / (1.0 + np.exp(-ray_drop.cpu().numpy()[:, 0])) < drop_threshold
         pts = np.asarray(origin)[None] + dirs * depth
         return np.concatenate([pts, intensity], axis=-1)[keep]
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    def _actor_pixel_mask(self, cam_idx: int, hs: int, ws: int) -> Optional[np.ndarray]:
+        """[hs, ws] bool mask (host numpy) of the pixels that the projected
+        boxes of the actors present at the camera's time cover, at the
+        render's resolution; None for a scene without actors."""
+        ad = self.model.actors.data
+        if ad.n_actors == 0:
+            return None
+        cams = self.outputs.cameras
+        host = lambda x: np.asarray(x.cpu() if torch.is_tensor(x) else x)
+        c2w = np.eye(4, dtype=np.float64)
+        c2w[:3] = host(cams.camera_to_worlds[cam_idx])
+        t = 0.0
+        if cams.times is not None:
+            t = float(host(cams.times[cam_idx]).reshape(-1)[0])
+        ti = int(np.argmin(np.abs(ad.unique_timestamps - t)))
+        sx = ws / float(host(cams.width[cam_idx]).reshape(-1)[0])
+        sy = hs / float(host(cams.height[cam_idx]).reshape(-1)[0])
+        fx = float(host(cams.fx[cam_idx]).reshape(-1)[0]) * sx
+        fy = float(host(cams.fy[cam_idx]).reshape(-1)[0]) * sy
+        cx = float(host(cams.cx[cam_idx]).reshape(-1)[0]) * sx
+        cy = float(host(cams.cy[cam_idx]).reshape(-1)[0]) * sy
+
+        r_wc = c2w[:3, :3].T
+        t_w = c2w[:3, 3]
+        mask = np.zeros((hs, ws), dtype=bool)
+        corners_unit = np.array(
+            [[sx_, sy_, sz_] for sx_ in (-1, 1) for sy_ in (-1, 1) for sz_ in (-1, 1)], dtype=np.float64
+        )
+        for a in range(ad.n_actors):
+            if not ad.present[ti, a]:
+                continue
+            b2w = ad.poses[ti, a]
+            half = np.asarray(ad.sizes[a], dtype=np.float64) / 2.0
+            corners_w = (b2w[:3, :3] @ (corners_unit * half).T).T + b2w[:3, 3]
+            p_cam = (r_wc @ (corners_w - t_w).T).T  # the camera looks down -z, y up
+            z = -p_cam[:, 2]
+            if (z <= 0.1).all():
+                continue
+            z = np.clip(z, 0.1, None)
+            us = cx + fx * p_cam[:, 0] / z
+            vs = cy - fy * p_cam[:, 1] / z
+            u0, u1 = int(np.floor(us.min())), int(np.ceil(us.max()))
+            v0, v1 = int(np.floor(vs.min())), int(np.ceil(vs.max()))
+            u0, u1 = max(u0, 0), min(u1, ws)
+            v0, v1 = max(v0, 0), min(v1, hs)
+            if u1 > u0 and v1 > v0:
+                mask[v0:v1, u0:u1] = True
+        return mask
+
+    @torch.no_grad()
+    def eval_metrics(self) -> Dict[str, float]:
+        """Over the eval cameras: PSNR, SSIM and LPIPS, and the PSNR of the
+        pixels under actor boxes weighted by their coverage (`actor_psnr`,
+        `actor_coverage`). Over the eval scans' returns: the median and the
+        relative squared depth error, the intensity RMSE, the ray-drop
+        accuracy and the chamfer distance between the predicted and the
+        measured points (the measured points' mean range where every ray is
+        predicted dropped). On the device; np.median on the host."""
+        metrics: Dict[str, float] = {}
+        cams = self.outputs.eval_camera_indices
+        if cams:
+            if self.vgg is None:  # the LPIPS fallback's network, kept for the FID suite's actor edits (as in JAX)
+                self.vgg = load_vgg19_params(torch.Generator().manual_seed(VGG_SEED), device=self.device)
+            psnrs, ssims, lpipss = [], [], []
+            actor_psnrs, actor_covs = [], []
+            for ci in cams:
+                pred, gt = self._render_camera(ci)
+                gt = torch.as_tensor(gt, device=self.device)
+                psnrs.append(float(L.psnr(pred, gt)))
+                ssims.append(float(L.ssim(pred, gt)))
+                lpipss.append(float(lpips(self.vgg, pred, gt)))
+                amask = self._actor_pixel_mask(ci, pred.shape[0], pred.shape[1])
+                if amask is not None and amask.any():
+                    m = torch.as_tensor(amask, device=self.device)
+                    mse = float(torch.mean((pred[m] - gt[m]) ** 2))
+                    actor_psnrs.append(-10.0 * np.log10(max(mse, 1e-10)))
+                    actor_covs.append(float(amask.mean()))
+            metrics["psnr"] = float(np.mean(psnrs))
+            metrics["ssim"] = float(np.mean(ssims))
+            metrics["lpips"] = float(np.mean(lpipss))
+            if actor_covs:
+                w = np.asarray(actor_covs)
+                metrics["actor_psnr"] = float(np.sum(np.asarray(actor_psnrs) * w) / w.sum())
+                metrics["actor_coverage"] = float(np.mean(w))
+        scans = self.outputs.eval_lidar_indices
+        if scans:
+            med_l2, rel_l2, int_rmse, drop_acc, chamfers = [], [], [], [], []
+            for si in scans:
+                out = self._render_lidar(si)
+                ret = out["did_return"][:, 0]
+                depth, dist = out["depth"][ret], out["gt_distance"][ret]
+                err2 = (depth - dist) ** 2
+                med_l2.append(float(np.median(err2.cpu().numpy())))
+                rel_l2.append(float(torch.mean(err2 / (dist**2).clamp_min(1e-6))))
+                int_rmse.append(float(torch.sqrt(torch.mean((out["intensity"][ret] - out["gt_intensity"][ret]) ** 2))))
+                pred_drop = 1.0 / (1.0 + torch.exp(-out["ray_drop_logits"][:, 0])) > 0.5
+                drop_acc.append(float(torch.mean((pred_drop == ~ret).float())))
+                pred_pts = out["origins"] + out["directions"] * out["depth"]
+                gt_pts = out["origins"] + out["directions"] * out["gt_distance"]
+                if bool((~pred_drop).any()) and bool(ret.any()):
+                    chamfers.append(float(chamfer_distance(pred_pts, gt_pts, pred_mask=~pred_drop, gt_mask=ret)))
+                else:  # every ray predicted dropped
+                    chamfers.append(float(torch.linalg.norm(gt_pts[ret], dim=-1).mean()))
+            metrics["depth_median_l2"] = float(np.mean(med_l2))
+            metrics["depth_mean_rel_l2"] = float(np.mean(rel_l2))
+            metrics["intensity_rmse"] = float(np.mean(int_rmse))
+            metrics["ray_drop_accuracy"] = float(np.mean(drop_acc))
+            metrics["chamfer_distance"] = float(np.mean(chamfers))
+        return metrics
+
+    @torch.no_grad()
+    def eval_fid_suite(self, max_images: Optional[int] = None) -> Dict[str, float]:
+        """Novel-view FID of the first `max_images` eval cameras (all by
+        default) against their images: actor edits (rotation +-0.5 rad,
+        lateral +-2 m, both signs pooled; the features of `eval_metrics`'
+        VGG19 once it has run) where the scene has actors, then lane shifts
+        of 2 and 3 m (signed by the sequence's `lane_shift_sign`) and a
+        vertical shift of 1 m, each moving every ray's origin along the
+        camera's right or up axis."""
+        lane_sign = 1
+        if self.outputs.metadata and "lane_shift_sign" in self.outputs.metadata:
+            lane_sign = int(self.outputs.metadata["lane_shift_sign"])
+        cams = list(self.outputs.eval_camera_indices)
+        if max_images is not None:
+            cams = cams[:max_images]
+        if not cams:
+            return {}
+        real = [self.datamanager.eval_camera_bundle(ci)[1] for ci in cams]
+        metrics: Dict[str, float] = {}
+        if self.model.actors.data.n_actors > 0:
+            actor_edits = {
+                "rot": (ActorEdits(rotation=0.5), ActorEdits(rotation=-0.5)),
+                "trans": (ActorEdits(lateral=2.0), ActorEdits(lateral=-2.0)),
+            }
+            for name, edit_list in actor_edits.items():
+                fakes = [self._render_camera(ci, edits=edit)[0] for edit in edit_list for ci in cams]
+                metrics[f"fid_actor_shift_{name}"] = fid(real, fakes, vgg=self.vgg, device=self.device)
+        for name, (lateral, vertical) in fid_suite_shifts(lane_sign).items():
+            fakes = []
+            for ci in cams:
+                c2w = self.outputs.cameras.camera_to_worlds[ci].cpu().numpy()
+                fakes.append(self._render_camera(ci, shift=c2w[:3, 0] * lateral + c2w[:3, 1] * vertical)[0])
+            metrics[f"fid_{name}"] = fid(real, fakes, device=self.device)
+        return metrics

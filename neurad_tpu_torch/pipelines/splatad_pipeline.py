@@ -8,7 +8,8 @@ training state: the per-group optimizers, the step count and the generator the
 densification draws from. `train_step` takes one camera frame or one lidar
 scan: forward, loss, backward (the tile composites' backward kernels on a CUDA
 device), one optimizer update, then the densification strategy when it is due.
-The batched / mesh-sharded steps of the JAX pipeline are not ported yet.
+`eval_metrics` and `eval_fid_suite` score the eval split. The batched /
+mesh-sharded steps of the JAX pipeline are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from neurad_tpu_torch.data.full_image_datamanager import (
     LidarSample,
 )
 from neurad_tpu_torch.engine.optimizers import OptimizerGroupConfig, Optimizers
+from neurad_tpu_torch.model_components import losses as L
 from neurad_tpu_torch.model_components.dynamic_actors import (
     ActorEdits,
     actor_data_from_trajectories,
@@ -45,6 +47,7 @@ from neurad_tpu_torch.model_components.strategy import (
     should_refine_default,
 )
 from neurad_tpu_torch.models.splatad import SplatADConfig, SplatADModel, seed_gaussians
+from neurad_tpu_torch.utils.eval_metrics import fid, fid_suite_shifts
 
 # Per-group learning-rate presets, grouped by parameter name.
 SPLATAD_OPTIMIZER_GROUPS = {
@@ -339,9 +342,9 @@ class SplatADPipeline:
     # renders
     # ------------------------------------------------------------------
 
-    @torch.inference_mode()
-    def render_eval_camera(self, cam_idx: int, edits: Optional[ActorEdits] = None):
-        """Full-image render -> (pred rgb [H, W, 3], gt rgb), numpy."""
+    def _render_camera(self, cam_idx: int, edits: Optional[ActorEdits] = None) -> torch.Tensor:
+        """An eval camera's full-image render, with its velocity and rolling
+        shutter -> rgb [H, W, 3] on the pipeline's device."""
         s = self.datamanager._camera_sample(cam_idx)
         out = self.model.get_camera_outputs(
             s.c2w, s.K, s.width, s.height, s.time, s.sensor_idx, s.cam_idx,
@@ -350,7 +353,12 @@ class SplatADPipeline:
             time_to_center_pixel=s.time_to_center_pixel,
             edits=edits,
         )
-        return out["rgb"].cpu().numpy(), s.image
+        return out["rgb"]
+
+    @torch.inference_mode()
+    def render_eval_camera(self, cam_idx: int, edits: Optional[ActorEdits] = None):
+        """Full-image render -> (pred rgb [H, W, 3], gt rgb), numpy."""
+        return self._render_camera(cam_idx, edits).cpu().numpy(), self.datamanager._camera_sample(cam_idx).image
 
     @torch.inference_mode()
     def render_eval_lidar(self, scan_idx: int) -> Dict[str, np.ndarray]:
@@ -396,3 +404,110 @@ class SplatADPipeline:
             edits=edits,
         )
         return out["rgb"].cpu().numpy()
+
+    @torch.inference_mode()
+    def render_virtual_lidar(
+        self, origin: np.ndarray, time: float, channels: int = 32, azim_res_deg: float = 1.0, fov_up: float = 5.0,
+        fov_down: float = -15.0, drop_threshold: float = 0.5, edits_vec=None,
+    ) -> np.ndarray:
+        """Virtual-lidar point cloud for the viewer: a spherical scan of
+        `channels` x 360 / `azim_res_deg` beams at `origin` (axes of the
+        world), rendered through the spherical rasterizer; points whose
+        predicted ray-drop probability is below the threshold are kept -> [N,
+        4] (world xyz + intensity). `edits_vec` = (lateral, longitudinal,
+        rotation, height) of every actor."""
+        elev = np.linspace(fov_down, fov_up, channels)
+        azim = np.arange(-180.0, 180.0, azim_res_deg)
+        el, azm = np.meshgrid(elev, azim, indexing="ij")
+        zeros = np.zeros(el.size)
+        pts = np.stack([azm.reshape(-1), el.reshape(-1), zeros, zeros, zeros], axis=-1).astype(np.float32)
+        ev = [0.0] * 4 if edits_vec is None else [float(v) for v in np.asarray(edits_vec, np.float32)[:4]]
+        edits = ActorEdits(lateral=ev[0], longitudinal=ev[1], rotation=ev[2], height=ev[3], index=-1)
+        l2w = np.eye(4, dtype=np.float32)[:3]
+        l2w[:, 3] = np.asarray(origin, np.float32)
+        out = self.model.get_lidar_outputs(l2w, pts, float(time), 0, edits=edits)
+        depth, intensity = out["depth"].cpu().numpy(), out["intensity"].cpu().numpy()
+        keep = 1.0 / (1.0 + np.exp(-out["ray_drop_logits"].cpu().numpy()[:, 0])) < drop_threshold
+        azim_r, elev_r = np.deg2rad(pts[:, 0]), np.deg2rad(pts[:, 1])
+        dirs = np.stack([np.cos(elev_r) * np.cos(azim_r), np.cos(elev_r) * np.sin(azim_r), np.sin(elev_r)], axis=-1)
+        world = np.asarray(origin)[None] + dirs * depth
+        return np.concatenate([world, intensity], axis=-1)[keep]
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    def _render_eval_rgb(self, cam_idx: int, c2w=None) -> torch.Tensor:
+        """An eval camera's render as the metrics take it: the frame's pose
+        (or `c2w`), intrinsics, time and sensor, without velocity or rolling
+        shutter -> rgb [H, W, 3] on the device."""
+        s = self.datamanager._camera_sample(cam_idx)
+        out = self.model.get_camera_outputs(s.c2w if c2w is None else c2w, s.K, s.width, s.height, s.time,
+                                            s.sensor_idx, s.cam_idx)
+        return out["rgb"]
+
+    @torch.inference_mode()
+    def eval_metrics(self) -> Dict[str, float]:
+        """PSNR and SSIM over the eval cameras (on the device), and the depth
+        errors over the eval scans' valid returns: the mean over scans of the
+        median squared error (host numpy) and of the mean squared error
+        relative to the squared distance."""
+        metrics: Dict[str, float] = {}
+        cams = self.outputs.eval_camera_indices
+        if cams:
+            psnrs, ssims = [], []
+            for ci in cams:
+                rgb = self._render_eval_rgb(ci)
+                gt = torch.as_tensor(self.datamanager._camera_sample(ci).image, device=self.device)
+                psnrs.append(float(L.psnr(rgb, gt)))
+                ssims.append(float(L.ssim(rgb, gt)))
+            metrics["psnr"] = float(np.mean(psnrs))
+            metrics["ssim"] = float(np.mean(ssims))
+        scans = self.outputs.eval_lidar_indices
+        if scans:
+            med, rel = [], []
+            for si in scans:
+                s = self.datamanager._lidar_sample(si)
+                out = self.model.get_lidar_outputs(s.l2w, s.raster_pts, s.time, s.sensor_idx)
+                ret = torch.as_tensor(np.asarray(s.valid & s.did_return), device=self.device)
+                dist = torch.as_tensor(s.raster_pts[:, 2], device=self.device)[ret]
+                err2 = (out["depth"][:, 0][ret] - dist) ** 2
+                med.append(float(np.median(err2.cpu().numpy())))
+                rel.append(float(torch.mean(err2 / (dist**2).clamp_min(1e-6))))
+            metrics["depth_median_l2"] = float(np.mean(med))
+            metrics["depth_mean_rel_l2"] = float(np.mean(rel))
+        return metrics
+
+    @torch.inference_mode()
+    def eval_fid_suite(self, max_images: Optional[int] = None) -> Dict[str, float]:
+        """Novel-view FID of the first `max_images` eval cameras (all by
+        default) against their images: actor edits (rotation +-0.5 rad,
+        lateral +-2 m, both signs pooled) where the scene has actors, lane
+        shifts of 2 and 3 m (signed by the sequence's `lane_shift_sign`) and a
+        vertical shift of 1 m, each by moving the camera pose."""
+        lane_sign = 1
+        if self.outputs.metadata and "lane_shift_sign" in self.outputs.metadata:
+            lane_sign = int(self.outputs.metadata["lane_shift_sign"])
+        cams = list(self.outputs.eval_camera_indices)
+        if max_images is not None:
+            cams = cams[:max_images]
+        if not cams:
+            return {}
+        real = [self.datamanager._camera_sample(ci).image for ci in cams]
+        metrics: Dict[str, float] = {}
+        if self.model.actor_data.n_actors > 0:
+            actor_edits = {
+                "rot": (ActorEdits(rotation=0.5), ActorEdits(rotation=-0.5)),
+                "trans": (ActorEdits(lateral=2.0), ActorEdits(lateral=-2.0)),
+            }
+            for name, edit_list in actor_edits.items():
+                fakes = [self._render_camera(ci, edits=edit) for edit in edit_list for ci in cams]
+                metrics[f"fid_actor_shift_{name}"] = fid(real, fakes, device=self.device)
+        for name, (lateral, vertical) in fid_suite_shifts(lane_sign).items():
+            fakes = []
+            for ci in cams:
+                c2w = np.array(self.datamanager._camera_sample(ci).c2w, dtype=np.float32)
+                c2w[:3, 3] += c2w[:3, 0] * lateral + c2w[:3, 1] * vertical
+                fakes.append(self._render_eval_rgb(ci, c2w))
+            metrics[f"fid_{name}"] = fid(real, fakes, device=self.device)
+        return metrics

@@ -12,8 +12,9 @@ Runs on a CUDA device unless `--device cpu` is given. A run directory holds
 presets live in `neurad_tpu_torch/configs/method_configs.py`. A NeuRAD run
 takes its batches from the datamanager's prefetch threads (`iter_train`), or
 from `next_train` when `prefetch` is 0; its log lines carry the train rays
-per second over the steps since the last line. The viewer, the periodic eval
-and TensorBoard are not ported yet.
+per second over the steps since the last line. Every `steps_per_eval_batch`
+steps the loop scores the eval split (`pipeline.eval_metrics()`) and logs
+the results as `eval/<name>`. The viewer and TensorBoard are not ported yet.
 """
 
 from __future__ import annotations
@@ -128,8 +129,10 @@ def train_loop(pipeline: Pipeline, state: TrainState, trainer: TrainerConfig,
     """Steps from `state.step` up to `trainer.max_num_iterations`: one
     `train_step` a batch, a log line every `steps_per_log` steps and at the
     last (with the train rays per second since the previous line, where the
-    batches count rays), a checkpoint every `steps_per_save`. Returns the
-    final state and the metrics of every log line."""
+    batches count rays), the eval metrics every `steps_per_eval_batch` steps
+    (a line of their own, `eval/<name>`), a checkpoint every
+    `steps_per_save`. Returns the final state and the metrics of every log
+    line and eval."""
     batches = train_batches(pipeline)
     history: List[Dict[str, float]] = []
     rays, t_window = 0, time.perf_counter()
@@ -145,6 +148,9 @@ def train_loop(pipeline: Pipeline, state: TrainState, trainer: TrainerConfig,
                         torch.cuda.synchronize(pipeline.device)
                     extra["train_rays_per_sec"] = rays / max(time.perf_counter() - t_window, 1e-9)
                 history.append(_log_step(i, m, extra))
+                rays, t_window = 0, time.perf_counter()
+            if i > 0 and i % trainer.steps_per_eval_batch == 0:
+                history.append(_log_step(i, {f"eval/{k}": v for k, v in pipeline.eval_metrics().items()}))
                 rays, t_window = 0, time.perf_counter()
             if i > 0 and i % trainer.steps_per_save == 0:
                 pipeline.save_checkpoint(state, ckpt_dir)

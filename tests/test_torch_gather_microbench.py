@@ -90,6 +90,7 @@ def test_script_runs_on_the_cpu_at_a_tiny_size(tmp_path, capsys):
     assert all(r["skew"] == "uniform" for r in records if r not in hot)
     for r in records:
         assert r["max_abs_err"] == 0.0 and r["ms"] > 0 and r["library_ms"] > 0 and r["bound_by"] == "bytes"
+        assert r["device_ms"] is None and r["library_device_ms"] is None, "the CPU has no device time"
         assert ("mechanism_ops_ms" in r) == (r["name"] in ("onehot", "scatter_onehot"))
         assert ("relaunch_equal" in r) == r["name"].startswith("scatter_")
         if r["name"] in ("onehot", "scatter_onehot"):

@@ -501,6 +501,39 @@ def test_gather_probes_equal_plain(cuda, t_rows, f, n, spread):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t_rows,f", GM.TABLE_SHAPES)
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 1 << 20])
+def test_serial_gather_at_the_probe_shapes(cuda, t_rows, f, n):
+    """P5 (a thread a row, a block's tile staged and written whole, a
+    persistent grid that walks blocks of 256 queries) equals table[idx] bit
+    for bit at every table shape of the probe run: no query, one, a block's
+    ragged edge, and 2^20 (more blocks of queries than the grid holds), with
+    indices at row 0 and row T - 1 among them."""
+    gen = torch.Generator(device="cuda").manual_seed(n + t_rows)
+    table = torch.randn((t_rows, f), generator=gen, device="cuda").to(torch.bfloat16)
+    idx = torch.randint(0, t_rows, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    idx[: n // 2: 2] = 0
+    idx[1: n // 2: 2] = t_rows - 1
+    before = GM.serial_launches
+    got = GM.gather_rows_serial(table, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (n, f) and torch.equal(got, GM.gather_rows_plain(table, idx))
+    assert GM.serial_launches == before + (n > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [24, 48, 64, 128])
+def test_serial_gather_at_other_row_widths(cuda, f):
+    """Rows of 3, 6, 8 and 16 pieces: one piece at a time, three passes of
+    two, one pass of eight, two passes of eight."""
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    table = torch.randn((3000, f), generator=gen, device="cuda").to(torch.bfloat16)
+    idx = torch.randint(0, 3000, (70001,), generator=gen, device="cuda", dtype=torch.int32)
+    idx[:2] = torch.tensor([0, 2999], dtype=torch.int32)
+    assert torch.equal(GM.gather_rows_serial(table, idx), GM.gather_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
 def test_gather_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     table = torch.zeros((64, 8), dtype=torch.bfloat16, device="cuda")
     idx = torch.zeros((4,), dtype=torch.int32, device="cuda")
@@ -741,3 +774,77 @@ def test_scatter_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     # what they do take: F = 12 for the serial scatter, one update
     out = GM.scatter_rows_serial(idx[:1] + 3, torch.ones((1, 12), device="cuda"), 16)
     assert float(out[3].sum()) == 12.0 and float(out.sum()) == 12.0
+
+
+# ---------------------------------------------------------------------------
+# eval metrics on the card: the metric functions compute where their inputs
+# lie, and both pipelines' eval renders run the ported kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_eval_metrics_on_cuda_tensors_stay_on_the_card(cuda, monkeypatch):
+    """LPIPS (exact and VGG19 fallback), Inception pool3 and the chamfer
+    distance on CUDA tensors return CUDA tensors, and no tensor is copied to
+    the host on the way."""
+    import math
+    import warnings
+
+    from neurad_tpu_torch.core.math_utils import chamfer_distance
+    from neurad_tpu_torch.model_components import inception, lpips_exact
+    from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
+    from neurad_tpu_torch.utils import eval_metrics as EM
+
+    for env in ("NEURAD_TPU_LPIPS_WEIGHTS", "NEURAD_TPU_INCEPTION_WEIGHTS"):
+        monkeypatch.delenv(env, raising=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    conv = lambda o, i, kh, kw: torch.randn((o, i, kh, kw), generator=gen, device="cuda") * math.sqrt(2 / (i * kh * kw))
+    lp = {"convs": [(conv(o, i, 3, 3), torch.zeros(o, device="cuda")) for _, i, o in lpips_exact._VGG16_CONVS],
+          "heads": [torch.rand(c, generator=gen, device="cuda") for c in lpips_exact._HEAD_CH]}
+    inc = {name: (conv(o, i, *k), torch.zeros(o, device="cuda")) for name, i, o, k, _s, _p in inception.conv_specs()}
+    vgg = load_vgg19_params(torch.Generator().manual_seed(0), device="cuda")
+    a, b = (torch.rand((2, 64, 48, 3), generator=gen, device="cuda") for _ in range(2))
+    pts, other = (torch.randn((n, 3), generator=gen, device="cuda") for n in (5000, 3000))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor was copied to the host")
+
+    with monkeypatch.context() as m, warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the fallback's warning
+        m.setattr(torch.Tensor, "cpu", refuse)
+        m.setattr(torch.Tensor, "numpy", refuse)
+        outs = [EM.lpips(vgg, a, b), lpips_exact.lpips_exact(lp, a, b), inception.inception_pool3(inc, a[:1]),
+                chamfer_distance(pts, other, pts[:, 0] > 0, other[:, 1] > 0)]
+    torch.cuda.synchronize()
+    assert outs[2].shape == (1, 2048)
+    assert all(o.device.type == "cuda" and bool(torch.isfinite(o).all()) for o in outs)
+
+
+@pytest.mark.cuda
+def test_both_pipelines_score_their_eval_split_on_the_card(cuda):
+    """`eval_metrics` of the tiny presets on the card: finite values for the
+    JAX package's keys, the eval renders through the tile composites and the
+    hash-grid lookup."""
+    import warnings
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+    from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline
+
+    outputs = SyntheticDataParserConfig(num_frames=8, train_split_fraction=0.75, image_height=72,
+                                        image_width=96).setup().get_dataparser_outputs()
+    c0, l0, h0 = TC.camera_launches, TC.lidar_launches, HE.hash_grid_launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the LPIPS and FID fallbacks' warning
+        splat = SplatADPipeline(outputs, METHODS["splatad-tiny"]().pipeline, device="cuda")
+        ms = splat.eval_metrics()
+        fs = splat.eval_fid_suite(max_images=2)
+        neurad = ADPipeline(outputs, METHODS["neurad-tiny"]().pipeline, device="cuda")
+        mn = neurad.eval_metrics()
+    assert set(ms) == {"psnr", "ssim", "depth_median_l2", "depth_mean_rel_l2"}
+    always = set(ms) | {"lpips", "intensity_rmse", "ray_drop_accuracy", "chamfer_distance"}
+    assert always <= set(mn) <= always | {"actor_psnr", "actor_coverage"}  # the actor's metrics where it is in view
+    assert len(fs) == 5 and all(np.isfinite(v) for d in (ms, mn, fs) for v in d.values())
+    assert TC.camera_launches - c0 >= 2 + 14 and TC.lidar_launches - l0 >= 2 and HE.hash_grid_launches > h0

@@ -15,6 +15,7 @@ from neurad_tpu_torch.configs.method_configs import neurad_tiny_overrides
 from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
 from neurad_tpu_torch.scripts import closed_loop, train
+from neurad_tpu_torch.scripts import eval as eval_script
 
 torch.set_num_threads(1)
 
@@ -39,6 +40,9 @@ def test_importing_every_module_loads_no_jax():
             "neurad_tpu_torch.models.neurad", "neurad_tpu_torch.data.datamanager",
             "neurad_tpu_torch.pipelines.ad_pipeline", "neurad_tpu_torch.benchmarks.gather_microbench"} <= set(mods)
     assert {"neurad_tpu_torch.configs.method_configs", "neurad_tpu_torch.model_components.perceptual"} <= set(mods)
+    assert {"neurad_tpu_torch.utils.eval_metrics", "neurad_tpu_torch.model_components.lpips_exact",
+            "neurad_tpu_torch.model_components.inception", "neurad_tpu_torch.scripts.convert_perceptual_weights",
+            "neurad_tpu_torch.scripts.eval"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -81,6 +85,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         train.entrypoint(["splatad-tiny", "--max-iterations", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         closed_loop.ClosedLoopState.from_run_dir("no-such-run")  # refused before the run is read
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_script.entrypoint(["no-such-run"])  # refused before the run is read
     assert closed_loop.ClosedLoopState(pipeline, device="cpu").pipeline is pipeline
 
 
