@@ -26,8 +26,8 @@ order, within BWD_TOL of each entry's terms' magnitude).
    composite and its backward: T=3780 x P=128 x K=128, C=16, azimuth wrap on),
    on inputs projected and binned from 500,000 seeded gaussians and, for the
    backwards, seeded cotangents that are zero on the rows outside the image,
-   and times both with CUDA events (and the forwards' and the lidar
-   backward's device time from a CUDA graph); the bounds of the camera
+   and times both with CUDA events (and every composite's device time,
+   the backwards' with their d_table fill, from a CUDA graph); the bounds of the camera
    composite and of both lidar kernels count the least work (the plain
    version's alpha terms, counted on the card): the quadratic form alone for
    pairs beyond the far cut, the gated alpha for the other valid pairs, the
@@ -80,7 +80,7 @@ order, within BWD_TOL of each entry's terms' magnitude).
    width (static grid: 8,192 rays x 32 samples from the scene's cameras, bf16
    and fp32 reads; the same N in one cell of the coarsest level; actor grid:
    N=32,768, D=4; the unpacked layout of `neurad-parity`) is held against its
-   plain version, and the probe run includes the three scatter-add probes
+   plain version and timed as a call and as device time, and the probe run includes the three scatter-add probes
    beside index_add_.
 6. NeuRAD train phase: the `neurad` preset at full width (57,344 rays a batch
    in 7 chunks of 8,192, VGG on, five Adam groups), livened weights, 5 steps
@@ -93,7 +93,28 @@ order, within BWD_TOL of each entry's terms' magnitude).
    K1f (NeuRAD); `python -m neurad_tpu_torch.scripts.eval` in process on the
    SplatAD train phase's run directory; `eval_fid_suite(max_images=2)` of both
    models at full width on the scene cut to 8 frames with 2 held out.
-8. Checks the card's renders (SplatAD and NeuRAD) and one train step's
+8. Splatfacto: the `splatfacto` preset at full width (100,000 slots, 30,000
+   gaussians at the start, SH degree 3, 16-px tiles, 256 slots a tile) on the
+   synthetic 1080p scene, six steps through `SplatfactoPipeline.train_step`
+   with two Default-strategy refines (cut from the preset's start at 500 and
+   every 100), one profiled step, `eval_metrics`; then the camera composite
+   and its backward at C = 3 (their CMAX = 8 form) held against their plain
+   versions on the inputs of a real step, timed as the kernel phase's C = 16
+   cases are.
+9. Drive: a logged drive in the KITTI-MOT layout written by
+   `make_kittimot_fixture` (image_02 at 1242x375, about 120,000 HDL-64E
+   returns a scan, OXTS, calibration, tracked cars; 20 frames, cut from a
+   real sequence's hundreds) and parsed by the port's `KittiMotDataParser`
+   with the missing-point synthesis on (timed, the points it adds counted;
+   the frames carry libpng's mix of row filters, and `read_png` is timed
+   alone on five of them);
+   the `neurad` preset trains 3 steps on it (57,344 rays a batch, one more
+   profiled) and the `splatad` preset at least three camera and three lidar
+   steps with MCMC refines (one of each kind profiled); both run
+   `eval_metrics`, and the trained SplatAD serves a closed-loop camera
+   request and renders a scan. The counters must show K1f, K1b, K2, K3, K4
+   and K5 launched in this phase.
+10. Checks the card's renders (SplatAD and NeuRAD) and one train step's
    gradients of each model against the CPU path on small scenes, and the
    metric functions (exact LPIPS and Inception pool3 from seeded weights
    written by the port's converter, the VGG19 fallback LPIPS, the chamfer
@@ -151,6 +172,13 @@ FID_KEYS = {"fid_actor_shift_rot", "fid_actor_shift_trans", "fid_lane_shift_2m",
             "fid_vertical_shift_1m"}
 FID_SCENE = dict(SCENE, num_frames=8, train_split_fraction=0.75)  # the last 2 frames held out: two eval cameras
 FID_IMAGES = 2
+DRIVE_SEQ = "0006"
+DRIVE_FRAMES = 20  # a KITTI-MOT sequence cut to 20 frames (0006 has 270)
+DRIVE_SPLIT = 0.9  # linspaced split: 18 train frames, 2 eval frames
+DECODE_FRAMES = 5  # frames whose `read_png` is timed alone, after the parse
+DRIVE_NEURAD_STEPS = 3  # the first apart
+SPLATFACTO_STEPS = 6
+SPLATFACTO_REFINE = (2, 3)  # refine_start_iter, refine_every (the preset's: 500, 100): refines after steps 3 and 6
 LPIPS_TOL = 1e-4  # metric functions, card against CPU (fp32, TF32 off): relative
 POOL3_TOL = dict(rtol=2e-3, atol=2e-4)  # as the CPU tests hold the pool3 features to JAX's
 CHAMFER_TOL = 1e-5  # relative
@@ -366,7 +394,8 @@ def _cotangents(rng, t_total, p, c, n_extra, outside=None):
     return cots
 
 
-def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input_bytes, c, extra_ops=0, least=None):
+def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input_bytes, c, extra_ops=0, least=None,
+                   zero_columns=()):
     """Hold a backward kernel (reached through its autograd function: `outs`
     were computed from `table`, which requires grad) against its plain version
     and time both (`least`: (operations, bytes) of the least work, the bound
@@ -378,7 +407,9 @@ def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input
     shuffles and the warps and tiles by global atomics, in an order that
     changes from run to run, and the plain version with einsum / cumsum /
     index_add_; both divide by 1 - alpha >= 0.001, which amplifies the rounding
-    of the suffix sum it divides."""
+    of the suffix sum it divides. Every column must get a gradient, bar
+    `zero_columns`, whose gradient must be zero on both sides (a static
+    scene's velocity columns at zero pixel times)."""
     import torch
 
     from neurad_tpu_torch.ops import tile_composite as TC
@@ -405,7 +436,10 @@ def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input
     log(f"[kernels] {label}: two launches on the same inputs differ by at most {run_to_run:.1e} of a column's "
         f"largest entry (atomics)")
     require(bool(torch.isfinite(got).all()), f"{label} output is finite")
-    require(bool((scale > 0).all()), f"{label}: every column gets a gradient")
+    zero = torch.tensor([n in zero_columns for n in names], device=scale.device)
+    require(bool(((scale > 0) | zero).all()), f"{label}: every column gets a gradient")
+    require(not bool(zero.any()) or float((got[:, zero].abs().max())) == 0.0 == float(scale[zero].max()),
+            f"{label}: the columns {zero_columns} get no gradient on either side")
     require(max(to_mag) <= BWD_TOL, f"{label}: every entry within {BWD_TOL} of the sum of its terms' absolute values")
     ms = cuda_time_ms(grad)
     plain_ms = cuda_time_ms(plain_fn, warmup=1, reps=3)
@@ -433,25 +467,26 @@ def backward_check(label, table, outs, cots, plain_fn, valid_slots, pairs, input
     return out
 
 
-def kernel_phase(rng):
+def camera_fwd_check(label, args):
+    """K2 held against its plain version on `args` (`camera_tile_inputs`'
+    outputs), timed as a call and as device time beside the plain version,
+    and its least-work bound -> (record, the kernel's outputs)."""
     import torch
 
     from neurad_tpu_torch.ops import tile_composite as TC
 
-    results = {}
-    # --- camera (K2) ---
-    args = camera_inputs(rng)
     table, tile_gauss, tile_valid, pix, times = args
     t_total, p, k, c = tile_gauss.shape[0], pix.shape[1], tile_gauss.shape[1], table.shape[1] - TC.ATTR
     got = TC.tile_composite_camera(*args)
     _sync()
     ref = TC.tile_composite_camera_plain(*args)
     errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-    log(f"[kernels] camera T={t_total} P={p} K={k} C={c}: valid slots {float((tile_valid > 0).float().mean()):.3f}, "
+    log(f"[kernels] {label} T={t_total} P={p} K={k} C={c}: valid slots {float((tile_valid > 0).float().mean()):.3f}, "
         f"max abs err feat/depth/alpha = {errs}")
-    require(all(math.isfinite(e) for e in errs), "camera kernel output is finite")
-    require(errs[0] <= 1e-4 and errs[2] <= 1e-4, "camera kernel features/alpha within 1e-4 of the plain version")
-    require(errs[1] <= 1e-4 * float(ref[1].abs().max()) + 1e-4, "camera kernel depth within 1e-4 relative")
+    require(all(math.isfinite(e) for e in errs), f"{label} kernel output is finite")
+    require(errs[0] <= 1e-4 and errs[2] <= 1e-4, f"{label} kernel features/alpha within 1e-4 of the plain version")
+    require(errs[1] <= 1e-4 * float(ref[1].abs().max()) + 1e-4, f"{label} kernel depth within 1e-4 relative")
+    del ref
     ms = cuda_time_ms(lambda: TC.tile_composite_camera(*args))
     dev_ms = device_ms(lambda: TC.tile_composite_camera(*args))
     plain_ms = cuda_time_ms(lambda: TC.tile_composite_camera_plain(*args), warmup=1, reps=3)
@@ -468,18 +503,56 @@ def kernel_phase(rng):
                    + _row_bytes(table, tile_gauss, tile_valid) + t_total * p * (c + 2) * 4)
     bound_ms, bound_by = _bound(bytes_moved, ops)
     bound_every_pair_ms, _ = _bound(bytes_moved, ops_every_pair)
-    results["camera"] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by,
-                             pairs=pairs, nonzero_pairs=nonzero, far_pairs=far_pairs, ops=ops, bytes=bytes_moved,
-                             errs=errs,
-                             bound_every_pair_ms=bound_every_pair_ms, patch_pairs=patch_pairs,
-                             far_patch_pairs=far_patches, lit_patch_pairs=lit_patches)
-    log(f"[kernels] camera: {nonzero} of {pairs} valid pairs ({nonzero / pairs:.3f}) pass the alpha gate, "
+    record = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by,
+                  pairs=pairs, nonzero_pairs=nonzero, far_pairs=far_pairs, ops=ops, bytes=bytes_moved,
+                  errs=errs, channels=c, valid_slots=n_valid,
+                  bound_every_pair_ms=bound_every_pair_ms, patch_pairs=patch_pairs,
+                  far_patch_pairs=far_patches, lit_patch_pairs=lit_patches)
+    log(f"[kernels] {label}: {nonzero} of {pairs} valid pairs ({nonzero / pairs:.3f}) pass the alpha gate, "
         f"{far_pairs} ({far_pairs / pairs:.3f}) lie beyond the far cut; kernel "
         f"{ms:.4f} ms a call ({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {ops:.3e} ops, {bytes_moved:.3e} "
         f"bytes; {bound_every_pair_ms:.4f} ms counting the feature work on every valid pair); of {patch_pairs} valid "
         f"(8x4 patch, slot) pairs {far_patches / max(patch_pairs, 1):.3f} lie wholly beyond the far cut, "
         f"{lit_patches / max(patch_pairs, 1):.3f} have a positive alpha")
+    return record, got
+
+
+def camera_bwd_check(label, args, rng, width, height, zero_columns=()):
+    """K3 held against its plain version on `args` with seeded cotangents
+    (zero on the pixels beyond a `width` x `height` image), timed as a call
+    and as device time (K3 with its d_table fill, a CUDA graph of 10 calls)."""
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    table, tile_gauss, tile_valid, pix, times = args
+    t_total, p, c = tile_gauss.shape[0], pix.shape[1], table.shape[1] - TC.ATTR
+    outside = (pix[..., 0] > width) | (pix[..., 1] > height)
+    cots = _cotangents(rng, t_total, p, c, 2, outside if bool(outside.any()) else None)
+    leaf = table.clone().requires_grad_(True)
+    outs = TC.tile_composite_camera(leaf, tile_gauss, tile_valid, pix, times)
+    input_bytes = (tile_gauss.numel() * 4 + tile_valid.numel() * 4 + pix.numel() * 4 + times.numel() * 4
+                   + _row_bytes(table, tile_gauss, tile_valid))
+    record = backward_check(
+        label, leaf, outs, cots,
+        lambda **kw: TC.tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, *cots, **kw),
+        int((tile_valid > 0).sum()), int((tile_valid > 0).sum()) * p, input_bytes, c, zero_columns=zero_columns)
+    fwd = [x.detach() for x in outs]
+    record["device_ms"] = device_ms(lambda: TC._camera_backward(*args, *fwd, *cots))
+    record["channels"] = c
+    log(f"[kernels] {label}: {record['device_ms']:.4f} ms on the device (the d_table fill included)")
+    return record
+
+
+def kernel_phase(rng):
+    import torch
+
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    results = {}
+    # --- camera (K2) ---
+    args = camera_inputs(rng)
+    table, tile_gauss, tile_valid, pix, times = args
+    results["camera"], got = camera_fwd_check("camera", args)
     if PARENT:
         parent_k2 = lambda: PARENT["tile_composite"].tile_composite_camera(*args)
         prev = parent_k2()
@@ -494,16 +567,9 @@ def kernel_phase(rng):
         del prev
 
     # --- camera backward (K3) ---
-    outside = (pix[..., 0] > WIDTH) | (pix[..., 1] > HEIGHT)
-    require(bool(outside.any()), "the last tile row reaches beyond the image")
-    cots = _cotangents(rng, t_total, p, c, 2, outside)
-    leaf = table.clone().requires_grad_(True)
-    outs = TC.tile_composite_camera(leaf, tile_gauss, tile_valid, pix, times)
-    results["camera_bwd"] = backward_check(
-        "camera backward", leaf, outs, cots,
-        lambda **kw: TC.tile_composite_camera_bwd_plain(table, tile_gauss, tile_valid, pix, times, *cots, **kw),
-        n_valid, pairs, bytes_moved - t_total * p * (c + 2) * 4, c)
-    del args, got, ref, table, tile_gauss, tile_valid, pix, times, cots, leaf, outs
+    require(bool(((pix[..., 0] > WIDTH) | (pix[..., 1] > HEIGHT)).any()), "the last tile row reaches beyond the image")
+    results["camera_bwd"] = camera_bwd_check("camera backward", args, rng, WIDTH, HEIGHT)
+    del args, got, table, tile_gauss, tile_valid, pix, times
 
     # --- lidar (K4) ---
     args = lidar_inputs(rng)
@@ -888,14 +954,17 @@ def _hash_grid_bwd_case(label, settings, d, pos, std, gen, results, modes=(True,
         require(err <= BWD_TOL, f"{label} ({mode}): K1b matches the plain backward to {BWD_TOL:g} of the terms' "
                                 f"magnitude (got {err:.3e})")
         ms = cuda_time_ms(lambda: HE.hash_grid_encode_bwd(pos, std, tables, *layout, g))
+        dev_ms = device_ms(lambda: HE.hash_grid_encode_bwd(pos, std, tables, *layout, g))
         zero_ms = cuda_time_ms(lambda: [torch.zeros_like(t) for t in tables])
         plain_ms = cuda_time_ms(lambda: HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g), warmup=1, reps=3)
         key = f"{label}_{mode}"
-        results[key] = dict(max_abs_err=abs_err, max_rel_err=err, run_to_run=run_diff, ms=ms, zero_fill_ms=zero_ms,
+        results[key] = dict(max_abs_err=abs_err, max_rel_err=err, run_to_run=run_diff, ms=ms, device_ms=dev_ms,
+                            zero_fill_ms=zero_ms,
                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, n=n, levels=n_levels,
                             bytes=bytes_moved, ops=ops, distinct_rows=touched, table_mib=table_bytes / 2**20)
         log(f"[k1b] {key}: error {err:.2e} of the terms' magnitude (two launches differ by {run_diff:.2e}); "
-            f"K1b with its zero-filled gradient {ms:.4f} ms (the zero-fill alone {zero_ms:.4f} ms), plain "
+            f"K1b with its zero-filled gradient {ms:.4f} ms a call, {dev_ms:.4f} ms on the device (the zero-fill "
+            f"alone {zero_ms:.4f} ms), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {bytes_moved:.3e} bytes, {ops:.3e} ops)")
         del got, again, want, mag
 
@@ -1587,6 +1656,307 @@ def neurad_train_phase(outputs):
 
 
 # ---------------------------------------------------------------------------
+# drive phase: a logged drive in the KITTI-MOT layout, parsed and trained on
+# ---------------------------------------------------------------------------
+
+
+def _train_steps(pipeline, state, label, kinds, min_steps, refine_due, max_steps=40):
+    """SplatAD steps from `datamanager.next_train` until each kind in `kinds`
+    has `min_steps` steps: each timed on the host clock, synchronised, its loss
+    finite -> (state, {kind: [records]}, refines)."""
+    from neurad_tpu_torch.data.full_image_datamanager import CameraSample
+
+    steps = {k: [] for k in kinds}
+    refines = 0
+    while min(len(v) for v in steps.values()) < min_steps:
+        require(state.step < max_steps, f"{label}: both kinds of sample drawn within {max_steps} steps")
+        sample = pipeline.datamanager.next_train()
+        kind = "camera" if isinstance(sample, CameraSample) else "lidar"
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = pipeline.train_step(state, sample)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        refined = bool(refine_due(state.step))
+        refines += refined
+        loss = float(metrics["total_loss"])
+        require(math.isfinite(loss), f"{label}: step {state.step} loss finite")
+        steps[kind].append(dict(step=state.step, ms=ms, refined=refined, total_loss=loss))
+        log(f"[{label}] step {state.step} {kind}: {ms:.1f} ms (synchronised{', incl. a refine' if refined else ''}), "
+            f"total loss {loss:.5f}")
+    return state, steps, refines
+
+
+def _png_decode_times(paths):
+    """Row-filter counts over `paths` (None, Sub, Up, Average, Paeth) and the
+    host time of `read_png` on each, in ms."""
+    import zlib
+
+    import numpy as np
+
+    from neurad_tpu_torch.data import png
+
+    counts, times = [0] * 5, []
+    for path in paths:
+        data = path.read_bytes()
+        idat = b"".join(body for kind, body in png._chunks(data) if kind == b"IDAT")
+        height, width = png.read_png_size(path)
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, -1)
+        for k in rows[:, 0].tolist():
+            counts[k] += 1
+        t0 = time.perf_counter()
+        png.read_png(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return counts, times
+
+
+def drive_phase():
+    """Train both models on a logged drive: a KITTI-MOT sequence written by
+    `make_kittimot_fixture` at the sensors' sizes (image_02 at 1242x375, about
+    120,000 HDL-64E returns a scan at 10 Hz, OXTS, calibration, tracked cars;
+    DRIVE_FRAMES frames), parsed by the port's `KittiMotDataParser` with the
+    missing-point synthesis on. Then the `neurad` preset (57,344 rays a batch)
+    and the `splatad` preset (500,000 gaussians, MCMC refines) train on it at
+    full width, each scores its eval split with `eval_metrics`, and the trained
+    SplatAD serves a closed-loop camera request and renders a scan. The
+    counters must show K1f, K1b, K2, K3, K4 and K5 launched in this phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.data.dataparsers.ad_dataparser import DUMMY_DISTANCE_VALUE
+    from neurad_tpu_torch.data.dataparsers.fixtures import make_kittimot_fixture
+    from neurad_tpu_torch.data.dataparsers.kitti import KittiMotDataParserConfig
+    from neurad_tpu_torch.model_components.strategy import MCMCStrategyConfig, should_refine
+    from neurad_tpu_torch.models.splatad import SplatADConfig
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.ops import tile_composite as TC
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+    from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
+    from neurad_tpu_torch.scripts.closed_loop import ClosedLoopState
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_kittimot_fixture(tmp, seq=DRIVE_SEQ, n_frames=DRIVE_FRAMES, seed=SEED)
+        res["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outputs = KittiMotDataParserConfig(data=tmp, sequence=DRIVE_SEQ, train_split_fraction=DRIVE_SPLIT
+                                           ).setup().get_dataparser_outputs()
+        res["parse_s"] = time.perf_counter() - t0
+        raw = [int(np.fromfile(f, np.float32).size // 4)
+               for f in sorted((Path(tmp) / "training" / "velodyne" / DRIVE_SEQ).glob("*.bin"))]
+        frames = sorted((Path(tmp) / "training" / "image_02" / DRIVE_SEQ).glob("*.png"))
+        res["row_filters"], res["decode_ms"] = _png_decode_times(frames[:DECODE_FRAMES])
+    missing = [int((np.linalg.norm(pc[:, :3], axis=-1) > 0.99 * DUMMY_DISTANCE_VALUE).sum()) for pc in outputs.point_clouds]
+    h, w = outputs.images[0].shape[:2]
+    res.update(frames=len(outputs.images), image_hw=[h, w], raw_points=raw, missing_points=missing,
+               trajectories=len(outputs.trajectories), labels=sorted(t["label"] for t in outputs.trajectories),
+               eval_cameras=list(outputs.eval_camera_indices))
+    log(f"[drive] KITTI-MOT sequence {DRIVE_SEQ}: {len(outputs.images)} frames at {w}x{h}, written in "
+        f"{res['write_s']:.1f} s, parsed in {res['parse_s']:.2f} s; {min(raw)}-{max(raw)} returns a scan, "
+        f"{min(missing)}-{max(missing)} missing points added a scan ({sum(missing)} in all); "
+        f"{len(outputs.trajectories)} actor tracks {res['labels']}; eval cameras {res['eval_cameras']}")
+    log(f"[drive] image_02 row filters (None, Sub, Up, Average, Paeth) {res['row_filters']}; read_png "
+        f"{', '.join(f'{m:.1f}' for m in res['decode_ms'])} ms a frame ({DECODE_FRAMES} frames)")
+    require(res["row_filters"][3] + res["row_filters"][4] > 0, "the frames hold Average or Paeth rows")
+    require((h, w) == (375, 1242) and len(outputs.images) == DRIVE_FRAMES, "image_02 frames at 1242x375")
+    require(min(raw) >= 100_000, "about 120,000 returns a scan")
+    require(all(m > 0 for m in missing), "the lidar scans hold DUMMY_DISTANCE points")
+    require(sum(lab == "Car" for lab in res["labels"]) >= 2, "two moving cars tracked")
+
+    HE.reset_launch_counts()
+    TC.reset_launch_counts()
+    counts = lambda: {"hash_grid": HE.hash_grid_launches, "hash_grid_bwd": HE.hash_grid_bwd_launches,
+                      "camera": TC.camera_launches, "camera_bwd": TC.camera_bwd_launches,
+                      "lidar": TC.lidar_launches, "lidar_bwd": TC.lidar_bwd_launches}
+
+    # --- NeuRAD at the `neurad` preset's full width ---
+    cfg = METHODS["neurad"]().pipeline
+    cfg.seed = SEED
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipeline = ADPipeline(outputs, cfg, device=DEVICE)
+    state = pipeline.init_state()
+    _sync()
+    n_rays = pipeline.num_cam_rays + cfg.datamanager.num_lidar_rays
+    n_chunks = -(-n_rays // cfg.train_ray_chunk)
+    require(n_rays == 57344, "57,344 rays a batch")
+    log(f"[drive] neurad pipeline + state in {time.perf_counter() - t0:.1f} s")
+    steps = []
+    for i in range(DRIVE_NEURAD_STEPS):
+        bundle, batch = pipeline.datamanager.next_train()
+        f0, b0 = HE.hash_grid_launches, HE.hash_grid_bwd_launches
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = pipeline.train_step(state, bundle, batch)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss = float(metrics["total_loss"])
+        require(math.isfinite(loss), f"drive neurad step {state.step} loss finite")
+        require(HE.hash_grid_launches - f0 == HE.hash_grid_bwd_launches - b0 == 2 * n_chunks,
+                "K1f and K1b twice a chunk (static + actor grid)")
+        steps.append(dict(step=state.step, ms=ms, total_loss=loss, rgb_loss=float(metrics["rgb_loss"]),
+                          depth_loss=float(metrics["depth_loss"])))
+        log(f"[drive] neurad step {state.step}: {ms:.1f} ms (synchronised{', the first' if i == 0 else ''}), total "
+            f"loss {loss:.5f}, rgb {steps[-1]['rgb_loss']:.5f}, depth {steps[-1]['depth_loss']:.4f}")
+    warm = [s["ms"] for s in steps[1:]]
+    prof = profiled("drive neurad train step", lambda: pipeline.train_step(state, *pipeline.datamanager.next_train()),
+                    rows=12, match=HASH_BWD_KERNEL)
+    evaluated = eval_metrics_check("drive neurad", pipeline, NEURAD_EVAL_KEYS, {"hash_grid": 1})
+    res["neurad"] = dict(steps=steps, rays=n_rays, train_rays_per_s=n_rays * len(warm) / (sum(warm) / 1e3),
+                         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         profile={k: v for k, v in prof.items() if k != "all"},
+                         busy_share=prof["device_busy_ms"] / prof["host_ms"], eval=evaluated)
+    log(f"[drive] neurad: first step {steps[0]['ms']:.1f} ms, warm {min(warm):.1f}-{max(warm):.1f} ms "
+        f"({res['neurad']['train_rays_per_s']:.0f} rays/s); the profiled step busy "
+        f"{100 * res['neurad']['busy_share']:.0f}%; peak device memory {res['neurad']['peak_memory_gib']:.2f} GiB")
+    del pipeline, state, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- SplatAD at the `splatad` preset's full width ---
+    scfg = SplatADPipelineConfig(cap_max=N_GAUSS, seed=SEED, model=SplatADConfig(num_downscales=0),
+                                 mcmc=MCMCStrategyConfig(cap_max=N_GAUSS, refine_start_iter=1, refine_every=3))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipeline = SplatADPipeline(outputs, scfg, device=DEVICE)
+    state = pipeline.init_state()
+    _sync()
+    log(f"[drive] splatad pipeline + state in {time.perf_counter() - t0:.1f} s "
+        f"({pipeline.datamanager.all_seed_points().shape[0]} seed points)")
+    state, ssteps, refines = _train_steps(pipeline, state, "drive", ("camera", "lidar"), MIN_STEPS_PER_KIND,
+                                          lambda step: should_refine(step, scfg.mcmc))
+    require(refines >= 1, "at least one MCMC refine on the drive")
+    profile = {}
+    samples = {"camera": pipeline.datamanager._camera_sample(pipeline.datamanager.train_cams[0]),
+               "lidar": pipeline.datamanager._lidar_sample(pipeline.datamanager.train_lidars[0])}
+    for kind, sample in samples.items():
+        while should_refine(state.step + 1, scfg.mcmc):  # keep the refine out of the profiled step
+            state, _ = pipeline.train_step(state, sample)
+        prof = profiled(f"drive splatad {kind} step", lambda: pipeline.train_step(state, sample), rows=10,
+                        match=f"{kind}_bwd_kernel")
+        profile[kind] = {k: v for k, v in prof.items() if k != "all"}
+        profile[kind]["busy_share"] = prof["device_busy_ms"] / prof["host_ms"]
+    sevaluated = eval_metrics_check("drive splatad", pipeline, SPLATAD_EVAL_KEYS, {"camera": 1, "lidar": 1})
+    served = ClosedLoopState(pipeline, device=DEVICE)
+    ci = outputs.eval_camera_indices[0]
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3] = outputs.cameras.camera_to_worlds[ci].numpy()
+    pose[:3, 3] += pose[:3, 0] * 1.0  # a metre to the side
+    img = served.render_image(pose.tolist(), float(outputs.cameras.times[ci, 0]), "image_02")
+    require(img.shape == (375, 1242, 3) and bool(np.isfinite(img).all()), "the trained SplatAD serves a finite image")
+    scan = pipeline.render_eval_lidar(outputs.eval_lidar_indices[0])
+    require(all(bool(np.isfinite(scan[k]).all()) for k in ("depth", "intensity", "ray_drop_logits")), "a finite scan")
+    cam_ms = [r["ms"] for r in ssteps["camera"]]
+    lid_ms = [r["ms"] for r in ssteps["lidar"]]
+    res["splatad"] = dict(steps=ssteps, refines=refines, profile=profile, eval=sevaluated,
+                          served_render_ms=served.last_render_seconds * 1e3,
+                          peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[drive] splatad: camera steps {', '.join(f'{m:.1f}' for m in cam_ms)} ms, lidar steps "
+        f"{', '.join(f'{m:.1f}' for m in lid_ms)} ms ({refines} refines); profiled camera step busy "
+        f"{100 * profile['camera']['busy_share']:.0f}%, lidar {100 * profile['lidar']['busy_share']:.0f}%; closed-loop "
+        f"render {res['splatad']['served_render_ms']:.1f} ms; peak device memory "
+        f"{res['splatad']['peak_memory_gib']:.2f} GiB")
+    res["launches"] = counts()
+    log(f"[drive] kernel launches in this phase: {res['launches']}")
+    require(all(v > 0 for v in res["launches"].values()), "the drive phase launched K1f, K1b, K2, K3, K4 and K5")
+    del pipeline, state, served, outputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# splatfacto phase
+# ---------------------------------------------------------------------------
+
+
+def splatfacto_phase(outputs, rng):
+    """The `splatfacto` preset at full width (100,000 slots, 30,000 alive at the
+    start, SH degree 3, 16-px tiles, 256 slots a tile) on the synthetic 1080p
+    scene: steps through `SplatfactoPipeline.train_step` across Default-strategy
+    refines (timed with and without), `eval_metrics`, and K2 and K3 at C = 3 held
+    against their plain versions on the inputs of a real step (the model's
+    projection and SH colours at a train camera)."""
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.model_components.strategy import DefaultStrategyConfig, should_refine_default
+    from neurad_tpu_torch.models.splatad import viewmat_from_c2w_opengl
+    from neurad_tpu_torch.ops import gaussians as G
+    from neurad_tpu_torch.ops import tile_composite as TC
+    from neurad_tpu_torch.ops.gaussian_rasterize import camera_tile_inputs
+    from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline
+
+    cfg = METHODS["splatfacto"]().pipeline
+    cfg.seed = SEED
+    cfg.strategy = DefaultStrategyConfig(refine_start_iter=SPLATFACTO_REFINE[0], refine_every=SPLATFACTO_REFINE[1])
+    require((cfg.capacity, cfg.num_init, cfg.model.sh_degree, cfg.model.tile_size, cfg.model.max_per_tile)
+            == (100_000, 30_000, 3, 16, 256), "the splatfacto preset's widths")
+    torch.cuda.reset_peak_memory_stats()
+    pipeline = SplatfactoPipeline(outputs, cfg, device=DEVICE)
+    state = pipeline.init_state()
+    TC.reset_launch_counts()
+    steps, alive = [], [pipeline.num_alive()]
+    for _ in range(SPLATFACTO_STEPS):
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = pipeline.train_step(state)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        refined = should_refine_default(state.step, cfg.strategy)
+        loss = float(metrics["total_loss"])
+        require(math.isfinite(loss), f"splatfacto step {state.step} loss finite")
+        alive.append(pipeline.num_alive())
+        if refined:
+            require(int(pipeline._count.sum()) == 0, "the refine used and reset the absgrad sums")
+        steps.append(dict(step=state.step, ms=ms, refined=refined, total_loss=loss, psnr=float(metrics["psnr"]),
+                          alive=alive[-1]))
+        log(f"[splatfacto] step {state.step}: {ms:.1f} ms (synchronised{', incl. a refine' if refined else ''}), "
+            f"loss {loss:.5f}, psnr {float(metrics['psnr']):.2f}, {alive[-1]} gaussians alive")
+    launches = {"camera": TC.camera_launches, "camera_bwd": TC.camera_bwd_launches}
+    require(launches == {"camera": SPLATFACTO_STEPS, "camera_bwd": SPLATFACTO_STEPS},
+            "every splatfacto step launched K2 and K3 once")
+    require(sum(s["refined"] for s in steps) == 2, "two Default refines ran")
+    prof = profiled("splatfacto train step", lambda: pipeline.train_step(state, pipeline.train_indices[0]), rows=10,
+                    match="camera_bwd_kernel")
+    evaluated = eval_metrics_check("splatfacto", pipeline, {"psnr", "ssim", "num_gaussians"}, {"camera": 1})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # K2 and K3 at C = 3 on a real step's inputs
+    model = pipeline.model
+    c2w, K, img = pipeline._camera(pipeline.train_indices[0])
+    h, w = img.shape[:2]
+    with torch.no_grad():
+        c2w_t = torch.as_tensor(c2w, device=DEVICE)
+        proj = G.project_gaussians_camera(
+            model.means, G.quat_scale_to_covar6(model.quats, torch.exp(model.scales)), viewmat_from_c2w_opengl(c2w_t),
+            torch.as_tensor(K, device=DEVICE), w, h, near_plane=cfg.model.near_plane, eps2d=cfg.model.eps2d)
+        binning, table, tile_valid, pix, times = camera_tile_inputs(
+            proj, model._sh_colors(c2w_t[:3, 3]), torch.sigmoid(model.opacities), w, h, cfg.model.tile_size,
+            cfg.model.max_per_tile, cfg.model.max_tiles_per_gaussian)
+    args = (table.contiguous(), binning.tile_gauss, tile_valid, pix, times)
+    require(table.shape[1] - TC.ATTR == 3, "the splatfacto composite carries C = 3 channels")
+    k2, _ = camera_fwd_check("camera C=3 (splatfacto)", args)
+    # a static scene without a rolling shutter: no velocities, every pixel's time 0
+    k3 = camera_bwd_check("camera backward C=3 (splatfacto)", args, rng, w, h,
+                          zero_columns=("vel_x", "vel_y", "depth_vel"))
+    warm = [s["ms"] for s in steps[1:] if not s["refined"]]
+    with_refine = [s["ms"] for s in steps if s["refined"]]
+    log(f"[splatfacto] steps without a refine {', '.join(f'{m:.1f}' for m in warm)} ms, with "
+        f"{', '.join(f'{m:.1f}' for m in with_refine)} ms; profiled step busy "
+        f"{100 * prof['device_busy_ms'] / prof['host_ms']:.0f}%, K3 {prof['matched_ms']:.3f} ms; peak device memory "
+        f"{peak:.2f} GiB")
+    del pipeline, state, model, args, table
+    torch.cuda.empty_cache()
+    return dict(steps=steps, launches=launches, alive=alive, profile={k: v for k, v in prof.items() if k != "all"},
+                eval=evaluated, peak_memory_gib=peak, k2=k2, k3=k3)
+
+
+# ---------------------------------------------------------------------------
 # eval phase
 # ---------------------------------------------------------------------------
 
@@ -2023,8 +2393,11 @@ def main(argv=None) -> int:
     neurad_train_res = timed("neurad_train", neurad_train_phase, outputs)
     torch.cuda.empty_cache()
     train_res = timed("train", train_phase, outputs)
+    torch.cuda.empty_cache()
+    splatfacto_res = timed("splatfacto", splatfacto_phase, outputs, rng)
     del outputs
     torch.cuda.empty_cache()
+    drive_res = timed("drive", drive_phase)
     fid_res = timed("fid", fid_phase)
     ref = timed("reference", reference_phase)
     ref["neurad"] = timed("neurad_reference", neurad_reference_phase)
@@ -2043,7 +2416,7 @@ def main(argv=None) -> int:
     line = {"kernels": [
         {"name": names[key][0], "route": "cuda", "source": names[key][1],
          "replaces": names[key][2], "launches": names[key][3]["launches"][key],
-         "train_launches": train_res["launches"][key],
+         "train_launches": train_res["launches"][key], "drive_launches": drive_res["launches"][key],
          # max_rel_err (backward kernels): the largest error of a column of the table's gradient over that
          # column's largest entry; their absolute errors are large because the gradients are (up to 1e11)
          "max_abs_err": r["max_abs_err"], "max_rel_err": r.get("max_rel_err"), "ms": r["ms"],
@@ -2051,6 +2424,13 @@ def main(argv=None) -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         for key, r in kernels.items()
     ]}
+    # the camera composite and its backward at C = 3 (the CMAX = 8 form) on a splatfacto step's inputs
+    for entry, key in zip(line["kernels"][:2], ("k2", "k3")):
+        r = splatfacto_res[key]
+        entry["splatfacto_launches"] = splatfacto_res["launches"][entry["name"].replace("tile_composite_", "").replace(
+            "_fwd", "")]
+        entry["c3"] = {m: r.get(m) for m in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                             "max_rel_err")}
     # the lookup's line entry is the static grid at a serving chunk's N on uniform positions with bf16 reads of
     # the fp32 master, the case earlier runs reported; the serving state's case (ray-ordered positions, bf16
     # reads of the copy) and the others ride along
@@ -2059,6 +2439,7 @@ def main(argv=None) -> int:
     line["kernels"].append({
         "name": "hash_grid_fwd", "route": "cuda", "source": "neurad_tpu_torch/csrc/hash_grid.cu",
         "replaces": "neurad_tpu/ops/hash_encoding.py:492", "launches": neurad_res["launches"]["hash_grid"],
+        "drive_launches": drive_res["launches"]["hash_grid"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None, "parent": k1.get("parent"),
         "other_shapes": {k: {m: v.get(m) for m in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err", "parent")}
@@ -2069,9 +2450,10 @@ def main(argv=None) -> int:
     line["kernels"].append({
         "name": "hash_grid_bwd", "route": "cuda", "source": "neurad_tpu_torch/csrc/hash_grid.cu",
         "replaces": "neurad_tpu/ops/hash_encoding.py:531", "launches": neurad_train_res["launches"]["hash_grid_bwd"],
+        "drive_launches": drive_res["launches"]["hash_grid_bwd"],
         "max_abs_err": k1b["max_abs_err"], "max_rel_err": k1b["max_rel_err"], "ms": k1b["ms"],
-        "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": None,
-        "other_shapes": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "max_rel_err")}
+        "device_ms": k1b["device_ms"], "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": None,
+        "other_shapes": {k: {m: v[m] for m in ("ms", "device_ms", "plain_ms", "bound_ms", "max_rel_err")}
                          for k, v in hash_bwd.items() if k != "hash_grid_bwd_static_bf16"}})
     # the probes' line entries are the (131072, 32) table on uniform indices, the scatter-adds' with their
     # reading on skewed ones; every shape is in the report
@@ -2098,7 +2480,8 @@ def main(argv=None) -> int:
             "all twelve kernels were launched on their main path")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
                   hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res, ptxas=ptxas,
-                  neurad_train=neurad_train_res, train=train_res, fid=fid_res, reference=ref, phase_seconds=phase_s,
+                  neurad_train=neurad_train_res, train=train_res, splatfacto=splatfacto_res, drive=drive_res,
+                  fid=fid_res, reference=ref, phase_seconds=phase_s,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
     print(smi)

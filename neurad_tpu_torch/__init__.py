@@ -13,7 +13,9 @@ backward as hand-written kernels (`ops/hash_encoding.py`, `csrc/hash_grid.cu`)
 and three row-gather and three row-scatter probes
 (`benchmarks/gather_microbench.py`, `csrc/gather_probes.cu`); eval and
 metrics of both models (`eval_metrics`, the novel-view FID suite,
-`utils/eval_metrics.py`, `scripts/eval.py`).
+`utils/eval_metrics.py`, `scripts/eval.py`); the dataparsers of logged drives
+(`data/dataparsers/`: PandaSet, KITTI-MOT, nuScenes, Argoverse 2, Waymo, ZOD)
+and splatfacto (`models/splatfacto.py`, `pipelines/splatfacto_pipeline.py`).
 The module layout mirrors `neurad_tpu/` so each counterpart is easy to find.
 """
 

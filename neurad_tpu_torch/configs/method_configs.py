@@ -9,14 +9,21 @@
                  fields, one table row per grid corner, every level hashed,
                  fp32 reads and MLPs
   splatad, splatad-default, splatad-tiny   SplatAD (MCMC or Default densification)
+  splatfacto     static 3D gaussian splatting with SH colours, cameras only,
+                 Default densification (100,000 slots, 30,000 at the start)
 
 `pipeline_type` says which pipeline trains a method: "ad" (ray batches,
-`ADPipeline`) or "splatad" (full sensors, `SplatADPipeline`).
+`ADPipeline`), "splatad" (full sensors, `SplatADPipeline`) or "splatfacto"
+(camera frames, `SplatfactoPipeline`).
+
+`get_dataparser(name, **kwargs)` builds a dataparser by name (`DATAPARSERS`):
+the synthetic scene, or a logged drive in one of the real datasets' layouts.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Callable, Dict, Union
 
 from neurad_tpu_torch.data.datamanager import ADDataManagerConfig
@@ -28,6 +35,7 @@ from neurad_tpu_torch.models.neurad import LossSettings, SamplingSettings
 from neurad_tpu_torch.models.splatad import SplatADConfig
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipelineConfig
+from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipelineConfig
 
 
 @dataclasses.dataclass
@@ -42,9 +50,9 @@ class TrainerConfig:
 class MethodConfig:
     method_name: str
     trainer: TrainerConfig
-    pipeline: Union[ADPipelineConfig, SplatADPipelineConfig]
+    pipeline: Union[ADPipelineConfig, SplatADPipelineConfig, SplatfactoPipelineConfig]
     dataparser: str = "synthetic"
-    pipeline_type: str = "ad"  # "ad" (ray batches) | "splatad" (full sensors)
+    pipeline_type: str = "ad"  # "ad" (ray batches) | "splatad" (full sensors) | "splatfacto" (camera frames)
 
 
 def neurad_tiny_overrides() -> dict:
@@ -132,6 +140,11 @@ def _splatad_tiny() -> MethodConfig:
     )
 
 
+def _splatfacto() -> MethodConfig:
+    return MethodConfig("splatfacto", TrainerConfig(steps_per_eval_batch=500), SplatfactoPipelineConfig(),
+                        pipeline_type="splatfacto")
+
+
 METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "neurad": _neurad,
     "neurad-tiny": _neurad_tiny,
@@ -139,4 +152,33 @@ METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "splatad": _splatad,
     "splatad-default": lambda: _splatad("default"),
     "splatad-tiny": _splatad_tiny,
+    "splatfacto": _splatfacto,
 }
+
+
+# dataparser name -> (module, config class); a module is imported only when its parser is asked for
+DATAPARSERS: Dict[str, tuple] = {
+    "synthetic": ("neurad_tpu_torch.data.dataparsers.synthetic", "SyntheticDataParserConfig"),
+    "pandaset": ("neurad_tpu_torch.data.dataparsers.pandaset", "PandaSetDataParserConfig"),
+    "nuscenes": ("neurad_tpu_torch.data.dataparsers.nuscenes", "NuScenesDataParserConfig"),
+    "kitti": ("neurad_tpu_torch.data.dataparsers.kitti", "KittiMotDataParserConfig"),
+    "argoverse2": ("neurad_tpu_torch.data.dataparsers.argoverse2", "Argoverse2DataParserConfig"),
+    "zod": ("neurad_tpu_torch.data.dataparsers.zod", "ZodDataParserConfig"),
+    "waymo": ("neurad_tpu_torch.data.dataparsers.waymo", "WaymoDataParserConfig"),
+}
+
+
+def dataparser_config(name: str, **kwargs):
+    """The config of dataparser `name` with `kwargs` set; lists (as a run's
+    JSON holds them) become the tuples the configs take."""
+    if name not in DATAPARSERS:
+        raise KeyError(f"unknown dataparser {name!r}; available: {sorted(DATAPARSERS)}")
+    module, cls = DATAPARSERS[name]
+    kwargs = {k: tuple(v) if isinstance(v, list) else v for k, v in kwargs.items()}
+    return getattr(importlib.import_module(module), cls)(**kwargs)
+
+
+def get_dataparser(name: str, **kwargs):
+    """A dataparser by name (`neurad_tpu/configs/method_configs.py`
+    `get_dataparser`)."""
+    return dataparser_config(name, **kwargs).setup()

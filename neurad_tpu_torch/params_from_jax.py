@@ -162,3 +162,11 @@ def vgg_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     for name in sorted((k for k in p if k.startswith("conv_")), key=lambda k: int(k.split("_")[1])):
         sd.update(_conv(name, p[name]))
     return sd
+
+
+def splatfacto_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params of `neurad_tpu.models.splatfacto.SplatfactoModel` (or a tree
+    shaped like them: gradients, Adam moments) -> state dict of the port's
+    SplatfactoModel: the same six arrays under the same names."""
+    p = tree["params"] if "params" in tree else tree
+    return {name: _t(p[name]) for name in ("means", "scales", "quats", "sh_dc", "sh_rest", "opacities")}

@@ -50,6 +50,8 @@ from neurad_tpu_torch.models.neurad import LossSettings, MLPProposalSettings, Ne
 from neurad_tpu_torch.utils.eval_metrics import fid, fid_suite_shifts, lpips
 
 CHECKPOINT_PATTERN = "step-*.pt"
+# the perceptual loss's VGG19 without NEURAD_TPU_VGG19_WEIGHTS: torch's generator from this seed, which is not
+# the JAX package's network (drawn from jax.random.PRNGKey(1234)); the same weight file gives both the same one
 VGG_SEED = 1234
 # the settings types a model override may hold, by name (config.json stores them as dicts)
 _SETTINGS = {t.__name__: t for t in (LossSettings, SamplingSettings, MLPProposalSettings, StaticSettings,

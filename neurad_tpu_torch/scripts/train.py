@@ -1,14 +1,19 @@
-"""Train a method on a dataset (torch port of `neurad_tpu/scripts/train.py`,
-on the synthetic scene): the ray-based NeuRAD methods and SplatAD.
+"""Train a method on a dataset (torch port of `neurad_tpu/scripts/train.py`):
+the ray-based NeuRAD methods, SplatAD and splatfacto, on the synthetic scene
+or a logged drive.
 
     python -m neurad_tpu_torch.scripts.train neurad-tiny --device cpu --max-iterations 40 --output-dir outputs
     python -m neurad_tpu_torch.scripts.train neurad --max-iterations 2000 --output-dir outputs
     python -m neurad_tpu_torch.scripts.train splatad --set pipeline.cap_max=200000 --dp-set image_height=480
+    python -m neurad_tpu_torch.scripts.train splatad --dataparser kitti --data data/kitti-mot --sequence 0006
     python -m neurad_tpu_torch.scripts.train neurad --load-dir outputs/<run>      # resume
 
-Runs on a CUDA device unless `--device cpu` is given. A run directory holds
-`config.json` (method, dataparser settings, the pipeline's configuration) and
-`checkpoints/step-<step>.pt`; `load_run` rebuilds either pipeline from it. The
+Runs on a CUDA device unless `--device cpu` is given. `--dataparser` names a
+parser of `configs/method_configs.DATAPARSERS` (default: the method's);
+`--data`, `--sequence` and `--dp-set KEY=VALUE` set its config (a tuple field
+takes comma-separated values). A run directory holds `config.json` (method,
+dataparser name and settings, the pipeline's configuration) and
+`checkpoints/step-<step>.pt`; `load_run` rebuilds the pipeline from it. The
 presets live in `neurad_tpu_torch/configs/method_configs.py`. A NeuRAD run
 takes its batches from the datamanager's prefetch threads (`iter_train`), or
 from `next_train` when `prefetch` is 0; its log lines carry the train rays
@@ -29,17 +34,21 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import torch
 
 from neurad_tpu_torch import resolve_device
-from neurad_tpu_torch.configs.method_configs import METHODS, TrainerConfig
-from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
-from neurad_tpu_torch.pipelines import ad_pipeline, splatad_pipeline
+from neurad_tpu_torch.configs.method_configs import METHODS, TrainerConfig, dataparser_config
+from neurad_tpu_torch.pipelines import ad_pipeline, splatad_pipeline, splatfacto_pipeline
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
+from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline, SplatfactoPipelineConfig
 
-Pipeline = Union[ADPipeline, SplatADPipeline]
-TrainState = Union[ad_pipeline.TrainState, splatad_pipeline.TrainState]
+Pipeline = Union[ADPipeline, SplatADPipeline, SplatfactoPipeline]
+TrainState = Union[ad_pipeline.TrainState, splatad_pipeline.TrainState, splatfacto_pipeline.TrainState]
+PIPELINES = {"ad": (ADPipeline, ADPipelineConfig), "splatad": (SplatADPipeline, SplatADPipelineConfig),
+             "splatfacto": (SplatfactoPipeline, SplatfactoPipelineConfig)}
 
 
 def _parse(value: str, current):
+    if isinstance(current, tuple):
+        return tuple(_parse(v, current[0]) if current else v for v in value.split(","))
     if isinstance(current, bool):
         return value.lower() in ("1", "true", "yes")
     if isinstance(current, int):
@@ -61,14 +70,14 @@ def _with_override(obj, dotted: str, value: str):
     return obj
 
 
-def write_run_config(run_dir, method: str, dp_cfg: SyntheticDataParserConfig,
-                     pipeline_cfg: Union[ADPipelineConfig, SplatADPipelineConfig], seed: int, overrides=()) -> Path:
+def write_run_config(run_dir, method: str, dp_cfg, pipeline_cfg, seed: int, overrides=(),
+                     dataparser: str = "synthetic") -> Path:
     """Start a run directory: `config.json` holds what `load_run` needs to
-    rebuild the scene and the pipeline."""
+    rebuild the scene (the dataparser's name and config) and the pipeline."""
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     (run_dir / "config.json").write_text(json.dumps({
-        "method": method, "dataparser": "synthetic", "dataparser_config": dataclasses.asdict(dp_cfg),
+        "method": method, "dataparser": dataparser, "dataparser_config": dataclasses.asdict(dp_cfg),
         "pipeline": pipeline_cfg.to_dict(), "overrides": list(overrides), "seed": seed,
     }, indent=2))
     return run_dir
@@ -76,9 +85,7 @@ def write_run_config(run_dir, method: str, dp_cfg: SyntheticDataParserConfig,
 
 def _pipeline_classes(method: str):
     """(pipeline class, its config class) of a method."""
-    if METHODS[method]().pipeline_type == "ad":
-        return ADPipeline, ADPipelineConfig
-    return SplatADPipeline, SplatADPipelineConfig
+    return PIPELINES[METHODS[method]().pipeline_type]
 
 
 def load_run(run_dir, device="cuda", with_state: bool = False) -> Tuple[Pipeline, Optional[TrainState]]:
@@ -87,12 +94,10 @@ def load_run(run_dir, device="cuda", with_state: bool = False) -> Tuple[Pipeline
     device = resolve_device(device)
     run_dir = Path(run_dir)
     meta = json.loads((run_dir / "config.json").read_text())
-    if meta["dataparser"] != "synthetic":
-        raise NotImplementedError(f"dataparser {meta['dataparser']!r} is not ported")
     if meta["method"] not in METHODS:
         raise NotImplementedError(f"method {meta['method']!r} is not ported")
     pipeline_cls, cfg_cls = _pipeline_classes(meta["method"])
-    outputs = SyntheticDataParserConfig(**meta["dataparser_config"]).setup().get_dataparser_outputs()
+    outputs = dataparser_config(meta["dataparser"], **meta["dataparser_config"]).setup().get_dataparser_outputs()
     pipeline = pipeline_cls(outputs, cfg_cls.from_dict(meta["pipeline"]), device=device)
     state = pipeline.init_state() if with_state else None
     pipeline.load_checkpoint(run_dir / "checkpoints", state)
@@ -111,7 +116,11 @@ def train_batches(pipeline: Pipeline) -> Iterator[Tuple[tuple, Optional[int]]]:
     state, the batch's ray count). A NeuRAD batch comes from the
     datamanager's prefetch threads (`iter_train`), or from `next_train` when
     `prefetch` is 0, and counts its rays; a SplatAD sample is a frame or a
-    scan and counts none. Closing the iterator stops the threads."""
+    scan and counts none; splatfacto draws its camera in `train_step`.
+    Closing the iterator stops the threads."""
+    if isinstance(pipeline, SplatfactoPipeline):
+        while True:
+            yield (), None
     dm = pipeline.datamanager
     if not isinstance(pipeline, ADPipeline):
         while True:
@@ -162,7 +171,9 @@ def train_loop(pipeline: Pipeline, state: TrainState, trainer: TrainerConfig,
 def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
     parser = argparse.ArgumentParser(description="Train a neurad_tpu_torch method")
     parser.add_argument("method", help=f"method name ({', '.join(METHODS)})")
-    parser.add_argument("--dataparser", default=None, help="dataparser name (only 'synthetic' is ported)")
+    parser.add_argument("--dataparser", default=None, help="dataparser name (default: the method's)")
+    parser.add_argument("--data", default=None, help="dataset root path")
+    parser.add_argument("--sequence", default=None, help="sequence id (dataset-specific)")
     parser.add_argument("--max-iterations", type=int, default=None)
     parser.add_argument("--output-dir", default="outputs")
     parser.add_argument("--experiment-name", default=None)
@@ -172,7 +183,7 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
     parser.add_argument("--set", action="append", default=[], metavar="PATH=VALUE",
                         help="config override, e.g. trainer.steps_per_log=50 or pipeline.train_ray_chunk=4096")
     parser.add_argument("--dp-set", action="append", default=[], metavar="KEY=VALUE",
-                        help="dataparser config override (e.g. image_height=480)")
+                        help="dataparser config override (e.g. image_height=480, cameras=front,back)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if args.method not in METHODS:
@@ -186,11 +197,16 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
         cfg = _with_override(cfg, path, value)
     cfg.pipeline.seed = args.seed
     dataparser = args.dataparser or cfg.dataparser
-    if dataparser != "synthetic":
-        raise NotImplementedError(f"dataparser {dataparser!r} is not ported")
-    dp_cfg = SyntheticDataParserConfig()
+    dp_cfg = dataparser_config(dataparser)
+    for key in ("data", "sequence"):
+        if getattr(args, key) is not None:
+            if not hasattr(dp_cfg, key):
+                raise SystemExit(f"dataparser {dataparser!r} takes no --{key}")
+            setattr(dp_cfg, key, getattr(args, key))
     for ov in args.dp_set:
         key, _, value = ov.partition("=")
+        if not hasattr(dp_cfg, key):
+            raise SystemExit(f"dataparser {dataparser!r} has no setting {key!r}")
         setattr(dp_cfg, key, _parse(value, getattr(dp_cfg, key)))
 
     if args.load_dir:
@@ -199,7 +215,7 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
     else:
         exp_name = args.experiment_name or f"{args.method}-{time.strftime('%Y%m%d-%H%M%S')}"
         run_dir = write_run_config(Path(args.output_dir) / exp_name, args.method, dp_cfg, cfg.pipeline, args.seed,
-                                   args.set)
+                                   args.set, dataparser)
         pipeline_cls, _ = _pipeline_classes(args.method)
         pipeline = pipeline_cls(dp_cfg.setup().get_dataparser_outputs(), cfg.pipeline, device=device)
         state = pipeline.init_state()

@@ -34,7 +34,11 @@ from neurad_tpu_torch.model_components.inception import inception_pool3, load_in
 from neurad_tpu_torch.model_components.lpips_exact import load_lpips_params, lpips_exact
 from neurad_tpu_torch.model_components.perceptual import IMAGENET_MEAN, IMAGENET_STD, Vgg19Slices, load_vgg19_params
 
-FALLBACK_VGG_SEED = 0  # the FID fallback's VGG19 when the caller gives none (JAX: PRNGKey(0))
+# The FID fallback's VGG19 when the caller gives none: torch's generator from this seed. The JAX package draws
+# its network from jax.random.PRNGKey(0), whose threefry numbers torch cannot draw: without
+# NEURAD_TPU_VGG19_WEIGHTS the two packages' fallback networks (and so their fallback LPIPS and FID) differ.
+# With one weight file through that variable both load the same network.
+FALLBACK_VGG_SEED = 0
 
 _EXACT_LPIPS_CACHE: dict = {}
 _INCEPTION_CACHE: dict = {}
@@ -72,10 +76,13 @@ def _fallback_vgg(device: torch.device) -> Vgg19Slices:
 
 
 def _warn_fallback(metric: str, env: str) -> None:
+    seeded = "" if os.environ.get("NEURAD_TPU_VGG19_WEIGHTS") else (
+        " With NEURAD_TPU_VGG19_WEIGHTS unset too, that VGG19 is drawn from torch's generator: it is not the "
+        "JAX package's network, so the two packages' numbers differ.")
     warnings.warn(
         f"{metric}: no pretrained weights ({env} unset/missing) — falling back to "
         "the VGG19 feature statistic. Numbers are RELATIVE-ONLY, not comparable "
-        "to torchmetrics. Convert weights with scripts/convert_perceptual_weights.py.",
+        "to torchmetrics. Convert weights with scripts/convert_perceptual_weights.py." + seeded,
         stacklevel=3,
     )
 
