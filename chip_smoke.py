@@ -4,7 +4,15 @@
     python3 chip_smoke.py [--parent DIR]
 
 `--parent DIR`: another checkout of this repository (say, the parent commit
-unpacked with `git archive`); its hash-grid lookup, tile composite and
+unpacked with `git archive`). First, TURN_ROUNDS rounds of the `neurad`
+preset's training, that checkout's and this tree's, each run in a fresh
+process that imports its own tree's package (`turn_run`), the order
+alternating (parent, change; change, parent; ...): 1 + TURN_STEPS train
+steps on the drive phase's KITTI-MOT sequence (`next_train` batches, the
+median step), then 1 + TURN_STEPS steps of the train script's loop
+(`train_loop`, the preset's sampler threads) on the synthetic scene (rays/s
+over the steps after the first); per metric, the pairs the change won and
+each side's median and quartiles. Then its hash-grid lookup, tile composite and
 gather-probe wrappers are imported from it, with its own build module and C
 interface, their libraries built from its own sources, and its entries
 (`hash_grid_encode`, `tile_composite_camera`, `tile_composite_lidar`, the
@@ -114,7 +122,21 @@ order, within BWD_TOL of each entry's terms' magnitude).
    `eval_metrics`, and the trained SplatAD serves a closed-loop camera
    request and renders a scan. The counters must show K1f, K1b, K2, K3, K4
    and K5 launched in this phase.
-10. Checks the card's renders (SplatAD and NeuRAD) and one train step's
+10. Nerfacto: the `nerfacto` and `nerfacto-lidar` presets at full
+   width (4,096 camera rays in 64 patches of 8x8, plus 4,096 lidar rays;
+   proposal samples 256 and 96, 48 field samples; 16 levels of 2 features
+   in 2^19 buckets, proposals 5 levels in 2^17) on the synthetic 1080p scene
+   through `engine/trainer.Trainer`, 7 steps each (callbacks time every step)
+   and one profiled; K1f and K1b three times a step. Then K1f and K1b at the
+   three grids on the positions of a real `nerfacto` step (4,096 rays x 48,
+   256 and 96 samples; F = 2, one row a grid corner, bucket_pack 2 on the
+   hashed levels): K1f equal to its plain version bit for bit, K1b within
+   BWD_TOL of each entry's terms, timed as a call and as device time beside
+   their bytes bounds. The drive phase trains `nerfacto-lidar` 3 steps on
+   the KITTI-MOT sequence. The presets phase checks `neurad-paper`,
+   `neurader` and `neuradest` (trainer and schedule lengths) and takes one
+   full-width step of `neurad-scaleopt` (SO3xR3 camera optimisation).
+11. Checks the card's renders (SplatAD and NeuRAD) and one train step's
    gradients of each model against the CPU path on small scenes, and the
    metric functions (exact LPIPS and Inception pool3 from seeded weights
    written by the port's converter, the VGG19 fallback LPIPS, the chamfer
@@ -178,12 +200,16 @@ DRIVE_SPLIT = 0.9  # linspaced split: 18 train frames, 2 eval frames
 DECODE_FRAMES = 5  # frames whose `read_png` is timed alone, after the parse
 DRIVE_NEURAD_STEPS = 3  # the first apart
 SPLATFACTO_STEPS = 6
+NERFACTO_STEPS = 6  # warm steps through Trainer, after the first
+NERFACTO_DRIVE_STEPS = 3
 SPLATFACTO_REFINE = (2, 3)  # refine_start_iter, refine_every (the preset's: 500, 100): refines after steps 3 and 6
 LPIPS_TOL = 1e-4  # metric functions, card against CPU (fp32, TF32 off): relative
 POOL3_TOL = dict(rtol=2e-3, atol=2e-4)  # as the CPU tests hold the pool3 features to JAX's
 CHAMFER_TOL = 1e-5  # relative
 K1B_RAYS = 8192  # one train chunk (ADPipelineConfig.train_ray_chunk) of the `neurad` preset ...
 K1B_SAMPLES = 32  # ... times its field samples: the static lookup's N in a train step
+TURN_ROUNDS = 10  # `--parent`: rounds of two fresh-process runs, the parent's and this tree's
+TURN_STEPS = 10  # timed steps a run and metric, after the first
 REPORT = {}
 PARENT = {}  # `--parent DIR`: the lookup and composite libraries built from that checkout's sources
 
@@ -228,6 +254,101 @@ def load_parent(tree):
             del sys.modules[k]
         sys.modules.update(saved)
         sys.path[:] = saved_path
+
+
+def turn_run() -> None:
+    """One run of `--parent`'s turns, in a fresh process whose `sys.path`
+    puts the checkout under test first (`parent_turns`): that checkout's
+    kernels built, the `neurad` preset trained 1 + TURN_STEPS steps on the
+    drive phase's sequence (`drive_outputs`; `next_train` batches outside the
+    clock, each step synchronised and timed), then 1 + TURN_STEPS steps of its
+    train script's loop (`train_loop`, the preset's sampler threads) on the
+    synthetic scene, livened as in the NeuRAD train phase. Only entries that
+    checkouts since the KITTI-MOT fixture have. Prints one line `TURN {...}`."""
+    import tempfile
+
+    import torch
+
+    import neurad_tpu_torch
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.ops import _build
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+    from neurad_tpu_torch.scripts.train import train_loop
+
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = dict(package=str(Path(neurad_tpu_torch.__file__).resolve().parent.parent))
+    with tempfile.TemporaryDirectory() as tmp:
+        outputs = drive_outputs(tmp)[0]
+    cfg = METHODS["neurad"]().pipeline
+    cfg.seed = SEED
+    pipeline = ADPipeline(outputs, cfg, device=DEVICE)
+    state = pipeline.init_state()
+    ms = []
+    for _ in range(TURN_STEPS + 1):
+        batch = pipeline.datamanager.next_train()
+        _sync()
+        t0 = time.perf_counter()
+        state, _ = pipeline.train_step(state, *batch)
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res.update(drive_first_ms=ms[0], drive_ms=ms[1:], drive_median_ms=statistics.median(ms[1:]))
+    del pipeline, state
+    torch.cuda.empty_cache()
+
+    pipeline = ADPipeline(SyntheticDataParserConfig(**SCENE).setup().get_dataparser_outputs(), cfg, device=DEVICE)
+    _liven(pipeline.model)
+    state = pipeline.init_state()
+    n_rays = pipeline.num_cam_rays + cfg.datamanager.num_lidar_rays
+    trainer = METHODS["neurad"]().trainer
+    trainer.max_num_iterations, trainer.steps_per_log, trainer.steps_per_save = TURN_STEPS + 1, 1, 10**9
+    with tempfile.TemporaryDirectory() as tmp:
+        state, history = train_loop(pipeline, state, trainer, Path(tmp))
+    rates = [h["train_rays_per_sec"] for h in history]
+    res.update(loop_rays_per_s_by_step=rates,
+               loop_rays_per_s=n_rays * (len(rates) - 1) / sum(n_rays / r for r in rates[1:]))
+    print("TURN " + json.dumps(res), flush=True)
+
+
+def parent_turns(parent) -> dict:
+    """`--parent`: TURN_ROUNDS rounds of `turn_run`, the parent checkout's
+    run and this tree's, each in a fresh process, the order alternating
+    (parent, change; then change, parent; ...). Host-clock step times differ
+    more between processes than within one, so the two trees are compared
+    across runs: per metric (the drive's median step, lower is better; the
+    synthetic loop's rays/s, higher is better) the pairs the change won (ties
+    count for neither), each side's median, and the parent's quartiles."""
+    trees = {"parent": str(Path(parent).resolve()), "change": str(ROOT)}
+    runs = {name: [] for name in trees}
+    for r in range(TURN_ROUNDS):
+        for name in (("parent", "change") if r % 2 == 0 else ("change", "parent")):
+            code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                    f"sys.path.insert(0, {trees[name]!r}); chip_smoke.turn_run()")
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+            line = [x for x in out.stdout.splitlines() if x.startswith("TURN ")]
+            require(out.returncode == 0 and bool(line), f"turn {r + 1}, {name}: {out.stderr[-2000:]}")
+            run = json.loads(line[0][len("TURN "):])
+            require(run["package"] == trees[name], f"turn {r + 1}, {name}: ran {run['package']}'s package")
+            runs[name].append(run)
+            log(f"[turns] round {r + 1}, {name} ({time.perf_counter() - t0:.0f} s): drive first "
+                f"{run['drive_first_ms']:.1f} ms, median {run['drive_median_ms']:.1f} ms "
+                f"({', '.join(f'{m:.1f}' for m in run['drive_ms'])}); train_loop {run['loop_rays_per_s']:.0f} rays/s")
+    summary = {}
+    for metric, lower_better in (("drive_median_ms", True), ("loop_rays_per_s", False)):
+        par, chg = [r[metric] for r in runs["parent"]], [r[metric] for r in runs["change"]]
+        wins = sum((c < p) if lower_better else (c > p) for p, c in zip(par, chg))
+        losses = sum((c > p) if lower_better else (c < p) for p, c in zip(par, chg))
+        q = statistics.quantiles(par, n=4)
+        summary[metric] = dict(parent=par, change=chg, change_wins=wins, change_losses=losses, pairs=len(par),
+                               parent_median=statistics.median(par), change_median=statistics.median(chg),
+                               parent_quartiles=[q[0], q[2]])
+        log(f"[turns] {metric}: change won {wins}, lost {losses} of {len(par)} pairs; median parent "
+            f"{statistics.median(par):.1f}, change {statistics.median(chg):.1f}; parent quartiles {q[0]:.1f}-{q[2]:.1f}"
+            f" (spread {q[2] - q[0]:.1f})")
+    return dict(runs=runs, summary=summary)
 
 
 def turns(label, parent_fn, fn):
@@ -1710,6 +1831,21 @@ def _png_decode_times(paths):
     return counts, times
 
 
+def drive_outputs(tmp):
+    """The drive: the KITTI-MOT sequence written by `make_kittimot_fixture`
+    into `tmp` and parsed by `KittiMotDataParser`, missing-point synthesis
+    on -> (outputs, seconds to write, seconds to parse)."""
+    from neurad_tpu_torch.data.dataparsers.fixtures import make_kittimot_fixture
+    from neurad_tpu_torch.data.dataparsers.kitti import KittiMotDataParserConfig
+
+    t0 = time.perf_counter()
+    make_kittimot_fixture(tmp, seq=DRIVE_SEQ, n_frames=DRIVE_FRAMES, seed=SEED)
+    t1 = time.perf_counter()
+    outputs = KittiMotDataParserConfig(data=tmp, sequence=DRIVE_SEQ, train_split_fraction=DRIVE_SPLIT
+                                       ).setup().get_dataparser_outputs()
+    return outputs, t1 - t0, time.perf_counter() - t1
+
+
 def drive_phase():
     """Train both models on a logged drive: a KITTI-MOT sequence written by
     `make_kittimot_fixture` at the sensors' sizes (image_02 at 1242x375, about
@@ -1718,8 +1854,10 @@ def drive_phase():
     missing-point synthesis on. Then the `neurad` preset (57,344 rays a batch)
     and the `splatad` preset (500,000 gaussians, MCMC refines) train on it at
     full width, each scores its eval split with `eval_metrics`, and the trained
-    SplatAD serves a closed-loop camera request and renders a scan. The
-    counters must show K1f, K1b, K2, K3, K4 and K5 launched in this phase."""
+    SplatAD serves a closed-loop camera request and renders a scan. Then the
+    `nerfacto-lidar` preset takes NERFACTO_DRIVE_STEPS steps (K1f and K1b three
+    times a step). The counters must show K1f, K1b, K2, K3, K4 and K5
+    launched in this phase."""
     import tempfile
 
     import numpy as np
@@ -1727,8 +1865,6 @@ def drive_phase():
 
     from neurad_tpu_torch.configs.method_configs import METHODS
     from neurad_tpu_torch.data.dataparsers.ad_dataparser import DUMMY_DISTANCE_VALUE
-    from neurad_tpu_torch.data.dataparsers.fixtures import make_kittimot_fixture
-    from neurad_tpu_torch.data.dataparsers.kitti import KittiMotDataParserConfig
     from neurad_tpu_torch.model_components.strategy import MCMCStrategyConfig, should_refine
     from neurad_tpu_torch.models.splatad import SplatADConfig
     from neurad_tpu_torch.ops import hash_encoding as HE
@@ -1739,13 +1875,7 @@ def drive_phase():
 
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        make_kittimot_fixture(tmp, seq=DRIVE_SEQ, n_frames=DRIVE_FRAMES, seed=SEED)
-        res["write_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        outputs = KittiMotDataParserConfig(data=tmp, sequence=DRIVE_SEQ, train_split_fraction=DRIVE_SPLIT
-                                           ).setup().get_dataparser_outputs()
-        res["parse_s"] = time.perf_counter() - t0
+        outputs, res["write_s"], res["parse_s"] = drive_outputs(tmp)
         raw = [int(np.fromfile(f, np.float32).size // 4)
                for f in sorted((Path(tmp) / "training" / "velodyne" / DRIVE_SEQ).glob("*.bin"))]
         frames = sorted((Path(tmp) / "training" / "image_02" / DRIVE_SEQ).glob("*.png"))
@@ -1860,10 +1990,38 @@ def drive_phase():
         f"{100 * profile['camera']['busy_share']:.0f}%, lidar {100 * profile['lidar']['busy_share']:.0f}%; closed-loop "
         f"render {res['splatad']['served_render_ms']:.1f} ms; peak device memory "
         f"{res['splatad']['peak_memory_gib']:.2f} GiB")
+    del served, state, pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- nerfacto-lidar at its preset's width (4,096 camera + 4,096 lidar rays) ---
+    ncfg = METHODS["nerfacto-lidar"]().pipeline
+    ncfg.seed = SEED
+    pipeline = ADPipeline(outputs, ncfg, device=DEVICE)
+    state = pipeline.init_state()
+    f0, b0 = HE.hash_grid_launches, HE.hash_grid_bwd_launches
+    nsteps = []
+    for i in range(NERFACTO_DRIVE_STEPS):
+        bundle, batch = pipeline.datamanager.next_train()
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = pipeline.train_step(state, bundle, batch)
+        _sync()
+        nsteps.append(dict(step=state.step, ms=(time.perf_counter() - t0) * 1e3,
+                           **{k: float(metrics[k]) for k in ("total_loss", "rgb_loss", "depth_loss")}))
+        require(all(math.isfinite(v) for v in nsteps[-1].values()), f"drive nerfacto-lidar step {state.step} finite")
+    nl = {"hash_grid": HE.hash_grid_launches - f0, "hash_grid_bwd": HE.hash_grid_bwd_launches - b0}
+    require(nl == {"hash_grid": 3 * NERFACTO_DRIVE_STEPS, "hash_grid_bwd": 3 * NERFACTO_DRIVE_STEPS},
+            f"drive nerfacto-lidar: K1f and K1b three times a step ({nl})")
+    res["nerfacto_lidar"] = dict(steps=nsteps, launches=nl, rays=int(bundle.origins.shape[0]))
+    step_ms = ", ".join(f"{r['ms']:.1f}" for r in nsteps)
+    losses = ", ".join(f"{r['total_loss']:.4f}" for r in nsteps)
+    log(f"[drive] nerfacto-lidar ({res['nerfacto_lidar']['rays']} rays a batch): steps {step_ms} ms (the first, then "
+        f"warm), losses {losses}, depth {nsteps[-1]['depth_loss']:.3g}; launches {nl}")
     res["launches"] = counts()
     log(f"[drive] kernel launches in this phase: {res['launches']}")
     require(all(v > 0 for v in res["launches"].values()), "the drive phase launched K1f, K1b, K2, K3, K4 and K5")
-    del pipeline, state, served, outputs
+    del pipeline, state, outputs
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -1954,6 +2112,248 @@ def splatfacto_phase(outputs, rng):
     torch.cuda.empty_cache()
     return dict(steps=steps, launches=launches, alive=alive, profile={k: v for k, v in prof.items() if k != "all"},
                 eval=evaluated, peak_memory_gib=peak, k2=k2, k3=k3)
+
+
+# ---------------------------------------------------------------------------
+# nerfacto and the long NeuRAD presets
+# ---------------------------------------------------------------------------
+
+
+def _nerfacto_lookup_case(label, enc, pos, gen, results):
+    """K1f and K1b at one of nerfacto's grids (16 or 5 levels, F = 2, one row
+    a grid corner, hashed levels two buckets a row) on the positions a real
+    nerfacto step looked up, random O(1) tables of the grid's shapes: K1f with
+    bf16 reads of the fp32 master (the train step's read) equal to its plain
+    version bit for bit, K1b (table gradients only, as in the step) within
+    BWD_TOL of each entry's terms; calls, device times (a CUDA graph of 10
+    calls), plain times and the bytes bounds from the rows these positions
+    touch."""
+    import torch
+
+    from neurad_tpu_torch.ops import hash_encoding as HE
+
+    tables = HE.init_hash_tables(gen, enc.scales, 3, enc.table_size, enc.features_per_level, scale=1.0)
+    scales = [float(s) for s in enc.scales]
+    buckets = [t.shape[0] * pk for t, pk in zip(tables, enc.bucket_pack)]
+    n, f, n_levels = pos.shape[0], enc.features_per_level, len(tables)
+    layout = (scales, buckets, enc.dense_res, f, True, False)
+    touched = sum(int(torch.unique(HE.level_index(pos, s, b, r, False)[0]).numel())
+                  for s, b, r in zip(scales, buckets, enc.dense_res))
+    table_bytes = sum(t.numel() for t in tables) * 4
+    log(f"[nerfacto] {label}: N={n} L={n_levels} F={f} unpacked, bucket_pack {enc.bucket_pack}, tables "
+        f"{table_bytes / 2**20:.1f} MiB, {touched} distinct rows of {n * n_levels * 8} row reads")
+
+    @torch.no_grad()
+    def lookup():
+        return HE.hash_grid_encode(pos, None, tables, *layout)
+
+    before = HE.hash_grid_launches
+    got = lookup()
+    _sync()
+    require(DEVICE == "cpu" or HE.hash_grid_launches == before + 1, f"{label}: the wrapper launched K1f")
+    want = HE.hash_grid_encode_plain(pos, None, tables, *layout)
+    require(bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0.1, f"{label}: finite, non-trivial output")
+    require(torch.equal(got, want), f"{label}: K1f equals its plain version bit for bit "
+                                    f"(max abs err {float((got - want).abs().max()):.3e})")
+    fwd_bytes = touched * f * 4 + (pos.numel() + n * n_levels * f) * 4
+    fwd_bound, fwd_by = _bound(fwd_bytes, n * n_levels * (8 * (3 + 2 * f) + 6 * 3 + 8))
+    fwd = dict(max_abs_err=float((got - want).abs().max()), ms=cuda_time_ms(lookup), device_ms=device_ms(lookup),
+               plain_ms=cuda_time_ms(lambda: HE.hash_grid_encode_plain(pos, None, tables, *layout), warmup=1, reps=3),
+               bound_ms=fwd_bound, bound_by=fwd_by, bytes=fwd_bytes, distinct_rows=touched, n=n, levels=n_levels)
+
+    g = torch.randn((n, n_levels * f), generator=gen, device=DEVICE)
+    bwd_call = lambda: HE.hash_grid_encode_bwd(pos, None, tables, *layout, g, positions_grad=False)
+    before = HE.hash_grid_bwd_launches
+    dts, again = bwd_call()[0], bwd_call()[0]
+    _sync()
+    require(DEVICE == "cpu" or HE.hash_grid_bwd_launches == before + 2, f"{label}: the wrapper launched K1b")
+    want_t = HE.hash_grid_encode_bwd_plain(pos, None, tables, *layout, g, positions_grad=False)[0]
+    mag_t = HE.hash_grid_encode_bwd_plain(pos, None, tables, *layout, g, positions_grad=False, magnitude=True)[0]
+    err = max(float(((a - w).abs() / (m + 1e-30)).max()) for a, w, m in zip(dts, want_t, mag_t))
+    run = max(float(((a - b).abs() / (m + 1e-30)).max()) for a, b, m in zip(dts, again, mag_t))
+    abs_err = max(float((a - w).abs().max()) for a, w in zip(dts, want_t))
+    require(all(bool(torch.isfinite(t).all()) and float(t.abs().max()) > 0 for t in dts), f"{label}: K1b finite")
+    require(err <= BWD_TOL, f"{label}: K1b within {BWD_TOL:g} of the terms' magnitude (got {err:.3e})")
+    # g and the positions read once, the dense table gradient written once
+    bwd_bytes = (pos.numel() + g.numel()) * 4 + table_bytes
+    bwd_bound, bwd_by = _bound(bwd_bytes, n * n_levels * (8 * (3 + 4 * f) + 6 * 3 + 8))
+    bwd = dict(max_abs_err=abs_err, max_rel_err=err, run_to_run=run, ms=cuda_time_ms(bwd_call),
+               device_ms=device_ms(bwd_call),
+               plain_ms=cuda_time_ms(lambda: HE.hash_grid_encode_bwd_plain(pos, None, tables, *layout, g,
+                                                                            positions_grad=False), warmup=1, reps=3),
+               bound_ms=bwd_bound, bound_by=bwd_by, bytes=bwd_bytes, table_mib=table_bytes / 2**20, n=n,
+               levels=n_levels)
+    results[label] = dict(fwd=fwd, bwd=bwd)
+    for kind, r in (("K1f", fwd), ("K1b", bwd)):
+        log(f"[nerfacto] {label} {kind}: {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the device, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']:.3e} bytes)"
+            + (f"; error {err:.2e} of the terms' magnitude, two launches {run:.2e}" if kind == "K1b" else ""))
+    del got, want, dts, again, want_t, mag_t
+
+
+def _nerfacto_run(outputs, name):
+    """A nerfacto preset at full width through `Trainer`: NERFACTO_STEPS + 1
+    steps (each timed by callbacks around it, the batch's wait included),
+    three K1f and three K1b launches a step, then one profiled step."""
+    import dataclasses
+
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.engine.callbacks import TrainingCallback, TrainingCallbackLocation
+    from neurad_tpu_torch.engine.trainer import Trainer
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+
+    cfg = METHODS[name]()
+    cfg.pipeline.seed = SEED
+    steps = NERFACTO_STEPS + 1
+    require(cfg.trainer.steps_per_eval_batch > steps, f"{name}: no eval in the run (the JAX package has none)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipeline = ADPipeline(outputs, cfg.pipeline, device=DEVICE)
+    state = pipeline.init_state()
+    _sync()
+    build_s = time.perf_counter() - t0
+    n_rays = pipeline.num_cam_rays + cfg.pipeline.datamanager.num_lidar_rays
+    times = []
+
+    def start(s, i):
+        _sync()
+        times.append(time.perf_counter())
+
+    def stop(s, i):
+        _sync()
+        times[-1] = (time.perf_counter() - times[-1]) * 1e3
+
+    callbacks = [TrainingCallback((TrainingCallbackLocation.BEFORE_TRAIN_ITERATION,), start),
+                 TrainingCallback((TrainingCallbackLocation.AFTER_TRAIN_ITERATION,), stop)]
+    HE.reset_launch_counts()
+    trainer = Trainer(pipeline, state, dataclasses.replace(cfg.trainer, steps_per_log=1, checkpoint_dir=None),
+                      callbacks=callbacks)
+    trainer.train(num_iterations=steps, save_at_end=False)
+    launches = {"hash_grid": HE.hash_grid_launches, "hash_grid_bwd": HE.hash_grid_bwd_launches}
+    require(trainer.state.step == steps and len(trainer.history) == steps, f"{name}: {steps} steps logged")
+    require(all(math.isfinite(h["total_loss"]) for h in trainer.history), f"{name}: finite losses")
+    require(("depth_loss" in trainer.history[-1]) == (name == "nerfacto-lidar"), f"{name}: the depth loss")
+    require(launches == {"hash_grid": 3 * steps, "hash_grid_bwd": 3 * steps},
+            f"{name}: K1f and K1b three times a step (field, two proposals): {launches}")
+    warm = times[1:]
+    prof = profiled(f"{name} train step", lambda: pipeline.train_step(trainer.state, *pipeline.datamanager.next_train()),
+                    rows=10, match=HASH_BWD_KERNEL)
+    in_path = {k: sum(ms for key, ms, _ in prof["all"] if k in key) for k in (HASH_KERNEL, HASH_BWD_KERNEL)}
+    res = dict(rays=n_rays, build_s=build_s, step_ms=times, loss=[h["total_loss"] for h in trainer.history],
+               train_rays_per_s=n_rays * len(warm) / (sum(warm) / 1e3), launches=launches,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               profile={k: v for k, v in prof.items() if k != "all"},
+               busy_share=prof["device_busy_ms"] / prof["host_ms"], k1f_in_step_ms=in_path[HASH_KERNEL],
+               k1b_in_step_ms=in_path[HASH_BWD_KERNEL])
+    log(f"[nerfacto] {name}: {n_rays} rays a batch; built in {build_s:.1f} s; steps through Trainer "
+        f"{', '.join(f'{m:.1f}' for m in times)} ms (the first, then warm: {res['train_rays_per_s']:.0f} rays/s); "
+        f"losses {res['loss'][0]:.4f} -> {res['loss'][-1]:.4f}; launches {launches}; profiled step host "
+        f"{prof['host_ms']:.1f} ms, busy {100 * res['busy_share']:.0f}%, K1f {in_path[HASH_KERNEL]:.3f} ms, K1b "
+        f"{in_path[HASH_BWD_KERNEL]:.3f} ms; peak device memory {res['peak_memory_gib']:.2f} GiB")
+    return pipeline, trainer.state, res
+
+
+def nerfacto_phase(outputs, rng):
+    """The `nerfacto` and `nerfacto-lidar` presets at full width on the
+    synthetic 1080p scene through `Trainer` (NERFACTO_STEPS warm steps each,
+    one profiled), then K1f and K1b at nerfacto's three grids on the positions
+    of a real `nerfacto` step: the field's 16 levels on 4,096 x 48 samples,
+    proposal 0's 5 levels on 4,096 x 256 and proposal 1's on 4,096 x 96."""
+    import torch
+
+    res = {}
+    pipeline, state, res["nerfacto"] = _nerfacto_run(outputs, "nerfacto")
+    model = pipeline.model
+    grids = {"field": model.field.encoding, "proposal_0": model.proposal_0.encoding,
+             "proposal_1": model.proposal_1.encoding}
+    require(len(grids["field"].hash_table) == 16 and grids["field"].bucket_pack.count(2) == 11 and
+            all(len(grids[p].hash_table) == 5 for p in ("proposal_0", "proposal_1")),
+            "nerfacto's grids: 16 levels (eleven of 2^19 buckets, two a row) and two of 5")
+    captured = {}
+    hooks = [enc.register_forward_pre_hook(lambda m, args, key=key: captured.__setitem__(
+        key, args[0].detach().reshape(-1, 3).contiguous())) for key, enc in grids.items()]
+    pipeline.train_step(state, *pipeline.datamanager.next_train())
+    for h in hooks:
+        h.remove()
+    n_rays = pipeline.num_cam_rays
+    require({k: v.shape[0] for k, v in captured.items()} == {"field": n_rays * 48, "proposal_0": n_rays * 256,
+                                                            "proposal_1": n_rays * 96} and n_rays == 4096,
+            "the step looked up 4,096 rays x 48, 256 and 96 samples")
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    res["lookups"] = {}
+    for key, enc in grids.items():
+        _nerfacto_lookup_case(f"nerfacto_{key}", enc, captured[key], gen, res["lookups"])
+    del pipeline, state, model, grids, captured
+    torch.cuda.empty_cache()
+    pipeline, state, res["nerfacto_lidar"] = _nerfacto_run(outputs, "nerfacto-lidar")
+    del pipeline, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def presets_phase(outputs):
+    """The four long NeuRAD presets: `neurad-paper`, `neurader` and
+    `neuradest` are `neurad` trained 4x, 2x and 0.25x as long (iterations,
+    eval and save cadences, every group's schedule length; nothing else
+    differs, so they take no step); `neurad-scaleopt` optimises the cameras
+    (SO3xR3, per-axis weights and translation penalties) and takes one train
+    step at full width, in which its camera group moves."""
+    import dataclasses
+
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+
+    base = METHODS["neurad"]()
+    res = {}
+    for name, scale in (("neurad-paper", 4.0), ("neurader", 2.0), ("neuradest", 0.25)):
+        cfg = METHODS[name]()
+        t, b = cfg.trainer, base.trainer
+        want = (int((b.max_num_iterations - 1) * scale + 1), int(b.steps_per_eval_batch * scale),
+                int(b.steps_per_save * scale))
+        got = (t.max_num_iterations, t.steps_per_eval_batch, t.steps_per_save)
+        groups = cfg.pipeline.optimizer_groups
+        require(got == want and t.steps_per_log == b.steps_per_log, f"{name}: trainer {got}, expected {want}")
+        require(all(groups[g] == dataclasses.replace(c, max_steps=int((c.max_steps - 1) * scale + 1))
+                    for g, c in base.pipeline.optimizer_groups.items()) and set(groups) ==
+                set(base.pipeline.optimizer_groups), f"{name}: every group's schedule {scale}x as long")
+        require(cfg.pipeline.model_overrides == base.pipeline.model_overrides, f"{name}: neurad's model")
+        res[name] = dict(trainer=list(got), max_steps={g: c.max_steps for g, c in groups.items()})
+        log(f"[presets] {name}: {got[0]} iterations, eval every {got[1]}, save every {got[2]}; group schedules "
+            f"{res[name]['max_steps']}")
+    cfg = METHODS["neurad-scaleopt"]()
+    over = cfg.pipeline.model_overrides
+    require(over["camera_opt_mode"] == "SO3xR3" and over["camera_opt_weights"] == (0.01, 0.01, 0.01, 1.0, 1.0, 1.0)
+            and over["camera_opt_trans_penalty"] == (1e-2, 1e-2, 1e-3) and cfg.trainer == base.trainer,
+            "neurad-scaleopt: SO3xR3 with per-axis weights and penalties, neurad's trainer")
+    cfg.pipeline.seed = SEED
+    torch.cuda.reset_peak_memory_stats()
+    pipeline = ADPipeline(outputs, cfg.pipeline, device=DEVICE)
+    _liven(pipeline.model)
+    state = pipeline.init_state()
+    before = pipeline.model.camera_optimizer.pose_adjustment.detach().clone()
+    _sync()
+    t0 = time.perf_counter()
+    state, metrics = pipeline.train_step(state, *pipeline.datamanager.next_train())
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    moved = float((pipeline.model.camera_optimizer.pose_adjustment.detach() - before).abs().max())
+    require(math.isfinite(float(metrics["total_loss"])) and "camera_opt_regularizer" in metrics and moved > 0,
+            "neurad-scaleopt: a finite step with the camera regulariser, the camera group moved")
+    res["neurad-scaleopt"] = dict(step_ms=ms, total_loss=float(metrics["total_loss"]), camera_moved=moved,
+                                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[presets] neurad-scaleopt: one full-width step {ms:.1f} ms (the first), loss "
+        f"{res['neurad-scaleopt']['total_loss']:.4f}, camera adjustments moved by up to {moved:.2e}; peak "
+        f"{res['neurad-scaleopt']['peak_memory_gib']:.2f} GiB")
+    del pipeline, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2313,12 +2713,17 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--parent", default=None,
-                        help="another checkout of this repository (an unpacked parent commit): its hash-grid lookup "
-                             "and camera composite are built and timed in turns with this tree's")
+                        help="another checkout of this repository (an unpacked parent commit): the neurad preset's "
+                             "training in turns with this tree's, fresh processes; its hash-grid lookup, composites "
+                             "and gather probes built and timed in turns with this tree's")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.parent:
+        t0 = time.perf_counter()
+        REPORT["parent_turns"] = parent_turns(args.parent)
+        log(f"[time] parent turns: {time.perf_counter() - t0:.1f} s")
     from neurad_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2395,6 +2800,9 @@ def main(argv=None) -> int:
     train_res = timed("train", train_phase, outputs)
     torch.cuda.empty_cache()
     splatfacto_res = timed("splatfacto", splatfacto_phase, outputs, rng)
+    torch.cuda.empty_cache()
+    nerfacto_res = timed("nerfacto", nerfacto_phase, outputs, rng)
+    presets_res = timed("presets", presets_phase, outputs)
     del outputs
     torch.cuda.empty_cache()
     drive_res = timed("drive", drive_phase)
@@ -2442,6 +2850,8 @@ def main(argv=None) -> int:
         "drive_launches": drive_res["launches"]["hash_grid"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None, "parent": k1.get("parent"),
+        "nerfacto_launches": nerfacto_res["nerfacto"]["launches"]["hash_grid"],
+        "nerfacto": {k: v["fwd"] for k, v in nerfacto_res["lookups"].items()},
         "other_shapes": {k: {m: v.get(m) for m in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err", "parent")}
                          for k, v in hash_kernels.items() if k != main_k1}})
     # K1b's entry is the static grid of a train chunk with bf16 reads (the `neurad` preset's launch); its launches
@@ -2453,6 +2863,8 @@ def main(argv=None) -> int:
         "drive_launches": drive_res["launches"]["hash_grid_bwd"],
         "max_abs_err": k1b["max_abs_err"], "max_rel_err": k1b["max_rel_err"], "ms": k1b["ms"],
         "device_ms": k1b["device_ms"], "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": None,
+        "nerfacto_launches": nerfacto_res["nerfacto"]["launches"]["hash_grid_bwd"],
+        "nerfacto": {k: v["bwd"] for k, v in nerfacto_res["lookups"].items()},
         "other_shapes": {k: {m: v[m] for m in ("ms", "device_ms", "plain_ms", "bound_ms", "max_rel_err")}
                          for k, v in hash_bwd.items() if k != "hash_grid_bwd_static_bf16"}})
     # the probes' line entries are the (131072, 32) table on uniform indices, the scatter-adds' with their
@@ -2481,6 +2893,7 @@ def main(argv=None) -> int:
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
                   hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res, ptxas=ptxas,
                   neurad_train=neurad_train_res, train=train_res, splatfacto=splatfacto_res, drive=drive_res,
+                  nerfacto=nerfacto_res, presets=presets_res,
                   fid=fid_res, reference=ref, phase_seconds=phase_s,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

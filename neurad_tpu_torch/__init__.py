@@ -14,8 +14,12 @@ and three row-gather and three row-scatter probes
 (`benchmarks/gather_microbench.py`, `csrc/gather_probes.cu`); eval and
 metrics of both models (`eval_metrics`, the novel-view FID suite,
 `utils/eval_metrics.py`, `scripts/eval.py`); the dataparsers of logged drives
-(`data/dataparsers/`: PandaSet, KITTI-MOT, nuScenes, Argoverse 2, Waymo, ZOD)
-and splatfacto (`models/splatfacto.py`, `pipelines/splatfacto_pipeline.py`).
+(`data/dataparsers/`: PandaSet, KITTI-MOT, nuScenes, Argoverse 2, Waymo, ZOD),
+splatfacto (`models/splatfacto.py`, `pipelines/splatfacto_pipeline.py`),
+nerfacto and lidar nerfacto (`models/nerfacto.py`, `fields/encodings.py`,
+through the same hash-grid kernels), and the training front end
+(`engine/trainer.py`, callbacks, writers, the profiler, plugins, every preset
+of the JAX package).
 The module layout mirrors `neurad_tpu/` so each counterpart is easy to find.
 """
 

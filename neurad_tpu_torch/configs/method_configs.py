@@ -8,6 +8,13 @@
   neurad-parity  the reference's architecture and numerics: hash-grid proposal
                  fields, one table row per grid corner, every level hashed,
                  fp32 reads and MLPs
+  neurad-paper, neurader, neuradest   `neurad` trained 4x, 2x and 0.25x as long
+                 (iterations, eval and save cadences, every group's schedule)
+  neurad-scaleopt  `neurad` with SO3xR3 camera optimisation, per-axis weights
+                 and translation penalties (tuned for nuScenes)
+  nerfacto, nerfacto-lidar   nerfacto (hash-grid field, two hash-grid proposal
+                 fields) on 64 camera patches of 8 x 8 rays; the lidar variant
+                 adds 4,096 lidar rays and the DS-NeRF depth loss
   splatad, splatad-default, splatad-tiny   SplatAD (MCMC or Default densification)
   splatfacto     static 3D gaussian splatting with SH colours, cameras only,
                  Default densification (100,000 slots, 30,000 at the start)
@@ -16,12 +23,16 @@
 `ADPipeline`), "splatad" (full sensors, `SplatADPipeline`) or "splatfacto"
 (camera frames, `SplatfactoPipeline`).
 
-`get_dataparser(name, **kwargs)` builds a dataparser by name (`DATAPARSERS`):
-the synthetic scene, or a logged drive in one of the real datasets' layouts.
+`get_method_config(name)` builds a preset (or a method another package
+registered, `plugins/registry.py`; a known external method's name gives its
+install instructions). `get_dataparser(name, **kwargs)` builds a dataparser
+by name (`DATAPARSERS`): the synthetic scene, or a logged drive in one of the
+real datasets' layouts. `TrainerConfig` lives in `engine/trainer.py`.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import importlib
 from typing import Callable, Dict, Union
@@ -29,6 +40,7 @@ from typing import Callable, Dict, Union
 from neurad_tpu_torch.data.datamanager import ADDataManagerConfig
 from neurad_tpu_torch.data.full_image_datamanager import FullImageLidarDataManagerConfig
 from neurad_tpu_torch.engine.optimizers import NEURAD_OPTIMIZER_GROUPS, OptimizerGroupConfig
+from neurad_tpu_torch.engine.trainer import TrainerConfig
 from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
 from neurad_tpu_torch.model_components.strategy import MCMCStrategyConfig
 from neurad_tpu_torch.models.neurad import LossSettings, SamplingSettings
@@ -36,14 +48,6 @@ from neurad_tpu_torch.models.splatad import SplatADConfig
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipelineConfig
 from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipelineConfig
-
-
-@dataclasses.dataclass
-class TrainerConfig:
-    max_num_iterations: int = 30001
-    steps_per_save: int = 2000
-    steps_per_log: int = 100
-    steps_per_eval_batch: int = 500  # the train loop runs `pipeline.eval_metrics()` every this many steps
 
 
 @dataclasses.dataclass
@@ -102,6 +106,53 @@ def _neurad_parity() -> MethodConfig:
     return cfg
 
 
+def _scaled(cfg: MethodConfig, scale: float, name: str) -> MethodConfig:
+    """`cfg` trained `scale` times as long: the iteration count, the eval and
+    save cadences and every group's schedule length."""
+    out = copy.deepcopy(cfg)
+    out.method_name = name
+    t = out.trainer
+    t.max_num_iterations = int((t.max_num_iterations - 1) * scale + 1)
+    t.steps_per_eval_batch = int(t.steps_per_eval_batch * scale)
+    t.steps_per_save = int(t.steps_per_save * scale)
+    out.pipeline.optimizer_groups = {
+        g: dataclasses.replace(c, max_steps=int((c.max_steps - 1) * scale + 1))
+        for g, c in out.pipeline.optimizer_groups.items()
+    }
+    return out
+
+
+def _neurad_scaleopt() -> MethodConfig:
+    cfg = _neurad()
+    cfg.method_name = "neurad-scaleopt"
+    cfg.pipeline.model_overrides = dict(
+        cfg.pipeline.model_overrides,
+        camera_opt_mode="SO3xR3",
+        camera_opt_weights=(0.01, 0.01, 0.01, 1.0, 1.0, 1.0),  # x, y, z translation, then rotation
+        camera_opt_trans_penalty=(1e-2, 1e-2, 1e-3),
+    )
+    return cfg
+
+
+def _nerfacto(lidar: bool = False) -> MethodConfig:
+    return MethodConfig(
+        "nerfacto-lidar" if lidar else "nerfacto",
+        TrainerConfig(max_num_iterations=30001, steps_per_eval_batch=500, steps_per_save=2000),
+        ADPipelineConfig(
+            datamanager=ADDataManagerConfig(num_cam_patches=64, patch_size=8, num_lidar_rays=4096 if lidar else 0,
+                                            rgb_upsample_factor=1),
+            model="lidar-nerfacto" if lidar else "nerfacto",
+            optimizer_groups={
+                "fields": OptimizerGroupConfig(lr=1e-2, lr_final=1e-4, max_steps=30001),
+                "hashgrids": OptimizerGroupConfig(lr=1e-2, lr_final=1e-4, max_steps=30001),
+                "camera_opt": OptimizerGroupConfig(lr=1e-4, lr_final=1e-5, warmup_steps=2500),
+                "trajectory_opt": OptimizerGroupConfig(lr=1e-3),
+                "cnn": OptimizerGroupConfig(lr=1e-3),
+            },
+        ),
+    )
+
+
 def _neurad_tiny() -> MethodConfig:
     return MethodConfig(
         "neurad-tiny",
@@ -120,10 +171,13 @@ def _neurad_tiny() -> MethodConfig:
     )
 
 
+def _long_run() -> TrainerConfig:
+    return TrainerConfig(max_num_iterations=30001, steps_per_eval_batch=500, steps_per_save=2000, steps_per_log=100)
+
+
 def _splatad(strategy: str = "mcmc") -> MethodConfig:
     name = "splatad" if strategy == "mcmc" else "splatad-default"
-    return MethodConfig(name, TrainerConfig(steps_per_eval_batch=500), SplatADPipelineConfig(strategy=strategy),
-                        pipeline_type="splatad")
+    return MethodConfig(name, _long_run(), SplatADPipelineConfig(strategy=strategy), pipeline_type="splatad")
 
 
 def _splatad_tiny() -> MethodConfig:
@@ -141,19 +195,42 @@ def _splatad_tiny() -> MethodConfig:
 
 
 def _splatfacto() -> MethodConfig:
-    return MethodConfig("splatfacto", TrainerConfig(steps_per_eval_batch=500), SplatfactoPipelineConfig(),
-                        pipeline_type="splatfacto")
+    return MethodConfig("splatfacto", _long_run(), SplatfactoPipelineConfig(), pipeline_type="splatfacto")
 
 
 METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "neurad": _neurad,
+    "nerfacto": _nerfacto,
+    "nerfacto-lidar": lambda: _nerfacto(lidar=True),
     "neurad-tiny": _neurad_tiny,
+    "neurad-paper": lambda: _scaled(_neurad(), 4.0, "neurad-paper"),
     "neurad-parity": _neurad_parity,
+    "neurader": lambda: _scaled(_neurad(), 2.0, "neurader"),
+    "neuradest": lambda: _scaled(_neurad(), 0.25, "neuradest"),
     "splatad": _splatad,
     "splatad-default": lambda: _splatad("default"),
     "splatad-tiny": _splatad_tiny,
     "splatfacto": _splatfacto,
+    "neurad-scaleopt": _neurad_scaleopt,
 }
+
+
+def get_method_config(name: str) -> MethodConfig:
+    """The configuration of method `name`. A known external method's name
+    raises KeyError with its install instructions."""
+    if name not in METHODS:
+        from neurad_tpu_torch.configs.external_methods import get_external_methods
+
+        external = get_external_methods()
+        if name in external:
+            raise KeyError(f"method {name!r} is an external method.\n{external[name].instructions}")
+        raise KeyError(f"unknown method {name!r}; available: {sorted(METHODS)}")
+    return METHODS[name]()
+
+
+def register_method(name: str, factory: Callable[[], MethodConfig]) -> None:
+    """Add (or replace) a method: a factory of its `MethodConfig`."""
+    METHODS[name] = factory
 
 
 # dataparser name -> (module, config class); a module is imported only when its parser is asked for

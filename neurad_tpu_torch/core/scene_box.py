@@ -18,3 +18,8 @@ class SceneBox:
 
     def get_center(self) -> torch.Tensor:
         return (self.aabb[0] + self.aabb[1]) / 2.0
+
+    @staticmethod
+    def get_normalized_positions(positions: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+        """Positions mapped into [0, 1]^3 by the box [2, 3]."""
+        return (positions - aabb[0]) / (aabb[1] - aabb[0])

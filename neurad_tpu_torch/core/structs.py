@@ -50,6 +50,10 @@ class Frustums:
     def replace(self, **changes) -> "Frustums":
         return dataclasses.replace(self, **changes)
 
+    def get_positions(self) -> torch.Tensor:
+        """Midpoint of each frustum [*batch, 3]."""
+        return self.origins + self.directions * (self.starts + self.ends) / 2.0
+
     def get_fast_isotropic_gaussian(self, num_multisamples: int) -> GaussiansStd:
         """Isotropic gaussian approximation of the frustum: `num_multisamples`
         points evenly inside (starts, ends); std is the cube root of

@@ -14,9 +14,11 @@ What the JAX package's optax chain does, and this module keeps:
   applies. `torch.optim` would skip such a parameter, so `step()` fills
   missing gradients with zeros first;
 - `max_norm` clips a group's gradients by their global norm, as
-  `optax.clip_by_global_norm` does (no epsilon in the divisor).
-
-Per-group gradient accumulation (`accum_steps`) is not ported.
+  `optax.clip_by_global_norm` does (no epsilon in the divisor);
+- `accum_steps` = k > 1 is `optax.MultiSteps(every_k_schedule=k)` around the
+  group's clip and Adam: the group's gradients are averaged over k calls (a
+  running mean, as optax takes it), its optimizer and schedule step on every
+  k-th call with that mean, and its parameters do not move in between.
 """
 
 from __future__ import annotations
@@ -64,8 +66,6 @@ class OptimizerGroupConfig:
         return exponential_decay_schedule(self.lr, self.lr_final, self.max_steps, self.warmup_steps, self.lr_pre_warmup)
 
     def build(self, params: Sequence[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        if self.accum_steps > 1:
-            raise NotImplementedError("per-group gradient accumulation (accum_steps > 1) is not ported")
         if self.weight_decay > 0.0:
             return torch.optim.AdamW(params, lr=self.lr, eps=self.eps, weight_decay=self.weight_decay)
         return torch.optim.Adam(params, lr=self.lr, eps=self.eps)
@@ -114,11 +114,16 @@ class Optimizers:
         self.configs = {g: groups.get(g, fallback) for g in self.params}
         self.schedules = {g: cfg.schedule() for g, cfg in self.configs.items()}
         self.optimizers = {g: self.configs[g].build(ps) for g, ps in self.params.items()}
-        self.count = 0  # updates taken so far
+        self.count = 0  # calls of `step` so far
+        self.updates = {g: 0 for g in self.params}  # each group's optimizer steps (fewer where it accumulates)
+        # accumulating groups: the running mean of the gradients since the group's last update, and its length
+        self.accum = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.params.items()
+                      if self.configs[g].accum_steps > 1}
+        self.mini = {g: 0 for g in self.accum}
 
     def learning_rates(self, step: Optional[int] = None) -> Dict[str, float]:
-        step = self.count if step is None else step
-        return {g: sched(step) for g, sched in self.schedules.items()}
+        """Each group's learning rate at `step` (default: at its next update)."""
+        return {g: sched(self.updates[g] if step is None else step) for g, sched in self.schedules.items()}
 
     def zero_grad(self) -> None:
         for opt in self.optimizers.values():
@@ -130,17 +135,35 @@ class Optimizers:
             for p in self.params[g]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if g in self.accum:
+                n, acc = self.mini[g], self.accum[g]
+                for p, a in zip(self.params[g], acc):
+                    a.add_((p.grad - a) / (n + 1))
+                self.mini[g] = (n + 1) % self.configs[g].accum_steps
+                if self.mini[g] != 0:
+                    continue
+                for p, a in zip(self.params[g], acc):
+                    p.grad.copy_(a)
+                    a.zero_()
             if self.configs[g].max_norm is not None:
                 _clip_by_global_norm(self.params[g], self.configs[g].max_norm)
             for group in opt.param_groups:
-                group["lr"] = self.schedules[g](self.count)
+                group["lr"] = self.schedules[g](self.updates[g])
             opt.step()
+            self.updates[g] += 1
         self.count += 1
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "groups": {g: opt.state_dict() for g, opt in self.optimizers.items()}}
+        return {"count": self.count, "updates": dict(self.updates), "mini": dict(self.mini),
+                "accum": {g: [a.clone() for a in acc] for g, acc in self.accum.items()},
+                "groups": {g: opt.state_dict() for g, opt in self.optimizers.items()}}
 
     def load_state_dict(self, state: dict) -> None:
         self.count = int(state["count"])
+        self.updates = {g: int(state.get("updates", {}).get(g, self.count)) for g in self.params}
+        for g, acc in self.accum.items():
+            self.mini[g] = int(state["mini"][g])
+            for a, saved in zip(acc, state["accum"][g]):
+                a.copy_(saved)
         for g, opt in self.optimizers.items():
             opt.load_state_dict(state["groups"][g])

@@ -7,7 +7,7 @@ default, None for fp32) with fp32 parameters and fp32 outputs.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -15,10 +15,10 @@ from torch import nn
 
 
 class MLP(nn.Module):
-    """ReLU multi-layer perceptron with raw outputs. num_layers counts Linear
-    layers (num_layers=2 means one hidden layer). The JAX module's skip
-    connections and output activation are not ported: no ported model uses
-    them."""
+    """ReLU multi-layer perceptron. num_layers counts Linear layers
+    (num_layers=2 means one hidden layer). `skip_connections`: hidden layer i
+    (i > 0) takes the MLP's input concatenated to its own. `out_activation`
+    is applied to the fp32 output (None: raw outputs)."""
 
     def __init__(
         self,
@@ -27,12 +27,18 @@ class MLP(nn.Module):
         num_layers: int = 2,
         layer_width: int = 64,
         compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+        skip_connections: Sequence[int] = (),
+        out_activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ):
         super().__init__()
         self.num_layers = num_layers
         self.compute_dtype = compute_dtype
+        self.skips = frozenset(i for i in skip_connections if i > 0)
+        self.out_activation = out_activation
         width = in_dim
         for i in range(num_layers - 1):
+            if i in self.skips:
+                width += in_dim
             setattr(self, f"hidden_{i}", nn.Linear(width, layer_width))
             width = layer_width
         self.output = nn.Linear(width, out_dim)
@@ -45,6 +51,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x if self.compute_dtype is None else x.to(self.compute_dtype)
+        inp = h if self.skips else None  # held only where a layer takes it again
         for i in range(self.num_layers - 1):
+            if i in self.skips:
+                h = torch.cat([h, inp], dim=-1)
             h = torch.relu(self._linear(getattr(self, f"hidden_{i}"), h))
-        return self._linear(self.output, h).float()
+        out = self._linear(self.output, h).float()
+        return out if self.out_activation is None else self.out_activation(out)

@@ -5,8 +5,9 @@ interlevel). Sample histograms come in as (sdist [R, S+1], weights [R, S])
 pairs. The JAX package's `take_along_small` is `torch.gather` here (the same
 values and gradients); its `searchsorted_dense` stays a count of the entries
 below each query (`_searchsorted`), which `torch.searchsorted` equals only on
-sorted input. Not ported yet: gradient scaling by distance, the depth-ranking,
-DS-NeRF and URF depth losses.
+sorted input. The lidar nerfacto model adds gradient scaling by distance and
+the DS-NeRF depth loss. Not ported yet: the depth-ranking and URF depth
+losses.
 """
 
 from __future__ import annotations
@@ -196,3 +197,19 @@ def ssim(
     num = (2 * mu_pg + c1) * (2 * sigma_pg + c2)
     den = (mu_p2 + mu_g2 + c1) * (sigma_p2 + sigma_g2 + c2)
     return torch.mean(num / den)
+
+
+def gradient_scaling_by_distance_squared(values: torch.Tensor, ray_dist: torch.Tensor) -> torch.Tensor:
+    """The values unchanged; their gradient scaled by clamp(dist^2, 0, 1)."""
+    scale = torch.clamp(ray_dist**2, 0.0, 1.0)
+    return values * scale + (values * (1.0 - scale)).detach()
+
+
+def ds_nerf_depth_loss(weights: torch.Tensor, termination_depth: torch.Tensor, steps: torch.Tensor,
+                       lengths: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """DS-NeRF's depth likelihood: weights, steps, lengths [R, S, 1],
+    termination_depth [R, 1]; rays of depth 0 count as zeros in the mean."""
+    depth_mask = termination_depth > 0
+    loss = -torch.log(weights + EPS) * torch.exp(-((steps - termination_depth[:, None]) ** 2) / (2 * sigma)) * lengths
+    loss = torch.sum(loss, dim=-2) * depth_mask
+    return torch.mean(loss)

@@ -170,3 +170,32 @@ def splatfacto_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     SplatfactoModel: the same six arrays under the same names."""
     p = tree["params"] if "params" in tree else tree
     return {name: _t(p[name]) for name in ("means", "scales", "quats", "sh_dc", "sh_rest", "opacities")}
+
+
+def _hash_encoding(prefix: str, p: Mapping, like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """flax params of a `HashEncoding` (one 1-D leaf a level) -> the port's
+    per-level tables, in the physical shapes of `like`."""
+    return {f"{prefix}.hash_table.{i}": _t(leaf).reshape(like[f"{prefix}.hash_table.{i}"].shape)
+            for i, leaf in enumerate(p["hash_table"])}
+
+
+def nerfacto_params_from_flax(tree: Mapping, like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """flax params of `neurad_tpu.models.nerfacto.NerfactoModel` (or a tree
+    shaped like them: gradients, Adam moments) -> state dict of the port's
+    NerfactoModel. `like` is the target model's own state dict: it gives the
+    tables' 2-D shapes."""
+    p = tree["params"] if "params" in tree else tree
+    field = p["field"]
+    sd = _hash_encoding("field.encoding", field["encoding"], like)
+    sd.update(mlp_from_flax("field.mlp_base", field["mlp_base"]))
+    sd.update(mlp_from_flax("field.mlp_head", field["mlp_head"]))
+    if "appearance_embedding" in field:
+        sd["field.appearance_embedding.weight"] = _t(field["appearance_embedding"]["embedding"])
+    for name in ("proposal_0", "proposal_1"):
+        prop = p[name]
+        sd.update(_hash_encoding(f"{name}.encoding", prop["encoding"], like))
+        head = prop["head"]
+        sd.update(_dense(f"{name}.head", head) if "kernel" in head else mlp_from_flax(f"{name}.head", head))
+    for name, value in p.get("camera_optimizer", {}).items():
+        sd[f"camera_optimizer.{name}"] = _t(value)
+    return sd

@@ -1,7 +1,7 @@
 """AD pipeline (torch port of `neurad_tpu/pipelines/ad_pipeline.py`): builds
-the NeuRAD model from parsed data, trains it on ray batches, and renders full
-sensors chunk-wise (eval cameras and lidar scans, the viewer's camera frame
-and virtual lidar).
+the NeuRAD model (or a nerfacto model) from parsed data, trains it on ray
+batches, and renders full sensors chunk-wise (eval cameras and lidar scans,
+the viewer's camera frame and virtual lidar).
 
 The pipeline owns its model, and the model owns the parameters (the JAX
 pipeline carries them in a TrainState). `init_state` makes the rest of the
@@ -12,8 +12,18 @@ backward kernel on a CUDA device), one update of every group. Random draws
 are explicit (`TrainDraws`), taken from the state's generator unless a caller
 passes them. Checkpoints hold the model, the optimizers, the step and both
 generators' states, for an exact resume. `eval_metrics` and `eval_fid_suite`
-score the eval split. The nerfacto models, the mesh-sharded eval and the
-batched multi-host steps are not ported.
+score the eval split.
+
+`model` "nerfacto" or "lidar-nerfacto" trains the nerfacto models on the same
+batches: the rgb loss on the camera rays, no chunking and no VGG, the same
+train step and checkpoints. The lidar variant's depth loss takes the lidar
+rays' weights (the JAX package's pipeline hands the model's all-ray weights
+with the lidar-only distances to the loss, and its step fails on any batch
+with lidar rays). The JAX package cannot evaluate or render a nerfacto model
+(its renders apply NeuRAD methods to it and raise AttributeError), so here
+the renders, `eval_metrics` and `eval_fid_suite` raise NotImplementedError
+for one. The mesh-sharded eval and the batched multi-host steps are not
+ported.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from neurad_tpu_torch import resolve_device
 from neurad_tpu_torch.cameras.cameras import CameraType, Cameras, full_image_coords, generate_rays
@@ -46,10 +57,16 @@ from neurad_tpu_torch.model_components.dynamic_actors import (
     empty_actor_data,
 )
 from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
+from neurad_tpu_torch.models.nerfacto import NerfactoModel
 from neurad_tpu_torch.models.neurad import LossSettings, MLPProposalSettings, NeuRADModel, SamplingSettings
 from neurad_tpu_torch.utils.eval_metrics import fid, fid_suite_shifts, lpips
 
 CHECKPOINT_PATTERN = "step-*.pt"
+MODELS = ("neurad", "nerfacto", "lidar-nerfacto")
+NERFACTO_EVAL_FAULT = (
+    "the JAX package cannot evaluate or render a nerfacto model (its ADPipeline applies NeuRADModel methods to "
+    "it: AttributeError, neurad_tpu/pipelines/ad_pipeline.py:303-401); a nerfacto eval would have to be added to "
+    "both packages")
 # the perceptual loss's VGG19 without NEURAD_TPU_VGG19_WEIGHTS: torch's generator from this seed, which is not
 # the JAX package's network (drawn from jax.random.PRNGKey(1234)); the same weight file gives both the same one
 VGG_SEED = 1234
@@ -118,10 +135,11 @@ class TrainState:
 class ChunkDraws(NamedTuple):
     """One feature-field render's random draws: the sampler's uniform jitter
     per round ([R, 1] with single jitter, else [R, S + 1]) and the actor flip's
-    uniform draw per ray [R]."""
+    uniform draw per ray [R] (None for a nerfacto model, which flips
+    nothing)."""
 
     jitters: Tuple[torch.Tensor, ...]
-    flip: torch.Tensor
+    flip: Optional[torch.Tensor]
 
 
 # a train step's draws: one ChunkDraws per chunk of `train_ray_chunk` rays (one when the batch is not chunked)
@@ -134,8 +152,8 @@ class ADPipeline:
     def __init__(self, outputs: ADDataparserOutputs, config: Optional[ADPipelineConfig] = None, device="cuda"):
         self.device = resolve_device(device)
         self.config = config or ADPipelineConfig()
-        if self.config.model != "neurad":
-            raise NotImplementedError(f"model {self.config.model!r} is not ported; only 'neurad' is")
+        if self.config.model not in MODELS:
+            raise ValueError(f"unknown model {self.config.model!r}; one of {MODELS}")
         self.outputs = outputs
         self.datamanager = ADDataManager(outputs, self.config.datamanager, device=self.device, seed=self.config.seed)
         self.model = self._build_model(self.config.seed)
@@ -144,11 +162,30 @@ class ADPipeline:
         # the perceptual network, loaded once (pretrained weights from NEURAD_TPU_VGG19_WEIGHTS when that file
         # exists, else a fixed random network)
         self.vgg = None
-        if self.model.loss.vgg_mult > 0.0:
+        if not self._is_nerfacto and self.model.loss.vgg_mult > 0.0:
             self.vgg = load_vgg19_params(torch.Generator().manual_seed(VGG_SEED), device=self.device)
 
-    def _build_model(self, seed: int) -> NeuRADModel:
+    @property
+    def _is_nerfacto(self) -> bool:
+        return self.config.model in ("nerfacto", "lidar-nerfacto")
+
+    def _no_nerfacto(self) -> None:
+        if self._is_nerfacto:
+            raise NotImplementedError(f"{self.config.model}: {NERFACTO_EVAL_FAULT}")
+
+    def _build_model(self, seed: int) -> nn.Module:
         outputs = self.outputs
+        # the hash tables are drawn on the device from `generator`; the small dense layers on the host from
+        # torch's default generator, seeded for the construction only
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        if self._is_nerfacto:
+            model_kwargs = dict(aabb=np.asarray(outputs.scene_box.aabb).tolist(), num_images=len(outputs.images),
+                                use_lidar_losses=self.config.model == "lidar-nerfacto")
+            model_kwargs.update(self.config.model_overrides)
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                model = NerfactoModel(generator=generator, **model_kwargs)
+            return model.to(self.device).eval()
         actor_data = (
             actor_data_from_trajectories(outputs.trajectories) if outputs.trajectories else empty_actor_data()
         )
@@ -161,9 +198,6 @@ class ADPipeline:
             rgb_upsample_factor=self.config.datamanager.rgb_upsample_factor,
         )
         model_kwargs.update(self.config.model_overrides)
-        # the hash tables are drawn on the device from `generator`; the small dense layers on the host from
-        # torch's default generator, seeded for the construction only
-        generator = torch.Generator(device=self.device).manual_seed(seed)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = NeuRADModel(generator=generator, **model_kwargs)
@@ -183,15 +217,21 @@ class ADPipeline:
         return TrainState(step=0, optimizers=optimizers, generator=generator)
 
     def _chunks(self, n_rays: int) -> List[int]:
-        """Ray counts of the train step's feature-field renders."""
+        """Ray counts of the train step's feature-field renders (a nerfacto
+        model renders its batch whole)."""
         chunk = self.config.train_ray_chunk
-        if chunk and n_rays > chunk:
+        if chunk and n_rays > chunk and not self._is_nerfacto:
             return [chunk] * math.ceil(n_rays / chunk)
         return [n_rays]
 
     def draw(self, generator: torch.Generator, n_rays: int) -> TrainDraws:
         """A train step's draws from `generator`, chunk by chunk: per proposal
-        round and the field's round one uniform jitter tensor, then the flip."""
+        round and the field's round one uniform jitter tensor, then the flip
+        (none for a nerfacto model, whose sampler always jitters singly)."""
+        if self._is_nerfacto:
+            rounds = len(self.model.num_proposal_samples) + 1
+            return [ChunkDraws(tuple(torch.rand((n_rays, 1), generator=generator, device=self.device)
+                                     for _ in range(rounds)), None)]
         sampling = self.model.sampling
         counts = list(sampling.num_proposal_samples) + [sampling.num_nerf_samples]
         draws = []
@@ -214,6 +254,8 @@ class ADPipeline:
         chunks = self._chunks(n)
         if len(draws) != len(chunks):
             raise ValueError(f"{len(draws)} sets of draws for {len(chunks)} chunks")
+        if self._is_nerfacto:
+            return self._nerfacto_loss(bundle, batch, draws[0].jitters)
         if len(chunks) > 1:
             chunk = chunks[0]
             total = chunk * len(chunks)
@@ -234,6 +276,21 @@ class ADPipeline:
             out = model.get_outputs(bundle, self.patch_size, self.num_cam_rays, jitters=d.jitters, flip_draw=d.flip,
                                     train=True)
         return model.compute_losses(out, batch, self.num_cam_rays, vgg=self.vgg)
+
+    def _nerfacto_loss(self, bundle: RayBundle, batch: Dict[str, torch.Tensor], jitters: Sequence[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """A nerfacto model's loss: the rgb and the image of the camera rays
+        (one ray a pixel), the depth loss from the lidar rays' weights."""
+        n_cam = self.num_cam_rays
+        out = self.model.get_outputs(bundle, train=True, jitters=jitters)
+        batch = dict(batch)
+        if "image" in batch:
+            batch["image"] = batch["image"].reshape(-1, 3)[:n_cam]
+            out["rgb"] = out["rgb"][:n_cam]
+        if "distance" in batch and "weights" in out:
+            out["weights"] = out["weights"][n_cam:]
+            out["ray_samples_mids"] = out["ray_samples_mids"][n_cam:]
+        return self.model.compute_losses(out, batch)
 
     def train_step(self, state: TrainState, bundle: RayBundle, batch: Dict[str, torch.Tensor],
                    draws: Optional[TrainDraws] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -342,6 +399,7 @@ class ADPipeline:
     def render_eval_camera(self, cam_idx: int, edits: Optional[ActorEdits] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Full-image render -> (pred rgb [H', W', 3], gt rgb). `edits`: actor
         edits applied at render time."""
+        self._no_nerfacto()
         rgb, gt = self._render_camera(cam_idx, edits)
         return rgb.cpu().numpy(), gt
 
@@ -364,6 +422,7 @@ class ADPipeline:
 
     @torch.no_grad()
     def render_eval_lidar(self, scan_idx: int) -> Dict[str, np.ndarray]:
+        self._no_nerfacto()
         return {k: v.cpu().numpy() for k, v in self._render_lidar(scan_idx).items()}
 
     # ------------------------------------------------------------------
@@ -381,6 +440,7 @@ class ADPipeline:
     def render_viewer_image(self, c2w: np.ndarray, width: int, height: int, time: float, edits_vec=None) -> np.ndarray:
         """Full-frame render for the live viewer from a free camera (focal
         0.7 * width, one ray per pixel) -> [height * up, width * up, 3]."""
+        self._no_nerfacto()
         dev = self.device
         focal = 0.7 * width
         full = lambda v, dtype=torch.float32: torch.full((1, 1), v, dtype=dtype, device=dev)
@@ -406,6 +466,7 @@ class ADPipeline:
         `origin` rendered through the model; points whose predicted ray-drop
         probability is below the threshold are kept -> [N, 4] (world xyz +
         intensity)."""
+        self._no_nerfacto()
         elev = np.deg2rad(np.linspace(fov_down, fov_up, channels))
         azim = np.deg2rad(np.arange(-180.0, 180.0, azim_res_deg))
         el, azm = np.meshgrid(elev, azim, indexing="ij")
@@ -494,6 +555,7 @@ class ADPipeline:
         accuracy and the chamfer distance between the predicted and the
         measured points (the measured points' mean range where every ray is
         predicted dropped). On the device; np.median on the host."""
+        self._no_nerfacto()
         metrics: Dict[str, float] = {}
         cams = self.outputs.eval_camera_indices
         if cams:
@@ -555,6 +617,7 @@ class ADPipeline:
         of 2 and 3 m (signed by the sequence's `lane_shift_sign`) and a
         vertical shift of 1 m, each moving every ray's origin along the
         camera's right or up axis."""
+        self._no_nerfacto()
         lane_sign = 1
         if self.outputs.metadata and "lane_shift_sign" in self.outputs.metadata:
             lane_sign = int(self.outputs.metadata["lane_shift_sign"])

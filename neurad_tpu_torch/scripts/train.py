@@ -1,9 +1,10 @@
 """Train a method on a dataset (torch port of `neurad_tpu/scripts/train.py`):
-the ray-based NeuRAD methods, SplatAD and splatfacto, on the synthetic scene
-or a logged drive.
+the ray-based NeuRAD and nerfacto methods, SplatAD and splatfacto, on the
+synthetic scene or a logged drive.
 
     python -m neurad_tpu_torch.scripts.train neurad-tiny --device cpu --max-iterations 40 --output-dir outputs
     python -m neurad_tpu_torch.scripts.train neurad --max-iterations 2000 --output-dir outputs
+    python -m neurad_tpu_torch.scripts.train nerfacto-lidar --max-iterations 400
     python -m neurad_tpu_torch.scripts.train splatad --set pipeline.cap_max=200000 --dp-set image_height=480
     python -m neurad_tpu_torch.scripts.train splatad --dataparser kitti --data data/kitti-mot --sequence 0006
     python -m neurad_tpu_torch.scripts.train neurad --load-dir outputs/<run>      # resume
@@ -13,13 +14,21 @@ parser of `configs/method_configs.DATAPARSERS` (default: the method's);
 `--data`, `--sequence` and `--dp-set KEY=VALUE` set its config (a tuple field
 takes comma-separated values). A run directory holds `config.json` (method,
 dataparser name and settings, the pipeline's configuration) and
-`checkpoints/step-<step>.pt`; `load_run` rebuilds the pipeline from it. The
-presets live in `neurad_tpu_torch/configs/method_configs.py`. A NeuRAD run
+`checkpoints/step-<step>.pt` (the newest `trainer.keep_last_n_checkpoints`);
+`load_run` rebuilds the pipeline from it. The presets live in
+`neurad_tpu_torch/configs/method_configs.py`; methods that other packages
+register (`plugins/registry.py`, NEURAD_TPU_TORCH_METHOD_CONFIGS) are found at
+start-up. `engine/trainer.Trainer` runs the loop: a NeuRAD or nerfacto run
 takes its batches from the datamanager's prefetch threads (`iter_train`), or
-from `next_train` when `prefetch` is 0; its log lines carry the train rays
-per second over the steps since the last line. Every `steps_per_eval_batch`
-steps the loop scores the eval split (`pipeline.eval_metrics()`) and logs
-the results as `eval/<name>`. The viewer and TensorBoard are not ported yet.
+from `next_train` when `prefetch` is 0, and its log lines carry the train
+rays per second over the steps since the last line; every
+`steps_per_eval_batch` steps it scores the eval split
+(`pipeline.eval_metrics()`, `eval/<name>`), which a nerfacto run cannot (see
+`pipelines/ad_pipeline.py`). `--set trainer.<field>=<value>` sets the
+trackers' metric, the early-stopping patience or the checkpoints kept. Log
+lines go to the console and, where the `tensorboard` package imports, to
+TensorBoard event files in `<run dir>/tb` (otherwise one line says so). The
+viewer is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,16 +38,17 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Tuple, Union
-
-import torch
+from typing import Dict, List, Optional, Tuple, Union
 
 from neurad_tpu_torch import resolve_device
-from neurad_tpu_torch.configs.method_configs import METHODS, TrainerConfig, dataparser_config
+from neurad_tpu_torch.configs.method_configs import METHODS, TrainerConfig, dataparser_config, get_method_config
+from neurad_tpu_torch.engine.trainer import Trainer
 from neurad_tpu_torch.pipelines import ad_pipeline, splatad_pipeline, splatfacto_pipeline
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
 from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline, SplatfactoPipelineConfig
+from neurad_tpu_torch.plugins.registry import register_discovered_methods
+from neurad_tpu_torch.utils.writer import LocalWriter, MultiWriter, TensorboardWriter, Writer
 
 Pipeline = Union[ADPipeline, SplatADPipeline, SplatfactoPipeline]
 TrainState = Union[ad_pipeline.TrainState, splatad_pipeline.TrainState, splatfacto_pipeline.TrainState]
@@ -104,68 +114,26 @@ def load_run(run_dir, device="cuda", with_state: bool = False) -> Tuple[Pipeline
     return pipeline, state
 
 
-def _log_step(i: int, metrics: Dict[str, torch.Tensor], extra: Optional[Dict[str, float]] = None) -> Dict[str, float]:
-    out = {k: float(v) for k, v in metrics.items()}
-    out.update(extra or {})
-    print(f"[train] step {i}: " + ", ".join(f"{k}={v:.5g}" for k, v in out.items()), flush=True)
-    return out
-
-
-def train_batches(pipeline: Pipeline) -> Iterator[Tuple[tuple, Optional[int]]]:
-    """The training batches of a pipeline: (`train_step`'s arguments after the
-    state, the batch's ray count). A NeuRAD batch comes from the
-    datamanager's prefetch threads (`iter_train`), or from `next_train` when
-    `prefetch` is 0, and counts its rays; a SplatAD sample is a frame or a
-    scan and counts none; splatfacto draws its camera in `train_step`.
-    Closing the iterator stops the threads."""
-    if isinstance(pipeline, SplatfactoPipeline):
-        while True:
-            yield (), None
-    dm = pipeline.datamanager
-    if not isinstance(pipeline, ADPipeline):
-        while True:
-            yield (dm.next_train(),), None
-    source = dm.iter_train() if dm.config.prefetch > 0 else iter(dm.next_train, None)
+def make_writer(run_dir) -> Writer:
+    """The console, and TensorBoard event files in `<run_dir>/tb` where the
+    `tensorboard` package imports (otherwise one line says so)."""
+    writers: List[Writer] = [LocalWriter()]
     try:
-        for bundle, batch in source:
-            yield (bundle, batch), bundle.origins.shape[0]
-    finally:
-        dm.close()
+        writers.append(TensorboardWriter(str(Path(run_dir) / "tb")))
+    except ImportError as e:
+        print(f"[train] TensorBoard is not written: the tensorboard package does not import ({e})", flush=True)
+    return MultiWriter(writers)
 
 
 def train_loop(pipeline: Pipeline, state: TrainState, trainer: TrainerConfig,
                ckpt_dir: Path) -> Tuple[TrainState, List[Dict[str, float]]]:
-    """Steps from `state.step` up to `trainer.max_num_iterations`: one
-    `train_step` a batch, a log line every `steps_per_log` steps and at the
-    last (with the train rays per second since the previous line, where the
-    batches count rays), the eval metrics every `steps_per_eval_batch` steps
-    (a line of their own, `eval/<name>`), a checkpoint every
-    `steps_per_save`. Returns the final state and the metrics of every log
-    line and eval."""
-    batches = train_batches(pipeline)
-    history: List[Dict[str, float]] = []
-    rays, t_window = 0, time.perf_counter()
-    try:
-        for i in range(state.step, trainer.max_num_iterations):
-            args, n_rays = next(batches)
-            state, m = pipeline.train_step(state, *args)
-            rays += n_rays or 0
-            if i % trainer.steps_per_log == 0 or i == trainer.max_num_iterations - 1:
-                extra = {}
-                if n_rays is not None:
-                    if pipeline.device.type == "cuda":
-                        torch.cuda.synchronize(pipeline.device)
-                    extra["train_rays_per_sec"] = rays / max(time.perf_counter() - t_window, 1e-9)
-                history.append(_log_step(i, m, extra))
-                rays, t_window = 0, time.perf_counter()
-            if i > 0 and i % trainer.steps_per_eval_batch == 0:
-                history.append(_log_step(i, {f"eval/{k}": v for k, v in pipeline.eval_metrics().items()}))
-                rays, t_window = 0, time.perf_counter()
-            if i > 0 and i % trainer.steps_per_save == 0:
-                pipeline.save_checkpoint(state, ckpt_dir)
-    finally:
-        batches.close()
-    return state, history
+    """`Trainer.train` from `state.step` up to `trainer.max_num_iterations`,
+    with checkpoints in `ckpt_dir` every `steps_per_save` steps and none at
+    the end, log lines on the console. Returns the final state and the
+    metrics of every log line and eval."""
+    run = Trainer(pipeline, state, dataclasses.replace(trainer, checkpoint_dir=str(ckpt_dir)), writer=LocalWriter())
+    run.train(save_at_end=False)
+    return run.state, run.history
 
 
 def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
@@ -186,10 +154,11 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
                         help="dataparser config override (e.g. image_height=480, cameras=front,back)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    if args.method not in METHODS:
-        raise SystemExit(f"unknown method {args.method!r}; ported methods: {', '.join(METHODS)}")
-
-    cfg = METHODS[args.method]()
+    register_discovered_methods()
+    try:
+        cfg = get_method_config(args.method)
+    except KeyError as e:
+        raise SystemExit(e.args[0]) from None
     if args.max_iterations is not None:
         cfg.trainer.max_num_iterations = args.max_iterations
     for ov in args.set:
@@ -216,17 +185,21 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
         exp_name = args.experiment_name or f"{args.method}-{time.strftime('%Y%m%d-%H%M%S')}"
         run_dir = write_run_config(Path(args.output_dir) / exp_name, args.method, dp_cfg, cfg.pipeline, args.seed,
                                    args.set, dataparser)
-        pipeline_cls, _ = _pipeline_classes(args.method)
+        pipeline_cls, _ = PIPELINES[cfg.pipeline_type]
         pipeline = pipeline_cls(dp_cfg.setup().get_dataparser_outputs(), cfg.pipeline, device=device)
         state = pipeline.init_state()
-    ckpt_dir = run_dir / "checkpoints"
+    cfg.trainer.checkpoint_dir = str(run_dir / "checkpoints")
     print(f"[train] {args.method} on {dataparser}: {cfg.trainer.max_num_iterations} iterations from step "
           f"{state.step}, device={device}, run dir {run_dir}")
 
-    state, history = train_loop(pipeline, state, cfg.trainer, ckpt_dir)
-    pipeline.save_checkpoint(state, ckpt_dir)
-    print(f"[train] done: {json.dumps(history[-1] if history else {})}")
-    return pipeline, state
+    writer = make_writer(run_dir)
+    trainer = Trainer(pipeline, state, cfg.trainer, writer=writer)
+    try:
+        metrics = trainer.train()
+    finally:
+        writer.close()
+    print(f"[train] done: {json.dumps(metrics)}")
+    return pipeline, trainer.state
 
 
 if __name__ == "__main__":

@@ -848,3 +848,40 @@ def test_both_pipelines_score_their_eval_split_on_the_card(cuda):
     assert always <= set(mn) <= always | {"actor_psnr", "actor_coverage"}  # the actor's metrics where it is in view
     assert len(fs) == 5 and all(np.isfinite(v) for d in (ms, mn, fs) for v in d.values())
     assert TC.camera_launches - c0 >= 2 + 14 and TC.lidar_launches - l0 >= 2 and HE.hash_grid_launches > h0
+
+
+NERFACTO_GRIDS = {  # the nerfacto field's grid and its two proposal grids: F = 2, one row a grid corner
+    "field": dict(num_levels=16, min_res=16, max_res=2048, log2_hashmap_size=19),
+    "proposal_0": dict(num_levels=5, min_res=16, max_res=128, log2_hashmap_size=17),
+    "proposal_1": dict(num_levels=5, min_res=16, max_res=256, log2_hashmap_size=17),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("read_bf16", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("grid", list(NERFACTO_GRIDS))
+def test_hash_grid_kernels_at_the_nerfacto_grids(cuda, grid, read_bf16):
+    """K1f and K1b at F = 2 in the unpacked layout, at nerfacto's grids (16
+    levels, eleven of them hashed into 2^19 buckets stored two a row; the
+    proposals' 5 levels of up to 2^17), on ray-ordered positions: the forward
+    equal to the plain version bit for bit, the backward to BWD_TOL_SUM of
+    each entry's terms."""
+    from neurad_tpu_torch.fields.encodings import HashEncoding
+
+    gen = torch.Generator(device="cuda").manual_seed(len(grid))
+    enc = HashEncoding(features_per_level=2, generator=gen, **NERFACTO_GRIDS[grid])
+    if grid == "field":
+        assert enc.bucket_pack.count(2) == 11 and enc.hash_table[-1].shape == (2**18, 4)
+    tables = [t.detach() * 300.0 for t in enc.hash_table]
+    pos = _lookup_positions(gen, "rays", 32 * 1024, 3, float(enc.scales[0]))
+    layout = ([float(s) for s in enc.scales], [t.shape[0] * pk for t, pk in zip(tables, enc.bucket_pack)],
+              enc.dense_res, 2, read_bf16, False)
+    before = HE.hash_grid_launches
+    with torch.no_grad():
+        got = HE.hash_grid_encode(pos, None, tables, *layout)
+    torch.cuda.synchronize()
+    assert HE.hash_grid_launches == before + 1
+    want = HE.hash_grid_encode_plain(pos, None, tables, *layout)
+    assert got.shape == (pos.shape[0], 2 * len(tables)) and torch.equal(got, want)
+    g = torch.randn(got.shape, generator=gen, device="cuda")
+    _check_bwd(pos, None, tables, layout, g)

@@ -263,9 +263,10 @@ def test_optimizer_groups_match_the_jax_labels():
         assert {k: getattr(cfg, k) for k in ("lr", "lr_final", "warmup_steps", "weight_decay", "eps", "max_steps")} == {
             k: getattr(JO.NEURAD_OPTIMIZER_GROUPS[g], k)
             for k in ("lr", "lr_final", "warmup_steps", "weight_decay", "eps", "max_steps")}
-    with pytest.raises(NotImplementedError, match="accum"):
-        TO.Optimizers(tp.model.named_parameters(), {"fields": TO.OptimizerGroupConfig(accum_steps=2)},
-                      TO.DEFAULT_GROUP_RULES)
+    # gradient accumulation: every group falls back to the fields config here, so every group accumulates
+    accum = TO.Optimizers(tp.model.named_parameters(), {"fields": TO.OptimizerGroupConfig(accum_steps=2)},
+                          TO.DEFAULT_GROUP_RULES)
+    assert set(accum.accum) == set(accum.params) == set(tstate.optimizers.params)
 
 
 def test_checkpoint_round_trip_resumes_exactly(tmp_path):

@@ -56,8 +56,10 @@ def test_presets_and_labels_match():
              "rgb_decoder.blocks.0.conv1.weight", "camera_velocity_optimizer.time_to_center_pixel_adjustment"]
     labels = TO.label_params(names, TP.SPLATAD_GROUP_RULES)
     assert [labels[n] for n in names] == ["means", "opacities", "trajectory_opt", "camera_opt", "fields", "camera_opt"]
-    with pytest.raises(NotImplementedError, match="accum_steps"):
-        TO.OptimizerGroupConfig(accum_steps=4).build([torch.nn.Parameter(torch.zeros(2))])
+    # accumulation wraps the group's optimizer in `Optimizers` (tests/test_torch_trainer.py holds it to optax)
+    opt = TO.Optimizers([("means", torch.nn.Parameter(torch.zeros(2)))], {"means": TO.OptimizerGroupConfig(accum_steps=4)},
+                        TP.SPLATAD_GROUP_RULES)
+    assert isinstance(opt.optimizers["means"], torch.optim.Adam) and set(opt.accum) == {"means"}
 
 
 def test_three_updates_match_optax():

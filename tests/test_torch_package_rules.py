@@ -52,6 +52,11 @@ def test_importing_every_module_loads_no_jax():
             "neurad_tpu_torch.data.dataparsers.waymo", "neurad_tpu_torch.data.dataparsers.zod",
             "neurad_tpu_torch.data.dataparsers.fixtures", "neurad_tpu_torch.models.splatfacto",
             "neurad_tpu_torch.pipelines.splatfacto_pipeline"} <= set(mods)
+    assert {"neurad_tpu_torch.models.nerfacto", "neurad_tpu_torch.fields.encodings",
+            "neurad_tpu_torch.fields.density_fields", "neurad_tpu_torch.fields.nerfacto_field",
+            "neurad_tpu_torch.engine.trainer", "neurad_tpu_torch.engine.callbacks",
+            "neurad_tpu_torch.utils.writer", "neurad_tpu_torch.utils.profiler",
+            "neurad_tpu_torch.plugins.registry", "neurad_tpu_torch.configs.external_methods"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -140,8 +145,12 @@ def test_neurad_entry_points_need_cuda_unless_asked_for_cpu():
     pipeline = ADPipeline(outputs, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         closed_loop.ClosedLoopState(pipeline)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ADPipeline(outputs, ADPipelineConfig(model="nerfacto"), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ADPipeline(outputs, ADPipelineConfig(model="nerfacto"))
+    with pytest.raises(NotImplementedError, match="cannot evaluate"):  # as in the JAX package, which fails there
+        ADPipeline(outputs, ADPipelineConfig(model="nerfacto"), device="cpu").eval_metrics()
+    with pytest.raises(ValueError, match="unknown model"):
+        ADPipeline(outputs, ADPipelineConfig(model="no-such-model"), device="cpu")
     state, port = closed_loop.state_from_args(["--port", "0", "--method", "neurad-tiny", "--device", "cpu", "--seed", "3"])
     assert port == 0
     assert state.pipeline.device.type == "cpu" and state.pipeline.config.seed == 3

@@ -504,4 +504,4 @@ def test_train_script_and_closed_loop_from_run_dir(tmp_path):
     want = TCL.ClosedLoopState(resumed, device="cpu").render_image(pose.tolist(), 1.1, "front_camera")
     np.testing.assert_array_equal(served.render_image(pose.tolist(), 1.1, "front_camera"), want)
     with pytest.raises(SystemExit):
-        TTrain.entrypoint(["nerfacto", "--device", "cpu"])  # not a ported method
+        TTrain.entrypoint(["no-such-method", "--device", "cpu"])  # not a method
