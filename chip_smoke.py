@@ -142,6 +142,23 @@ order, within BWD_TOL of each entry's terms' magnitude).
    written by the port's converter, the VGG19 fallback LPIPS, the chamfer
    distance) on the card against the CPU on the same inputs.
 
+12. Render, export and view the trained runs (after the SplatAD train
+   phase; the run directories of both train phases live in a temporary
+   directory deleted at the end, each loaded once): `scripts.render` on the
+   SplatAD and the NeuRAD run (every camera, a camera-path JSON of 3 poses,
+   an interpolated path, the lidar as .npz and BEV PNGs, an actor shift,
+   then a lane shift), every camera PNG equal to the quantised
+   `render_eval_camera`, a 1080p frame split into render, copy and PNG
+   encode; `scripts.export` in all six modes at --resolution 128 (device
+   and host seconds, peak memory; the field mesh's K1f launches, the splat
+   PLY read back); `scripts.viewer.serve_run` of both runs on a free port
+   (/render low and high equal to the direct `render_viewer_image`, /lidar,
+   /export, /train, the stale drop), then SplatAD through `Trainer` with
+   and without the train script's live viewer while a client posts
+   renders, each inside the lock. K2, K4 and K1f must launch on each path,
+   counted over the scripts' own runs and the HTTP requests only (`Counted`),
+   not over the reference renders, timings and profiles beside them.
+
 Prints the card's name and power limit, one JSON line with the twelve
 kernels' numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Details go to chiprun_out/chip_smoke.json.
@@ -152,9 +169,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -212,6 +231,11 @@ TURN_ROUNDS = 10  # `--parent`: rounds of two fresh-process runs, the parent's a
 TURN_STEPS = 10  # timed steps a run and metric, after the first
 REPORT = {}
 PARENT = {}  # `--parent DIR`: the lookup and composite libraries built from that checkout's sources
+RUNS = None  # a temporary directory (deleted at the end) holding the train phases' run directories
+RENDER_POSES = 3  # poses of the render phase's camera-path JSON
+INTERPOLATE = 2  # --interpolate steps between consecutive cameras
+EXPORT_RESOLUTION = 128  # --resolution of the field-mesh, tsdf-mesh and poisson exports
+VIEWER_TRAIN_STEPS = 6
 
 
 def _sync() -> None:
@@ -265,8 +289,6 @@ def turn_run() -> None:
     train script's loop (`train_loop`, the preset's sampler threads) on the
     synthetic scene, livened as in the NeuRAD train phase. Only entries that
     checkouts since the KITTI-MOT fixture have. Prints one line `TURN {...}`."""
-    import tempfile
-
     import torch
 
     import neurad_tpu_torch
@@ -1326,9 +1348,8 @@ def slice_phase():
 
 
 def train_phase(outputs):
-    """SplatAD training at full width through the pipeline's entry points."""
-    import tempfile
-
+    """SplatAD training at full width through the pipeline's entry points; its
+    run directory (in RUNS) serves the render, export and viewer phases."""
     import numpy as np
     import torch
 
@@ -1416,17 +1437,16 @@ def train_phase(outputs):
 
     evaluated = eval_metrics_check("splatad", pipeline, SPLATAD_EVAL_KEYS, {"camera": 1, "lidar": 1})
 
-    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
-        run_dir = write_run_config(Path(tmp) / "run", "splatad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
-        ckpt = pipeline.save_checkpoint(state, run_dir / "checkpoints")
-        size_mb = ckpt.stat().st_size / 2**20
-        step = state.step
-        del pipeline, state, before
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        served = ClosedLoopState.from_run_dir(run_dir, device=DEVICE)
-        load_s = time.perf_counter() - t0
-        evaluated["script"] = eval_script_check(run_dir, step, SPLATAD_EVAL_KEYS)
+    run_dir = write_run_config(RUNS / "splatad", "splatad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
+    ckpt = pipeline.save_checkpoint(state, run_dir / "checkpoints")
+    size_mb = ckpt.stat().st_size / 2**20
+    step = state.step
+    del pipeline, state, before
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = ClosedLoopState.from_run_dir(run_dir, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    evaluated["script"] = eval_script_check(run_dir, step, SPLATAD_EVAL_KEYS)
     pose = np.eye(4, dtype=np.float32)
     pose[:3] = outputs.cameras.camera_to_worlds[0].numpy()
     pose[:3, 3] += pose[:3, 0] * 1.0
@@ -1438,7 +1458,7 @@ def train_phase(outputs):
         require(torch.equal(p.detach(), dict(model.named_parameters())[name].detach()), f"{name} loaded as trained")
     return dict(steps=steps, refines=refines, launches=launches, moved=moved, profile=profile,
                 repeated_frames=repeated, checkpoint_mib=size_mb, load_run_s=load_s,
-                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, eval=evaluated)
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, eval=evaluated, run_dir=str(run_dir))
 
 
 # ---------------------------------------------------------------------------
@@ -1630,9 +1650,8 @@ def neurad_train_phase(outputs):
     `datamanager.next_train` and `train_step`, weights from the seed, livened;
     then a few steps through the train script's loop (`train_loop`, batches
     from the preset's sampler threads), one profiled step, a checkpoint and a
-    1080p request served from it by `ClosedLoopState.from_run_dir`."""
-    import tempfile
-
+    1080p request served from it by `ClosedLoopState.from_run_dir`. The run
+    directory (in RUNS) serves the render, export and viewer phases."""
     import numpy as np
     import torch
 
@@ -1745,16 +1764,15 @@ def neurad_train_phase(outputs):
 
     evaluated = eval_metrics_check("neurad", pipeline, NEURAD_EVAL_KEYS, {"hash_grid": 1}, profile=True)
 
-    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
-        run_dir = write_run_config(Path(tmp) / "run", "neurad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
-        ckpt = pipeline.save_checkpoint(state, run_dir / "checkpoints")
-        size_mb = ckpt.stat().st_size / 2**20
-        trained = {n: p.detach().cpu() for n, p in model.named_parameters() if "hash_table" not in n}
-        del pipeline, state, model, before, table_before, tables
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        served = ClosedLoopState.from_run_dir(run_dir, device=DEVICE)
-        load_s = time.perf_counter() - t0
+    run_dir = write_run_config(RUNS / "neurad", "neurad", SyntheticDataParserConfig(**SCENE), cfg, SEED)
+    ckpt = pipeline.save_checkpoint(state, run_dir / "checkpoints")
+    size_mb = ckpt.stat().st_size / 2**20
+    trained = {n: p.detach().cpu() for n, p in model.named_parameters() if "hash_table" not in n}
+    del pipeline, state, model, before, table_before, tables
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = ClosedLoopState.from_run_dir(run_dir, device=DEVICE)
+    load_s = time.perf_counter() - t0
     pose = np.eye(4, dtype=np.float32)
     pose[:3] = outputs.cameras.camera_to_worlds[1].numpy()
     img = served.render_image(pose.tolist(), float(outputs.cameras.times[1, 0]), "front_camera")
@@ -1773,7 +1791,7 @@ def neurad_train_phase(outputs):
                 dense_grad_ms=dense_grad_ms,
                 zero_fill_ms=zero_ms, add_ms=add_ms, profile={k: v for k, v in prof.items() if k != "all"},
                 k1b_profile_ms=k1b_ms, k1f_profile_ms=k1f_ms, checkpoint_mib=size_mb, load_run_s=load_s,
-                served_render_ms=render_ms, eval=evaluated)
+                served_render_ms=render_ms, eval=evaluated, run_dir=str(run_dir))
 
 
 # ---------------------------------------------------------------------------
@@ -1858,8 +1876,6 @@ def drive_phase():
     `nerfacto-lidar` preset takes NERFACTO_DRIVE_STEPS steps (K1f and K1b three
     times a step). The counters must show K1f, K1b, K2, K3, K4 and K5
     launched in this phase."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -2414,6 +2430,515 @@ def eval_script_check(run_dir, step, keys):
     return dict(seconds=seconds, json=written)
 
 
+# ---------------------------------------------------------------------------
+# render, export and viewer phases: the train phases' runs through the scripts
+# ---------------------------------------------------------------------------
+
+
+class RunCache:
+    """`scripts.train.load_run` while the render, export and viewer phases
+    run: a run directory's first load is the real one (timed); later entry
+    points get the same pipeline back, so each run loads once and the written
+    files are checked against the pipeline that wrote them."""
+
+    def __init__(self):
+        from neurad_tpu_torch.scripts import train
+
+        self.train, self.real = train, train.load_run
+        self.pipelines, self.load_s = {}, {}
+
+    def __enter__(self):
+        self.train.load_run = self.load
+        return self
+
+    def __exit__(self, *exc):
+        self.train.load_run = self.real
+        self.pipelines.clear()
+
+    def load(self, run_dir, device="cuda", with_state=False):
+        key = str(Path(run_dir).resolve())
+        if key not in self.pipelines:
+            t0 = time.perf_counter()
+            self.pipelines[key] = self.real(run_dir, device=device)[0]
+            _sync()
+            self.load_s[key] = time.perf_counter() - t0
+        return self.pipelines[key], None
+
+
+def _launch_counts():
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    return {"camera": TC.camera_launches, "lidar": TC.lidar_launches, "hash_grid": HE.hash_grid_launches}
+
+
+def _reset_launch_counts():
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    TC.reset_launch_counts()
+    HE.reset_launch_counts()
+
+
+class Counted:
+    """The K1f, K2 and K4 launches of a path's own calls: every count is set
+    to 0 as a `with` block opens and read as it closes, and `counts` sums the
+    blocks. Calls outside a block (the checks' reference renders, timings,
+    profiles) are not counted."""
+
+    def __init__(self):
+        self.counts = {"camera": 0, "lidar": 0, "hash_grid": 0}
+
+    def __enter__(self):
+        _reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in _launch_counts().items():
+            self.counts[k] += v
+
+
+def _ply_header(path):
+    """(element counts {name: n}, property names of the vertex element, byte offset of the data) of a PLY."""
+    data = Path(path).read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    counts, props, element = {}, [], None
+    for line in data[:end].decode().splitlines():
+        parts = line.split()
+        if parts[0] == "element":
+            element = parts[1]
+            counts[element] = int(parts[2])
+        elif parts[0] == "property" and element == "vertex":
+            props.append(parts[-1])
+    return counts, props, end
+
+
+def _frame_split(pipeline, cam_idx, png_path, reps=2, memory=False):
+    """A 1080p eval frame's time split on the host clock, synchronised:
+    render on the device, the copy to the host, PNG encode and write
+    (`scripts.render._save_image`); the medians of `reps` warm frames, ms.
+    With `memory`, the host memory of `scripts.render`'s PNG writes at this
+    frame size (numpy's allocations, traced): the peak of quantising a frame
+    on the main thread and of encoding one in a write thread, and the most
+    the writes hold at once, which is the same for any number of frames: the
+    float frame and its quantising, 2 x workers queued uint8 frames, and
+    workers encodes."""
+    import os
+    import tracemalloc
+
+    import torch
+
+    from neurad_tpu_torch.data.png import quantise, write_png
+    from neurad_tpu_torch.scripts import render
+
+    parts = {"render": [], "to_host": [], "png": []}
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            rgb = pipeline._render_camera(cam_idx)
+        rgb = rgb[0] if isinstance(rgb, tuple) else rgb
+        _sync()
+        t1 = time.perf_counter()
+        host = rgb.cpu().numpy()
+        t2 = time.perf_counter()
+        render._save_image(png_path, host)
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    out["shape"] = list(host.shape)
+    if memory:
+        tracemalloc.start()
+        image = quantise(host)
+        quantise_peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.reset_peak()
+        base = tracemalloc.get_traced_memory()[0]
+        write_png(png_path, image)
+        encode_peak = tracemalloc.get_traced_memory()[1] - base
+        tracemalloc.stop()
+        workers = min(8, os.cpu_count() or 1)
+        out["host_memory_mib"] = dict(
+            frame_f32=host.nbytes / 2**20, quantise_peak=quantise_peak / 2**20, frame_u8=image.nbytes / 2**20,
+            encode_peak=encode_peak / 2**20, workers=workers,
+            writes_most=(host.nbytes + quantise_peak + 2 * workers * image.nbytes + workers * encode_peak) / 2**20)
+    return out
+
+
+def render_phase(cache, runs):
+    """`scripts.render` on the SplatAD and NeuRAD runs of the train phases
+    (full width, 1920x1080 cameras, the 64x1024-beam scan): every camera of
+    the scene, the lidar as .npz and BEV PNGs, an interpolated path
+    (INTERPOLATE steps a pair of cameras), a camera-path JSON of RENDER_POSES
+    poses and an actor shift of 1 m; then a lane shift of 1 m. Every camera
+    PNG, decoded by `read_png`, equals the quantised `render_eval_camera` of
+    the pipeline that wrote it; the actor and lane shifts change the eval
+    camera's image; the counters show K2 and K4 (SplatAD) and K1f (NeuRAD)."""
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.data.png import quantise, read_png
+    from neurad_tpu_torch.scripts import render
+
+    results = {}
+    for name, run_dir in runs.items():
+        pipeline = cache.load(run_dir, device=DEVICE)[0]
+        outputs, parsed = pipeline.outputs, pipeline.outputs.cameras
+        n_cams, eval_ci = len(outputs.images), list(outputs.eval_camera_indices)[0]
+        c2w = np.eye(4)
+        c2w[:3] = parsed.camera_to_worlds[eval_ci].numpy()
+        if name == "neurad":  # the scene's actor is out of the NeuRAD field's sight: 2.5 m ahead, as neurad_phase puts it
+            ahead = c2w[:3, 3] + c2w[:3, :3] @ np.array([0.0, -0.3, -2.5])
+            with torch.no_grad():
+                pipeline.model.actors.actor_positions[:] = torch.as_tensor(ahead, dtype=torch.float32)
+        unedited = quantise(pipeline.render_eval_camera(eval_ci)[0])
+        frames = []
+        for k in range(RENDER_POSES):  # forward along the camera's view, 0.5 m a pose
+            pose = c2w.copy()
+            pose[:3, 3] -= pose[:3, 2] * 0.5 * k
+            frames.append({"camera_to_world": pose.reshape(-1).tolist(), "render_time": float(parsed.times[eval_ci, 0])})
+        path_json = RUNS / f"{name}_camera_path.json"
+        path_json.write_text(json.dumps({"camera_path": frames}))
+        out_dir, shift_dir = RUNS / f"{name}_renders", RUNS / f"{name}_renders_shift"
+        counted, shift_counted = Counted(), Counted()
+        t0 = time.perf_counter()
+        with counted:
+            render.entrypoint([str(run_dir), "--device", DEVICE, "--output-dir", str(out_dir), "--cameras", "all",
+                               "--lidar", "--lidar-bev", "--interpolate", str(INTERPOLATE), "--camera-path",
+                               str(path_json), "--actor-shift", "1,0,0"])
+            _sync()
+        seconds = time.perf_counter() - t0
+        n_path = (n_cams - 1) * INTERPOLATE
+        written = sorted(p.name for p in out_dir.iterdir())
+        want = ([f"camera_{i:04d}{s}.png" for i in range(n_cams) for s in ("", "_gt")]
+                + [f"campath_{k:05d}.png" for k in range(RENDER_POSES)] + [f"path_{f:05d}.png" for f in range(n_path)]
+                + [f"lidar_{s:04d}{e}" for s in outputs.eval_lidar_indices
+                   for e in (".npz", "_pred_bev.png", "_gt_bev.png")])
+        require(written == sorted(want), f"{name}: scripts.render wrote {written}")
+        for ci in range(n_cams):
+            got = read_png(out_dir / f"camera_{ci:04d}.png")
+            require(np.array_equal(got, quantise(pipeline.render_eval_camera(ci)[0])),
+                    f"{name}: camera_{ci:04d}.png equals the quantised render_eval_camera")
+        edited = read_png(out_dir / f"camera_{eval_ci:04d}.png")
+        actor_px = int((edited != unedited).any(-1).sum())
+        require(actor_px > 0, f"{name}: the actor shift changes the eval camera's image")
+        scan = np.load(out_dir / f"lidar_{outputs.eval_lidar_indices[0]:04d}.npz")
+        require(bool(np.isfinite(scan["depth"]).all()), f"{name}: the scan's depths are finite")
+
+        with shift_counted:
+            render.entrypoint([str(run_dir), "--device", DEVICE, "--output-dir", str(shift_dir), "--shift", "1.0"])
+        shifted = read_png(shift_dir / f"camera_{eval_ci:04d}.png")
+        require(np.array_equal(shifted, quantise(pipeline.render_eval_camera(eval_ci)[0])),
+                f"{name}: the lane-shifted PNG equals the quantised render of the shifted camera")
+        require(not np.array_equal(shifted, edited), f"{name}: the lane shift changes the image")
+        launched = {k: counted.counts[k] + shift_counted.counts[k] for k in counted.counts}
+        pipeline.outputs.cameras = parsed  # the parsed cameras back (the lane shift leaves its cameras moved)
+        split = _frame_split(pipeline, eval_ci, RUNS / f"{name}_frame.png", memory=name == "splatad")
+        log(f"[render] {name}: scripts.render ({n_cams} cameras, {RENDER_POSES} path poses, {n_path} interpolated, "
+            f"lidar + BEV, actor shift) {seconds:.1f} s after a load of {cache.load_s[str(Path(run_dir).resolve())]:.1f} s; "
+            f"the actor shift changed {actor_px} pixels; a {split['shape'][1]}x{split['shape'][0]} frame: render "
+            f"{split['render']:.1f} ms, copy to host {split['to_host']:.1f} ms, PNG encode + write {split['png']:.1f} ms; "
+            f"launches of the two scripts.render runs {launched} (the first {counted.counts})"
+            + (f"; host memory of the PNG writes (MiB) {split['host_memory_mib']}" if "host_memory_mib" in split else ""))
+        results[name] = dict(seconds=seconds, load_s=cache.load_s[str(Path(run_dir).resolve())], files=len(written),
+                             actor_shift_pixels=actor_px, frame_ms=split, launches=launched)
+    by_run = {name: r["launches"] for name, r in results.items()}
+    require(by_run["splatad"]["camera"] > 0 and by_run["splatad"]["lidar"] > 0,
+            f"the SplatAD run's scripts.render ran K2 and K4 ({by_run['splatad']})")
+    require(by_run["neurad"]["hash_grid"] > 0, f"the NeuRAD run's scripts.render ran K1f ({by_run['neurad']})")
+    return dict(runs=results, launches={k: sum(r[k] for r in by_run.values()) for k in by_run["neurad"]})
+
+
+def _device_timed(obj, name, box):
+    """Put a wrapper of `obj.<name>` on the instance that adds the call's
+    synchronised host time to box["s"] and the K1f launches of each call to
+    box["k1f"]; undone by deleting the attribute."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        _sync()
+        t0, f0 = time.perf_counter(), _launch_counts()["hash_grid"]
+        out = fn(*a, **k)
+        _sync()
+        box["s"] += time.perf_counter() - t0
+        box.setdefault("k1f", []).append(_launch_counts()["hash_grid"] - f0)
+        return out
+
+    object.__setattr__(obj, name, wrapper)
+
+
+def export_phase(cache, runs):
+    """`scripts.export` in every mode on the train phases' runs: field-mesh,
+    tsdf-mesh and poisson at --resolution EXPORT_RESOLUTION on the NeuRAD run
+    (the field's geometry on the r^3 grid in chunks of 131,072 points; depth
+    renders of the eval camera), pointcloud, gaussian-splat and camera-poses
+    on the SplatAD run. Per mode: seconds, of them the device's (renders and
+    field queries, synchronised) and the host's (fusion, FFT, marching
+    tetrahedra, writing), peak device memory. The field mesh's K1f launches
+    equal its chunks times the lookups of a query (static and actor grid);
+    the splat PLY read back equals the model's parameters; each mesh has
+    vertices and faces."""
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.scripts import export
+
+    modes = (("field-mesh", "neurad"), ("tsdf-mesh", "neurad"), ("poisson", "neurad"), ("pointcloud", "splatad"),
+             ("gaussian-splat", "splatad"), ("camera-poses", "splatad"))
+    results, by_run = {}, {"splatad": Counted(), "neurad": Counted()}
+    for mode, name in modes:
+        pipeline = cache.load(runs[name], device=DEVICE)[0]
+        box = {"s": 0.0}
+        hooks = [(pipeline.model, "query_geometry")] if mode == "field-mesh" else [
+            (pipeline, "_chunked_nff")] if mode in ("tsdf-mesh", "poisson") else [
+            (pipeline, "render_eval_lidar")] if mode == "pointcloud" else []
+        for obj, attr in hooks:
+            _device_timed(obj, attr, box)
+        torch.cuda.reset_peak_memory_stats()
+        out = RUNS / f"export_{mode}.ply"
+        t0 = time.perf_counter()
+        try:
+            with by_run[name]:
+                written = export.entrypoint([mode, str(runs[name]), "--device", DEVICE, "--output", str(out),
+                                             "--resolution", str(EXPORT_RESOLUTION)])
+        finally:
+            for obj, attr in hooks:
+                object.__delattr__(obj, attr)
+        seconds = time.perf_counter() - t0
+        rec = dict(seconds=seconds, device_s=box["s"], host_s=seconds - box["s"], bytes=written.stat().st_size,
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if mode == "camera-poses":
+            frames = json.loads(written.read_text())["frames"]
+            require(len(frames) == len(pipeline.outputs.images), "camera-poses: a frame a camera")
+        else:
+            counts, props, offset = _ply_header(written)
+            rec["elements"] = counts
+            if mode.endswith("mesh") or mode == "poisson":
+                require(counts.get("vertex", 0) > 0 and counts.get("face", 0) > 0, f"{mode}: the mesh has vertices "
+                        f"and faces ({counts})")
+            else:
+                require(counts["vertex"] > 0, f"{mode}: points written")
+        if mode == "field-mesh":
+            r = EXPORT_RESOLUTION
+            n_chunks = -(-r**3 // 131072)
+            per_query = 1 + (pipeline.model.actors.n_actors > 0)
+            rec.update(chunks=n_chunks, k1f_per_query=box["k1f"])
+            require(len(box["k1f"]) == n_chunks and sum(box["k1f"]) == n_chunks * per_query,
+                    f"field-mesh: K1f launched {box['k1f']}, {per_query} a query of each of {n_chunks} chunks")
+            lo, hi = pipeline.outputs.scene_box.aabb.to(DEVICE)
+            pts = lo + (hi - lo) * torch.rand((131072, 3), generator=torch.Generator(DEVICE).manual_seed(SEED),
+                                              device=DEVICE)
+            with torch.no_grad():
+                prof = profiled("field-mesh query chunk", lambda: pipeline.model.query_geometry(pts, 0.0),
+                                match=HASH_KERNEL, rows=8)
+            rec["query_profile"] = {k: v for k, v in prof.items() if k != "all"}
+        if mode == "gaussian-splat":
+            data = np.frombuffer(written.read_bytes()[offset:], dtype="<f4").reshape(counts["vertex"], len(props))
+            params = {n: p.detach().cpu().numpy() for n, p in pipeline.model.named_parameters()}
+            cols = dict(zip(props, data.T))
+            want = np.concatenate([params["means"], params["scales"], params["quats"], params["opacities"][:, None],
+                                   params["features"][:, :16]], axis=1)
+            got = np.stack([cols[p] for p in props], axis=1)
+            require(got.shape == want.shape and np.array_equal(got, want.astype(np.float32)),
+                    "the splat PLY read back equals the model's parameters")
+        log(f"[export] {mode} ({name}): {seconds:.2f} s, device {box['s']:.2f} s, host {seconds - box['s']:.2f} s, "
+            f"{rec['bytes'] / 2**20:.1f} MiB, peak device memory {rec['peak_memory_gib']:.2f} GiB"
+            + (f", {rec['elements']}" if "elements" in rec else ""))
+        results[mode] = rec
+    require(by_run["neurad"].counts["hash_grid"] > 0 and by_run["splatad"].counts["lidar"] > 0,
+            f"the exports ran K1f (NeuRAD: {by_run['neurad'].counts}) and K4 (SplatAD: {by_run['splatad'].counts})")
+    return dict(modes=results, launches={k: sum(c.counts[k] for c in by_run.values()) for k in by_run["neurad"].counts},
+                by_run={n: c.counts for n, c in by_run.items()})
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post_png(url, payload):
+    """POST a viewer render -> (reply, decoded image or None, seconds)."""
+    import base64
+    from neurad_tpu_torch.data.png import read_png
+
+    t0 = time.perf_counter()
+    out = _post(url, payload)
+    seconds = time.perf_counter() - t0
+    if "png" not in out:
+        return out, None, seconds
+    with tempfile.NamedTemporaryFile(suffix=".png") as f:
+        f.write(base64.b64decode(out["png"]))
+        f.flush()
+        return out, read_png(f.name), seconds
+
+
+def viewer_phase(cache, runs):
+    """The viewer on the train phases' runs (`scripts.viewer.serve_run`:
+    NeuRAD with bf16 table copies) on a free port: /render low (96x64) and
+    high (384x256) equal the quantised direct `render_viewer_image`, the
+    round trips timed (each request has its own server thread; the first
+    request of a server apart), /lidar, /export and /train answer, and an
+    older request of one client is dropped. Then SplatAD trains
+    VIEWER_TRAIN_STEPS steps through `Trainer` without a viewer and as many
+    with the train script's live viewer (`_start_viewer`, util 0.9) while a
+    client thread posts renders: every step runs, every render completes
+    inside the lock and outside a step."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.data.png import quantise
+    from neurad_tpu_torch.engine.trainer import Trainer, TrainerConfig
+    from neurad_tpu_torch.scripts import train as train_script
+    from neurad_tpu_torch.scripts import viewer
+
+    results, by_run = {}, {"splatad": Counted(), "neurad": Counted()}
+    edits = {"lateral": 0.5}
+    for name in ("splatad", "neurad"):
+        counted = by_run[name]  # the HTTP requests' renders only, not the direct ones beside them
+        port = _free_port()
+        server, pipeline = viewer.serve_run(runs[name], port=port, device=DEVICE)
+        server.start(background=True)
+        url = f"http://127.0.0.1:{port}"
+        cams = pipeline.outputs.cameras
+        pose = cams.camera_to_worlds[0].numpy()
+        t = 0.3
+        rec = {}
+        try:
+            seq = 0
+            for quality, (w, h) in (("low", (96, 64)), ("high", (384, 256))):
+                trips = []
+                for _ in range(4):
+                    seq += 1
+                    with counted:
+                        reply, img, s = _post_png(url + "/render", {"pose": pose.tolist(), "quality": quality,
+                                                                    "t01": t, "edits": edits, "client": "smoke",
+                                                                    "seq": seq})
+                    require(img is not None and reply["status"] == f"{w}x{h}", f"{name} {quality}: a PNG came back")
+                    trips.append(s * 1e3)
+                direct = pipeline.render_viewer_image(pose, w, h, t * pipeline.outputs.duration, viewer.edits_vec(edits))
+                require(np.array_equal(img, quantise(direct)),
+                        f"{name} {quality}: the viewer's PNG equals the quantised direct render_viewer_image")
+                direct_ms = []
+                for _ in range(3):
+                    _sync()
+                    t0 = time.perf_counter()
+                    pipeline.render_viewer_image(pose, w, h, t * pipeline.outputs.duration, viewer.edits_vec(edits))
+                    _sync()
+                    direct_ms.append((time.perf_counter() - t0) * 1e3)
+                rec[quality] = dict(first_ms=trips[0], warm_ms=trips[1:], direct_ms=direct_ms, shape=list(img.shape))
+                if quality == "high":
+                    kernel = HASH_KERNEL if name == "neurad" else CAMERA_KERNEL
+                    prof = profiled(f"{name} viewer {w}x{h}", lambda: pipeline.render_viewer_image(
+                        pose, w, h, t * pipeline.outputs.duration, viewer.edits_vec(edits)), match=kernel, rows=8)
+                    rec[quality]["profile"] = {k: v for k, v in prof.items() if k != "all"}
+                log(f"[viewer] {name} {quality} {w}x{h} -> {img.shape[1]}x{img.shape[0]} PNG: round trip first "
+                    f"{trips[0]:.1f} ms, then {', '.join(f'{v:.1f}' for v in trips[1:])} ms; direct render (warm, "
+                    f"synchronised) {', '.join(f'{v:.1f}' for v in direct_ms)} ms")
+            # drop threshold 1: every beam's point comes back (random weights may predict every beam dropped)
+            with counted:
+                t0 = time.perf_counter()
+                pts = _post(url + "/lidar", {"t01": t, "channels": 32, "azim_res": 1.0, "drop_threshold": 1.0})["pts"]
+                rec["lidar_ms"] = (time.perf_counter() - t0) * 1e3
+                exported = _post(url + "/export", {})
+                stats = _post(url + "/train", {})
+                newer, _, _ = _post_png(url + "/render", {"pose": pose.tolist(), "client": "c", "seq": 100})
+                older, _, _ = _post_png(url + "/render", {"pose": pose.tolist(), "client": "c", "seq": 99})
+            require(len(pts) > 0 and all(len(p) == 4 for p in pts[:10]), f"{name}: /lidar gave points")
+            require(exported == {"path": None}, f"{name}: /export without an export hook")
+            require(stats["paused"] is False and stats["train_util"] == 0.9, f"{name}: /train answers")
+            require("png" in newer and older.get("stale") is True, f"{name}: the older request of a client is dropped")
+            log(f"[viewer] {name}: /lidar {len(pts)} points in {rec['lidar_ms']:.1f} ms; /export, /train and the stale "
+                f"drop answered")
+        finally:
+            server.stop()
+        rec["launches"] = counted.counts
+        results[name] = rec
+    require(by_run["splatad"].counts["camera"] > 0 and by_run["splatad"].counts["lidar"] > 0
+            and by_run["neurad"].counts["hash_grid"] > 0,
+            f"the viewer's requests ran K2, K4 (SplatAD: {by_run['splatad'].counts}) and K1f "
+            f"(NeuRAD: {by_run['neurad'].counts})")
+    launches = {k: sum(c.counts[k] for c in by_run.values()) for k in by_run["neurad"].counts}
+
+    # SplatAD training with the live viewer: steps without it, then with it and a client posting renders
+    pipeline = cache.load(runs["splatad"], device=DEVICE)[0]
+    state = pipeline.init_state()
+    cfg = TrainerConfig(steps_per_log=1, steps_per_eval_batch=10**9, steps_per_save=10**9)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(pipeline, state, cfg)
+    trainer.train(1, save_at_end=False)  # the first step apart
+    t0 = time.perf_counter()
+    trainer.train(1 + VIEWER_TRAIN_STEPS, save_at_end=False)
+    _sync()
+    off_s = time.perf_counter() - t0
+    in_step, bad, renders, stop = [False], [], [], threading.Event()
+    step_fn = pipeline.train_step
+
+    def step(*a, **k):
+        in_step[0] = True
+        try:
+            return step_fn(*a, **k)
+        finally:
+            in_step[0] = False
+
+    pipeline.train_step = step
+    port = _free_port()
+    server = train_script._start_viewer(pipeline, RUNS / "splatad", port)
+    render_fn = server.render_fn
+
+    def checked_render(*a, **k):
+        if not server.train_lock.locked() or in_step[0]:
+            bad.append(len(renders))
+        out = render_fn(*a, **k)
+        renders.append(1)
+        return out
+
+    server.render_fn = checked_render
+    url = f"http://127.0.0.1:{port}"
+
+    def client():
+        seq = 0
+        while not stop.is_set():
+            seq += 1
+            _post(url + "/render", {"pose": pose.tolist(), "quality": "low", "t01": 0.1, "client": "train", "seq": seq})
+
+    trainer.viewer = server
+    thread = threading.Thread(target=client, daemon=True)
+    try:
+        thread.start()
+        t0 = time.perf_counter()
+        trainer.train(1 + 2 * VIEWER_TRAIN_STEPS, save_at_end=False)
+        _sync()
+        on_s = time.perf_counter() - t0
+        stop.set()
+        thread.join(timeout=60)
+        exported = _post(url + "/export", {})["path"]
+        stats = _post(url + "/train", {})
+    finally:
+        stop.set()
+        server.stop()
+        del pipeline.train_step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(trainer.state.step == 1 + 2 * VIEWER_TRAIN_STEPS and len(trainer.history) == 1 + 2 * VIEWER_TRAIN_STEPS,
+            "every step ran and logged, with the viewer on as without it")
+    require(renders and not bad, f"every render during training completed inside the lock, outside a step "
+            f"({len(renders)} renders, {len(bad)} not)")
+    require(exported and Path(exported).stat().st_size > 0 and stats["step"] == 2 * VIEWER_TRAIN_STEPS,
+            "the training viewer's /export wrote the splat PLY and /train shows the last step")
+    train_rec = dict(steps=VIEWER_TRAIN_STEPS, off_steps_per_s=VIEWER_TRAIN_STEPS / off_s,
+                     on_steps_per_s=VIEWER_TRAIN_STEPS / on_s, renders_during_training=len(renders),
+                     peak_memory_gib=peak)
+    log(f"[viewer] SplatAD through Trainer: {train_rec['off_steps_per_s']:.2f} steps/s without the viewer, "
+        f"{train_rec['on_steps_per_s']:.2f} with it (util 0.9) and {len(renders)} renders from a client thread; "
+        f"peak device memory {peak:.2f} GiB")
+    results["train"] = train_rec
+    return dict(servers=results, launches=launches)
+
+
 def fid_phase():
     """`eval_fid_suite(max_images=FID_IMAGES)` of both models at full width on
     the scene cut to 8 frames, the last 2 held out (the FID of one image is
@@ -2481,8 +3006,6 @@ def metrics_reference_phase():
     converter writes to .npz files, the VGG19 fallback LPIPS (seed 0) and the
     chamfer distance with masks. TF32 off; tolerances LPIPS_TOL, POOL3_TOL,
     CHAMFER_TOL."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -2720,6 +3243,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    global RUNS
+    RUNS = Path(tempfile.mkdtemp(prefix="chip_smoke_runs_"))
     if args.parent:
         t0 = time.perf_counter()
         REPORT["parent_turns"] = parent_turns(args.parent)
@@ -2798,6 +3323,13 @@ def main(argv=None) -> int:
     neurad_train_res = timed("neurad_train", neurad_train_phase, outputs)
     torch.cuda.empty_cache()
     train_res = timed("train", train_phase, outputs)
+    torch.cuda.empty_cache()
+    runs = {"splatad": Path(train_res["run_dir"]), "neurad": Path(neurad_train_res["run_dir"])}
+    with RunCache() as cache:
+        render_res = timed("render", render_phase, cache, runs)
+        export_res = timed("export", export_phase, cache, runs)
+        viewer_res = timed("viewer", viewer_phase, cache, runs)
+    gc.collect()  # the viewers' handler classes close over their pipelines
     torch.cuda.empty_cache()
     splatfacto_res = timed("splatfacto", splatfacto_phase, outputs, rng)
     torch.cuda.empty_cache()
@@ -2888,12 +3420,23 @@ def main(argv=None) -> int:
             line["kernels"][-1]["parent"] = probes["parent"][f"{key}_131072x32"]
         if "hot" in at:
             line["kernels"][-1]["skewed"] = {m: at["hot"][m] for m in ("ms", "library_ms", "max_rel_err")}
+    # the render, export and viewer paths of the trained runs: K2 and K4 (SplatAD), K1f (NeuRAD)
+    by_name = {k["name"]: k for k in line["kernels"]}
+    for name, key in (("tile_composite_camera_fwd", "camera"), ("tile_composite_lidar_fwd", "lidar"),
+                      ("hash_grid_fwd", "hash_grid")):
+        for path, res in (("render", render_res), ("export", export_res), ("viewer", viewer_res)):
+            by_name[name][f"{path}_launches"] = res["launches"][key]
+    runs_kernels = [(n, p) for n in ("tile_composite_camera_fwd", "tile_composite_lidar_fwd", "hash_grid_fwd")
+                    for p in ("render", "viewer")] + [("tile_composite_lidar_fwd", "export"), ("hash_grid_fwd", "export")]
+    require(all(by_name[n][f"{p}_launches"] > 0 for n, p in runs_kernels),
+            "the render and viewer paths ran K2, K4 and K1f, the exports K4 and K1f")
     require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 12,
             "all twelve kernels were launched on their main path")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
                   hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res, ptxas=ptxas,
                   neurad_train=neurad_train_res, train=train_res, splatfacto=splatfacto_res, drive=drive_res,
-                  nerfacto=nerfacto_res, presets=presets_res,
+                  nerfacto=nerfacto_res, presets=presets_res, render=render_res, export=export_res,
+                  viewer=viewer_res,
                   fid=fid_res, reference=ref, phase_seconds=phase_s,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
@@ -2905,4 +3448,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if RUNS is not None:
+            shutil.rmtree(RUNS, ignore_errors=True)
+    sys.exit(code)

@@ -5,10 +5,12 @@ without an image library can parse a KITTI layout. PNG is lossless: the arrays
 are the ones `imageio.v2.imread` gives for the same file.
 
 `read_png` takes 8-bit greyscale, grey + alpha, RGB and RGBA images without
-interlacing, with any of the five row filters. `write_png` writes 8-bit
-images and picks each row's filter as libpng does, so its files take the
-decode path of camera frames saved by common encoders (mostly Paeth and Sub
-rows).
+interlacing, with any of the five row filters. `encode_png` (the bytes, as
+the viewer sends them) and `write_png` (a file) encode 8-bit images and pick
+each row's filter as libpng does, so their files take the decode path of
+camera frames saved by common encoders (mostly Paeth and Sub rows).
+`quantise` turns a float image into the 8-bit one that the render script and
+the viewer encode.
 """
 
 from __future__ import annotations
@@ -155,21 +157,33 @@ def _filter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
     return np.concatenate([best.astype(np.uint8)[:, None], chosen], axis=1)
 
 
+def quantise(image: np.ndarray) -> np.ndarray:
+    """A float image in [0, 1] as uint8: clipped to [0, 1], times 255,
+    truncated (what the JAX package's render script and viewer write)."""
+    return (np.clip(image, 0, 1) * 255).astype(np.uint8)
+
+
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
 
-def write_png(path, image: np.ndarray, level: int = 6) -> None:
-    """Write a uint8 [H, W] or [H, W, C] (C = 1..4) image, each row with the
-    filter libpng's adaptive heuristic picks (`_filter_rows`)."""
+def encode_png(image: np.ndarray, level: int = 6) -> bytes:
+    """The PNG file of a uint8 [H, W] or [H, W, C] (C = 1..4) image, as bytes,
+    each row with the filter libpng's adaptive heuristic picks
+    (`_filter_rows`)."""
     img = np.ascontiguousarray(image)
     if img.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8 images, got {img.dtype}")
+        raise ValueError(f"PNG encoding takes uint8 images, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     height, width, channels = img.shape
     colour = {1: 0, 2: 4, 3: 2, 4: 6}[channels]
     raw = _filter_rows(img.reshape(height, width * channels), channels)
     ihdr = struct.pack(">IIBBBBB", width, height, 8, colour, 0, 0, 0)
-    Path(path).write_bytes(_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
-                           + _chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path, image: np.ndarray, level: int = 6) -> None:
+    """Write `encode_png(image, level)` to `path`."""
+    Path(path).write_bytes(encode_png(image, level))

@@ -7,11 +7,15 @@ One loop serves the three pipeline types (`ADPipeline`, `SplatADPipeline`,
 `SplatfactoPipeline`): the pipeline owns its train step and checkpoints, and
 `train_batches` gives each its batches. A run resumes from a checkpoint that
 `load_checkpoint` (or `scripts.train.load_run`) put into the state: the loop
-starts at `state.step`.
+starts at `state.step`. A live viewer (`viewer` set to a
+`viewer/server.ViewerServer`) pauses and throttles the loop before each step
+and shows its log lines; each step holds the viewer's `train_lock`, which its
+renders take too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from pathlib import Path
@@ -128,6 +132,8 @@ class Trainer:
         self.early_tracker = MetricTracker(self.config.early_stopping_tracker)
         self._degraded_evals = 0
         self.history: List[Dict[str, float]] = []
+        # a live viewer (`ViewerServer`): its `train_gate` before every step, its stats at every log line
+        self.viewer = None
 
     def _record(self, step: int, metrics: Dict[str, float]) -> None:
         self.history.append(dict(metrics))
@@ -156,11 +162,18 @@ class Trainer:
         rays, t_window = 0, time.perf_counter()
         try:
             for i in range(self.state.step, n):
-                self.state = run_callbacks(self.callbacks, self.state, i,
-                                           TrainingCallbackLocation.BEFORE_TRAIN_ITERATION)
-                args, n_rays = next(batches)
-                self.state, metrics = self.pipeline.train_step(self.state, *args)
-                self.state = run_callbacks(self.callbacks, self.state, i, TrainingCallbackLocation.AFTER_TRAIN_ITERATION)
+                if self.viewer is not None:
+                    self.viewer.train_gate()
+                # The step holds the viewer's lock, and so do its renders: the optimizer writes the parameters in
+                # place, and a render must see those of whole steps (the JAX package's renders read one immutable
+                # snapshot; nerfstudio's trainer takes the same lock, trainer.py:171).
+                with self.viewer.train_lock if self.viewer is not None else contextlib.nullcontext():
+                    self.state = run_callbacks(self.callbacks, self.state, i,
+                                               TrainingCallbackLocation.BEFORE_TRAIN_ITERATION)
+                    args, n_rays = next(batches)
+                    self.state, metrics = self.pipeline.train_step(self.state, *args)
+                    self.state = run_callbacks(self.callbacks, self.state, i,
+                                               TrainingCallbackLocation.AFTER_TRAIN_ITERATION)
                 rays += n_rays or 0
                 if i % cfg.steps_per_log == 0 or i == n - 1:
                     last = {k: float(v) for k, v in metrics.items()}
@@ -168,6 +181,9 @@ class Trainer:
                         self._sync()
                         last["train_rays_per_sec"] = rays / max(time.perf_counter() - t_window, 1e-9)
                     self._record(i, last)
+                    if self.viewer is not None:
+                        self.viewer.update_train_stats(i, loss=last.get("total_loss"), steps_per_sec=(
+                            last["train_rays_per_sec"] / max(n_rays, 1) if n_rays is not None else None))
                     rays, t_window = 0, time.perf_counter()
                 if self.eval_fn is not None and i > 0 and i % cfg.steps_per_eval_batch == 0:
                     evals = self.eval_fn()

@@ -8,6 +8,7 @@ synthetic scene or a logged drive.
     python -m neurad_tpu_torch.scripts.train splatad --set pipeline.cap_max=200000 --dp-set image_height=480
     python -m neurad_tpu_torch.scripts.train splatad --dataparser kitti --data data/kitti-mot --sequence 0006
     python -m neurad_tpu_torch.scripts.train neurad --load-dir outputs/<run>      # resume
+    python -m neurad_tpu_torch.scripts.train splatad --viewer --viewer-port 7007  # live browser viewer
 
 Runs on a CUDA device unless `--device cpu` is given. `--dataparser` names a
 parser of `configs/method_configs.DATAPARSERS` (default: the method's);
@@ -27,8 +28,12 @@ rays per second over the steps since the last line; every
 `pipelines/ad_pipeline.py`). `--set trainer.<field>=<value>` sets the
 trackers' metric, the early-stopping patience or the checkpoints kept. Log
 lines go to the console and, where the `tensorboard` package imports, to
-TensorBoard event files in `<run dir>/tb` (otherwise one line says so). The
-viewer is not ported yet.
+TensorBoard event files in `<run dir>/tb` (otherwise one line says so).
+`--viewer` serves the live browser viewer (`viewer/server.py`) on
+`--viewer-port` while training: renders, the virtual lidar and an export
+into the run directory (a splat PLY of a gaussian model, else a point cloud)
+run on the current parameters, under the lock each train step holds. The
+JAX script ignores `--viewer` for splatfacto; here every model is served.
 """
 
 from __future__ import annotations
@@ -48,7 +53,10 @@ from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
 from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline, SplatfactoPipelineConfig
 from neurad_tpu_torch.plugins.registry import register_discovered_methods
+from neurad_tpu_torch.scripts.export import export_gaussian_splat, export_pointcloud
+from neurad_tpu_torch.scripts.viewer import viewer_fns
 from neurad_tpu_torch.utils.writer import LocalWriter, MultiWriter, TensorboardWriter, Writer
+from neurad_tpu_torch.viewer.server import ViewerServer
 
 Pipeline = Union[ADPipeline, SplatADPipeline, SplatfactoPipeline]
 TrainState = Union[ad_pipeline.TrainState, splatad_pipeline.TrainState, splatfacto_pipeline.TrainState]
@@ -125,6 +133,27 @@ def make_writer(run_dir) -> Writer:
     return MultiWriter(writers)
 
 
+def _start_viewer(pipeline: Pipeline, run_dir: Path, port: int) -> ViewerServer:
+    """The live viewer on the pipeline's current parameters, started in the
+    background: renders and the virtual lidar as `scripts/viewer.py` serves
+    them, and an export into the run directory. The Trainer's steps hold the
+    server's lock, as its renders do."""
+    render_fn, lidar_fn = viewer_fns(pipeline)
+
+    def export_fn():
+        if isinstance(pipeline, (SplatADPipeline, SplatfactoPipeline)):
+            path = run_dir / "viewer_export_splat.ply"
+            export_gaussian_splat(pipeline.model, path)
+        else:
+            path = run_dir / "viewer_export_pointcloud.ply"
+            export_pointcloud(pipeline, path)
+        return str(path)
+
+    server = ViewerServer(render_fn, port=port, lidar_fn=lidar_fn, export_fn=export_fn)
+    server.start(background=True)
+    return server
+
+
 def train_loop(pipeline: Pipeline, state: TrainState, trainer: TrainerConfig,
                ckpt_dir: Path) -> Tuple[TrainState, List[Dict[str, float]]]:
     """`Trainer.train` from `state.step` up to `trainer.max_num_iterations`,
@@ -148,6 +177,8 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--load-dir", default=None, help="run directory of a previous run to resume from")
+    parser.add_argument("--viewer", action="store_true", help="serve the live browser viewer during training")
+    parser.add_argument("--viewer-port", type=int, default=7007)
     parser.add_argument("--set", action="append", default=[], metavar="PATH=VALUE",
                         help="config override, e.g. trainer.steps_per_log=50 or pipeline.train_ray_chunk=4096")
     parser.add_argument("--dp-set", action="append", default=[], metavar="KEY=VALUE",
@@ -194,10 +225,14 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
 
     writer = make_writer(run_dir)
     trainer = Trainer(pipeline, state, cfg.trainer, writer=writer)
+    if args.viewer:
+        trainer.viewer = _start_viewer(pipeline, run_dir, args.viewer_port)
     try:
         metrics = trainer.train()
     finally:
         writer.close()
+        if trainer.viewer is not None:
+            trainer.viewer.stop()
     print(f"[train] done: {json.dumps(metrics)}")
     return pipeline, trainer.state
 

@@ -57,6 +57,10 @@ def test_importing_every_module_loads_no_jax():
             "neurad_tpu_torch.engine.trainer", "neurad_tpu_torch.engine.callbacks",
             "neurad_tpu_torch.utils.writer", "neurad_tpu_torch.utils.profiler",
             "neurad_tpu_torch.plugins.registry", "neurad_tpu_torch.configs.external_methods"} <= set(mods)
+    assert {"neurad_tpu_torch.utils.colormaps", "neurad_tpu_torch.cameras.camera_utils",
+            "neurad_tpu_torch.exporter.tsdf", "neurad_tpu_torch.exporter.poisson", "neurad_tpu_torch.scripts.render",
+            "neurad_tpu_torch.scripts.export", "neurad_tpu_torch.viewer.server", "neurad_tpu_torch.scripts.viewer",
+            "neurad_tpu_torch.process_data", "neurad_tpu_torch.process_data_converters"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -124,6 +128,25 @@ def test_train_and_run_dir_entry_points_need_cuda_unless_asked_for_cpu(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         closed_loop.entrypoint(["--port", "0", "--load-dir", str(tmp_path / "r")])
     assert closed_loop.ClosedLoopState.from_run_dir(tmp_path / "r", device="cpu").pipeline.device.type == "cpu"
+
+
+def test_render_export_viewer_and_process_data_need_cuda_unless_asked_for_cpu(tmp_path):
+    """The slice-10 entry points refuse without CUDA before they read
+    anything, unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    from neurad_tpu_torch import process_data
+    from neurad_tpu_torch.scripts import export, render, viewer
+
+    for refused in (lambda: render.entrypoint(["no-such-run"]), lambda: export.entrypoint(["pointcloud", "no-such-run"]),
+                    lambda: viewer.entrypoint(["no-such-run", "--port", "0"]),
+                    lambda: viewer.serve_run("no-such-run", port=0),
+                    lambda: process_data.entrypoint(["transforms", "no-such.json"]),
+                    lambda: process_data.load_transforms_json("no-such.json")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            refused()
+    with pytest.raises(FileNotFoundError):  # asked for the CPU, it goes on to read the run
+        render.entrypoint([str(tmp_path / "no-such-run"), "--device", "cpu"])
 
 
 def test_neurad_entry_points_need_cuda_unless_asked_for_cpu():
