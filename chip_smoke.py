@@ -159,6 +159,36 @@ order, within BWD_TOL of each entry's terms' magnitude).
    counted over the scripts' own runs and the HTTP requests only (`Counted`),
    not over the reference renders, timings and profiles beside them.
 
+13. Data-parallel training over `torch.distributed` (`data_parallel_phase`,
+   after the presets phase): (a) an NCCL world of 1 in this process runs a
+   SplatAD camera and lidar step, a splatfacto step and a NeuRAD step at
+   full width through the pipelines' `make_sharded_train_step` and the
+   plain `train_step` (twice) from the same state and inputs: losses bit for
+   bit; each tensor's gradient within 4x the two plain steps' distance (at
+   least 2.5e-3 of its largest entry and 2.5e-4 of its optimizer group's)
+   of a plain step's (K1b, K3, K5 and
+   cuDNN's backwards add in no fixed order, so no two steps are bit-equal
+   there); parameters within 2 lr; (b) a gloo
+   world of 2 ranks on
+   this card, spawned (`_dp_rank`): SplatAD at full width for 3 MCMC steps
+   (camera, lidar with a refine, camera) and a Default-strategy camera step,
+   splatfacto 2 steps (SGD for both), the `neurad` preset 2 steps; rank 0
+   holds each step's averaged gradients against the one-process batched
+   step's (the global batch's for NeuRAD), the parameters are checked bit
+   for bit across the ranks after every step, and every rank must launch
+   K1f, K1b and K2-K5 (`data_parallel_launches`); (c) the train script
+   under `python -m torch.distributed.run --standalone --nproc_per_node 1`
+   trains the `splatad` preset at full width 3 steps (one checkpoint), and
+   its entry point resumes from it to a fourth in (a)'s NCCL world; (d)
+   NeuRAD's sharded eval render and `eval_metrics` in the gloo world equal
+   the one-process ones. Reported: each step's seconds by backend, the
+   all-reduce's share, peak memory per rank.
+14. Library (`library_phase`): one SplatAD lidar step at full width with
+   `lidar_raster_mode="points"` (per-point gathers, plain PyTorch), its
+   outputs and opacity gradients against the tiled path's (K4, K5) on the
+   same scan, the points beside the azimuth's wrap apart, its time and peak
+   beside a tiled step's; one NeuRAD request with `rgb_decoder_norm="batch"`.
+
 Prints the card's name and power limit, one JSON line with the twelve
 kernels' numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Details go to chiprun_out/chip_smoke.json.
@@ -3117,6 +3147,654 @@ def neurad_train_reference_phase():
     return dict(losses=losses, loss_rel_err=loss_err, grad_max_rel_err=rel)
 
 
+DP_WORLD = 2  # the gloo world's ranks, both on cuda:0 (NCCL refuses two ranks on one GPU)
+DP_SPLAT_LR = 1e-2  # plain SGD in the SplatAD and splatfacto comparisons with the batched steps
+# NeuRAD's gradients against the global batch's: the noise floor of `_noise_ratio`, of a tensor's largest entry. A
+# rank's partial weight gradient of a bf16 MLP is rounded to bf16 before the sum over the ranks, the one-process
+# gradient once; the compacted actor lookup's capacity is a rank's chunk's (ROADMAP.md section 3)
+DP_NEURAD_FLOOR = 2.5e-3
+# the noise floor of every tensor, of the largest gradient entry in its optimizer group: a tensor whose two
+# reference gradients are exactly zero (a sum that cancels) while the other path's carries rounding noise is
+# held to this (`_noise_ratio`)
+DP_GROUP_FLOOR = 2.5e-4
+DP_NEURAD_STEPS = 2
+# the points-mode lidar outputs against the tiled path's: the bound of every valid point beyond 2e-2 |x| (the
+# largest gap read in the earlier runs, 0.048 in alpha, with room; the depth in units of the point's range)
+POINTS_GAP = 6e-2
+DP_SCRIPT_STEPS = 3
+
+
+class _SGD:
+    """Plain SGD in the place of `Optimizers` for the data-parallel
+    comparisons: a parameter's step is lr times its (averaged) gradient, so
+    the gradients are compared rather than Adam's sign-like first update."""
+
+    def __init__(self, module, lr=DP_SPLAT_LR):
+        self.params = {"all": list(module.parameters())}
+        self.optimizers, self.accum, self.lr = {}, {}, lr
+
+    def zero_grad(self):
+        for p in self.params["all"]:
+            p.grad = None
+
+    def step(self):
+        import torch
+
+        with torch.no_grad():
+            for p in self.params["all"]:
+                if p.grad is not None:
+                    p -= self.lr * p.grad
+
+
+def _noise_ratio(got, a, b, floor_frac=2.5e-3, groups=None):
+    """Per tensor, got's largest distance to two references computed alike
+    (a and b) over their own distance, that floored at `floor_frac` of the
+    tensor's largest entry (two samples' noise is a poor estimate of its
+    scale: two launches may even agree by chance, and bf16 convolutions'
+    backward, whose algorithms cuDNN may pick anew, rounds at 2^-9) and at
+    `DP_GROUP_FLOOR` of the largest entry of the tensor's optimizer group
+    (`groups`: tensor name -> group; None: one group), so that a tensor
+    whose two references are exactly zero is judged against a scale too.
+    Returns dict(worst: the worst ratio, tensor: its tensor, exact: the
+    number of tensors where a and b agree bit for bit, zero_refs: for each
+    tensor whose references are both zero, got's largest entry over its
+    group's largest reference entry)."""
+    groups = groups or {}
+    scale = {n: float(a[n].abs().max()) for n in got}
+    group_max = {}
+    for n in got:
+        g = groups.get(n, "")
+        group_max[g] = max(group_max.get(g, 0.0), scale[n])
+    worst, worst_name, exact, zero_refs = 0.0, None, 0, {}
+    for n in got:
+        d_ab = float((a[n] - b[n]).abs().max())
+        d = max(float((got[n] - a[n]).abs().max()), float((got[n] - b[n]).abs().max()))
+        g_max = group_max[groups.get(n, "")]
+        floor = max(d_ab, floor_frac * scale[n], DP_GROUP_FLOOR * g_max)
+        ratio = d / floor if floor > 0 else (0.0 if d == 0 else math.inf)
+        exact += d_ab == 0
+        if scale[n] == 0 and d_ab == 0:
+            zero_refs[n] = d / g_max if g_max > 0 else d
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    return dict(worst=worst, tensor=worst_name, exact=exact, zero_refs=zero_refs)
+
+
+def _grads(model):
+    import torch
+
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone()
+            for n, p in model.named_parameters()}
+
+
+def _snapshot(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _dp_counts():
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.ops import tile_composite as TC
+
+    return {"camera": TC.camera_launches, "lidar": TC.lidar_launches, "camera_bwd": TC.camera_bwd_launches,
+            "lidar_bwd": TC.lidar_bwd_launches, "hash_grid": HE.hash_grid_launches,
+            "hash_grid_bwd": HE.hash_grid_bwd_launches}
+
+
+class _DPCounted:
+    """The six main-path kernels' launches of the data-parallel calls inside
+    `with` blocks only (counts set to 0 as a block opens, added as it closes):
+    the one-process reference steps beside them are not counted."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(_dp_counts(), 0)
+
+    def __enter__(self):
+        from neurad_tpu_torch.ops import hash_encoding as HE
+        from neurad_tpu_torch.ops import tile_composite as TC
+
+        TC.reset_launch_counts()
+        HE.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in _dp_counts().items():
+            self.counts[k] += v
+
+
+def _dp_pick(dm, want_camera, rank):
+    """The next `DP_WORLD` same-modality samples of the wanted kind; rank 0
+    builds them all (its one-process reference takes them), the others their own."""
+    for _ in range(64):
+        samples = dm.next_train_batch(DP_WORLD, rank=None if rank == 0 else rank)
+        if (type(samples[rank]).__name__ == "CameraSample") == want_camera:
+            return samples
+    raise RuntimeError("check failed: the wanted modality within 64 draws")
+
+
+def _dp_rank(rank, workdir, device):
+    """One rank of the gloo world on `device` (cuda:0; spawned by `data_parallel_phase`):
+    SplatAD (MCMC, a refine at step 2; then one Default-strategy camera
+    step), splatfacto and NeuRAD at full width through the pipelines'
+    `make_sharded_train_step`, each step's averaged gradients held on rank 0
+    against the one-process batched step's (the global batch's, for NeuRAD)
+    computed twice: as close as the two are (`_noise_ratio`, 4x), the
+    parameters checked bit for bit across the ranks after every step;
+    then NeuRAD's sharded eval against its one-process eval. Writes
+    rank<r>.json into `workdir`."""
+    import dataclasses
+
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.model_components.strategy import MCMCStrategyConfig, should_refine
+    from neurad_tpu_torch.models.splatad import SplatADConfig
+    from neurad_tpu_torch.parallel import sharding
+    from neurad_tpu_torch.pipelines import splatad_pipeline as SP
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+    from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = sharding.make_mesh(device=device, rank=rank, world_size=DP_WORLD,
+                              init_method=f"file://{workdir}/rendezvous", backend="gloo")
+    res = {"rank": rank, "backend": mesh.backend, "steps": []}
+    reduce_s = [0.0]
+    real_reduce = sharding.all_reduce_gradients
+
+    def timed_reduce(*a, **k):  # the all-reduce's share of a step
+        _sync()
+        t = time.perf_counter()
+        real_reduce(*a, **k)
+        _sync()
+        reduce_s[0] += time.perf_counter() - t
+
+    sharding.all_reduce_gradients = timed_reduce
+    counted = _DPCounted()
+    outputs = SyntheticDataParserConfig(**SCENE).setup().get_dataparser_outputs()
+
+    def step(label, model, fn):
+        """A data-parallel step, timed and counted; the parameters checked
+        bit for bit across the ranks."""
+        reduce_s[0] = 0.0
+        torch.cuda.reset_peak_memory_stats()
+        _sync()
+        t0 = time.perf_counter()
+        with counted:
+            out = fn()
+        _sync()
+        s = time.perf_counter() - t0
+        sharding.check_replicated(mesh, list(model.state_dict().values()), f"{label}: parameters")
+        rec = dict(label=label, seconds=s, allreduce_seconds=reduce_s[0], allreduce_share=reduce_s[0] / s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        res["steps"].append(rec)
+        return out, rec
+
+    # ---- SplatAD: MCMC camera, lidar, camera (refine after step 2), under SGD ----
+    cfg = SP.SplatADPipelineConfig(cap_max=N_GAUSS, seed=SEED, model=SplatADConfig(num_downscales=0),
+                                   mcmc=MCMCStrategyConfig(cap_max=N_GAUSS, refine_start_iter=1, refine_every=2))
+    pipe = SP.SplatADPipeline(outputs, cfg, device=device, mesh=mesh)
+    state = pipe.init_state()
+    labels = state.optimizers.labels  # the optimizer groups of the noise floors
+    state.optimizers = _SGD(pipe.model)
+    sharding.replicate(mesh, pipe.model)
+    run = pipe.make_sharded_train_step()
+    refines = 0
+    for want_camera, strategy in ((True, "mcmc"), (False, "mcmc"), (True, "mcmc"), (True, "default")):
+        if strategy == "default":  # the absgrad statistics, summed over the ranks
+            pipe.config = dataclasses.replace(cfg, strategy="default")
+            pipe._grad2d_sum = pipe._count = None
+        samples = _dp_pick(pipe.datamanager, want_camera, rank)
+        before = _snapshot(pipe.model) if rank == 0 else None
+        (state, metrics), rec = step(f"splatad_{strategy}_{'camera' if want_camera else 'lidar'}", pipe.model,
+                                     lambda: run(state, samples))
+        rec.update(loss=float(metrics["total_loss"]), refined=bool(strategy == "mcmc" and should_refine(state.step, cfg.mcmc)))
+        refines += rec["refined"]
+        if rank == 0:  # the one-process batched step from the same parameters and samples, twice
+            got = _grads(pipe.model)
+            after = _snapshot(pipe.model)
+            sums = (pipe._grad2d_sum.clone(), pipe._count.clone()) if strategy == "default" else None
+            refs = []
+            for _ in range(2):
+                pipe.model.load_state_dict(before)
+                ref_state = SP.TrainState(step=state.step - 1, optimizers=_SGD(pipe.model), generator=state.generator)
+                _, ref_metrics, (g2d, count) = pipe._step_batched(ref_state, samples)
+                refs.append((_grads(pipe.model), {"g2d": g2d.clone()}, count.clone()))
+            pipe.model.load_state_dict(after)
+            noise = _noise_ratio(got, refs[0][0], refs[1][0], groups=labels)
+            worst, name = noise["worst"], noise["tensor"]
+            rec.update(grad_worst_over_noise=worst, grad_worst_tensor=name,
+                       tensors_bit_equal_between_refs=noise["exact"],
+                       zero_ref_tensors=noise["zero_refs"], batched_loss=float(ref_metrics["total_loss"]))
+            require(worst <= 4.0, f"{rec['label']}: the averaged gradients are the batched step's, as close as two "
+                                  f"batched steps are ({name}: {worst:.3g}x)")
+            require(abs(rec["loss"] - rec["batched_loss"]) <= 1e-5 * abs(rec["batched_loss"]),
+                    f"{rec['label']}: the mean loss is the batched step's")
+            if sums is not None:
+                require(torch.equal(sums[1], refs[0][2]), "the Default strategy's visibility counts are the batched "
+                                                          "step's")
+                rec["absgrad_over_noise"] = _noise_ratio({"g2d": sums[0]}, refs[0][1], refs[1][1])["worst"]
+                require(rec["absgrad_over_noise"] <= 4.0, f"the absgrad sums are the batched step's "
+                                                          f"({rec['absgrad_over_noise']:.3g}x)")
+        log(f"[dp rank {rank}] {rec}")
+    require(refines >= 1, "an MCMC refine ran in the gloo world")
+    del pipe, state, run
+    torch.cuda.empty_cache()
+
+    # ---- splatfacto: two steps, under SGD ----
+    fcfg = METHODS["splatfacto"]().pipeline
+    fcfg.seed = SEED
+    pipe = SplatfactoPipeline(outputs, fcfg, device=device, mesh=mesh)
+    state = pipe.init_state()
+    state.optimizers = _SGD(pipe.model)
+    sharding.replicate(mesh, pipe.model)
+    run = pipe.make_sharded_train_step()
+    for i in range(2):
+        order = pipe.rng_state()
+        before = _snapshot(pipe.model) if rank == 0 else None
+        (state, metrics), rec = step(f"splatfacto_{i}", pipe.model, lambda: run(state))
+        rec["loss"] = float(metrics["total_loss"])
+        if rank == 0:
+            got = _grads(pipe.model)
+            after, now = _snapshot(pipe.model), pipe.rng_state()
+            pipe.set_rng_state(order)
+            idxs = pipe._draw_cameras(DP_WORLD)
+            pipe.set_rng_state(now)
+            sums = (pipe._grad2d_sum.clone(), pipe._count.clone())
+            refs = []
+            for _ in range(2):
+                pipe.model.load_state_dict(before)
+                pipe._step_batched(type(state)(step=0, optimizers=_SGD(pipe.model), generator=state.generator), idxs)
+                refs.append(_grads(pipe.model))
+            pipe.model.load_state_dict(after)
+            pipe._grad2d_sum, pipe._count = sums
+            noise = _noise_ratio(got, *refs)
+            worst, name = noise["worst"], noise["tensor"]
+            rec.update(grad_worst_over_noise=worst, grad_worst_tensor=name,
+                       tensors_bit_equal_between_refs=noise["exact"],
+                       zero_ref_tensors=noise["zero_refs"], cameras=idxs)
+            require(worst <= 4.0, f"{rec['label']}: the averaged gradients are the batched step's, as close as two "
+                                  f"batched steps are ({name}: {worst:.3g}x)")
+        log(f"[dp rank {rank}] {rec}")
+    del pipe, state, run
+    torch.cuda.empty_cache()
+
+    # ---- NeuRAD: the global batch's step, then the sharded eval ----
+    ncfg = METHODS["neurad"]().pipeline
+    ncfg.seed = SEED
+    pipe = ADPipeline(outputs, ncfg, device=device, mesh=mesh)
+    _liven(pipe.model)
+    state = pipe.init_state()
+    sharding.replicate(mesh, pipe.model, state.optimizers)
+    run = pipe.make_sharded_train_step()
+    n_cam = pipe.num_cam_rays
+    for i in range(DP_NEURAD_STEPS):
+        bundle, batch = pipe.datamanager.next_train()
+        n_global = bundle.origins.shape[0] * DP_WORLD
+        draws = pipe.draw(state.generator, n_global)
+        before = _snapshot(pipe.model) if rank == 0 else None
+        (state, metrics), rec = step(f"neurad_{i}", pipe.model, lambda: run(state, bundle, batch, draws))
+        rec.update(loss=float(metrics["total_loss"]), rays_per_rank=bundle.origins.shape[0])
+        global_bundle, global_batch = sharding.assemble_global_train_batch(mesh, bundle, batch, n_cam)
+        if rank == 0:  # the one-process loss of the global batch, from the parameters before the step, twice
+            got = _grads(pipe.model)
+            after = _snapshot(pipe.model)
+            refs = []
+            for _ in range(2):
+                pipe.model.load_state_dict(before)
+                pipe.model.zero_grad(set_to_none=True)
+                total, _m = pipe._loss_of_outputs(pipe._ray_outputs(global_bundle, draws, DP_WORLD * n_cam),
+                                                  global_batch, DP_WORLD * n_cam)
+                total.backward()
+                refs.append(_grads(pipe.model))
+                rec["global_loss"] = float(total.detach())
+                del total, _m
+            pipe.model.load_state_dict(after)
+            noise = _noise_ratio(got, *refs, floor_frac=DP_NEURAD_FLOOR, groups=state.optimizers.labels)
+            worst, name = noise["worst"], noise["tensor"]
+            rec.update(grad_worst_over_noise=worst, grad_worst_tensor=name,
+                       tensors_bit_equal_between_refs=noise["exact"],
+                       zero_ref_tensors=noise["zero_refs"])
+            require(abs(rec["loss"] - rec["global_loss"]) <= 1e-3 * abs(rec["global_loss"]),
+                    f"{rec['label']}: the loss is the global batch's")
+            require(worst <= 4.0, f"{rec['label']}: the averaged gradients are the one-process gradients of the "
+                                  f"global batch, as close as two one-process steps are ({name}: {worst:.3g}x)")
+        del global_bundle, global_batch
+        sharding.barrier(mesh)
+        torch.cuda.empty_cache()
+        log(f"[dp rank {rank}] {rec}")
+
+    pipe.config.eval_shard = True
+    cam = outputs.eval_camera_indices[0] if outputs.eval_camera_indices else 0
+    evals = {}
+    for shard in (True, False):
+        pipe.config.eval_shard = shard
+        _sync()
+        t0 = time.perf_counter()
+        if shard:
+            with counted:
+                rgb, _gt = pipe.render_eval_camera(cam)
+                metrics = pipe.eval_metrics()
+        else:
+            rgb, _gt = pipe.render_eval_camera(cam)
+            metrics = pipe.eval_metrics()
+        _sync()
+        evals["sharded" if shard else "alone"] = dict(seconds=time.perf_counter() - t0, rgb=rgb, metrics=metrics)
+    s, a = evals["sharded"], evals["alone"]
+    res["eval"] = dict(sharded_seconds=s["seconds"], alone_seconds=a["seconds"], metrics=s["metrics"],
+                       render_equal=bool((s["rgb"] == a["rgb"]).all()),
+                       metrics_equal=s["metrics"] == a["metrics"],
+                       metrics_max_rel=max(abs(s["metrics"][k] - a["metrics"][k]) / max(abs(a["metrics"][k]), 1e-12)
+                                           for k in a["metrics"]))
+    require(res["eval"]["render_equal"], "the sharded eval render is the one-process render, bit for bit")
+    require(res["eval"]["metrics_max_rel"] <= 1e-6, f"the sharded eval_metrics are the one-process ones: {res['eval']}")
+    res["launches"] = counted.counts
+    require(all(v > 0 for v in counted.counts.values()),
+            f"rank {rank} launched K1f, K1b and K2-K5 on the data-parallel paths: {counted.counts}")
+    (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(res))
+    del pipe, state, run
+    torch.distributed.destroy_process_group()
+
+
+def data_parallel_phase(outputs):
+    """Data-parallel training and eval over `torch.distributed`:
+    (a) an NCCL world of 1 in this process: a SplatAD camera and lidar step,
+        a splatfacto step and a NeuRAD step through the data-parallel steps
+        against the plain `train_step` from the same state and inputs;
+    (b) a gloo world of 2 ranks on cuda:0, spawned (`_dp_rank`);
+    (c) the train script at full width (the `splatad` preset, 500,000
+        gaussians, this run's scene): under `python -m torch.distributed.run
+        --standalone --nproc_per_node 1` for 3 steps (a checkpoint by rank 0),
+        then a resume from it to step 4 through the same entry point in (a)'s
+        NCCL world of 1 (`train.entrypoint(argv, mesh=...)`: a second
+        launcher process would add its start, not another path);
+    (d) NeuRAD's sharded eval in the gloo world (in `_dp_rank`)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.models.splatad import SplatADConfig
+    from neurad_tpu_torch.parallel import sharding
+    from neurad_tpu_torch.pipelines import splatad_pipeline as SP
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+    from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline
+
+    res = {"nccl_world_of_1": {}}
+    t_phase = time.perf_counter()
+    mesh = sharding.make_mesh(device=DEVICE, rank=0, world_size=1)  # NCCL on the card
+    require(mesh.backend == "nccl", "the world of 1 runs on NCCL")
+
+    def pair(label, pipe, make_state, sharded_call, plain_call, lrs, groups=None):
+        """The data-parallel step and two plain steps from the same parameters
+        and inputs: the loss bit for bit (the forward kernels are
+        deterministic); per tensor, the gradient as close to each plain
+        step's as the two plain steps are to each other (at most 4x that
+        distance, or of 2.5e-3 of the tensor's largest entry or 2.5e-4 of its
+        optimizer group's where that is larger): K1b, K3 and K5 and PyTorch's own atomic
+        backwards add in no fixed order, so no two steps are bit-equal there;
+        the parameters within 2 lr (Adam's sign-like first update) and 2 ulps."""
+        before = _snapshot(pipe.model)
+        grads = lambda: _grads(pipe.model)
+        _sync()
+        t0 = time.perf_counter()
+        _, m_dp = sharded_call(make_state())
+        _sync()
+        t_dp = time.perf_counter() - t0
+        g_dp, p_dp = grads(), {n: p.detach().clone() for n, p in pipe.model.named_parameters()}
+        runs = []
+        for _ in range(2):
+            pipe.model.load_state_dict(before)
+            _, m_plain = plain_call(make_state())
+            runs.append((float(m_plain["total_loss"]), grads()))
+        (loss_a, g_a), (loss_b, g_b) = runs
+        noise = _noise_ratio(g_dp, g_a, g_b, groups=groups)
+        worst, worst_name = noise["worst"], noise["tensor"]
+        # Adam's first update is about lr * sign(g): 2 lr apart where a gradient's sign differs, plus the rounding
+        # of parameters whose ulp exceeds a small lr (2 ulps)
+        dp_far = max(float(((p_dp[n] - p.detach()).abs() - 2.4e-7 * p.detach().abs()).max()) / lrs(n)
+                     for n, p in pipe.model.named_parameters())
+        rec = dict(loss_dp=float(m_dp["total_loss"]), loss_plain=loss_a, seconds=t_dp, grad_worst_over_noise=worst,
+                   grad_worst_tensor=worst_name, tensors_bit_equal_between_plain_steps=noise["exact"],
+                   zero_ref_tensors=noise["zero_refs"], tensors=len(g_dp), params_max_over_lr=dp_far)
+        log(f"[dp nccl] {label}: {rec}")
+        require(rec["loss_dp"] == loss_a == loss_b, f"{label}: the NCCL world's loss is the plain step's, bit for bit")
+        require(worst <= 4.0, f"{label}: the NCCL world's gradients are as close to a plain step's as two plain steps "
+                              f"are ({worst_name}: {worst:.3g}x)")
+        require(dp_far <= 2.001, f"{label}: the parameters within 2 lr of the plain step's")
+        res["nccl_world_of_1"][label] = rec
+        pipe.model.load_state_dict(before)
+
+    cfg = SP.SplatADPipelineConfig(cap_max=N_GAUSS, seed=SEED, model=SplatADConfig(num_downscales=0))
+    pipe = SP.SplatADPipeline(outputs, cfg, device=DEVICE, mesh=mesh)
+    lr_of = lambda st: (lambda n: st.optimizers.schedules[st.optimizers.labels[n]](0))
+    probe = pipe.init_state()
+    for want_camera in (True, False):
+        sample = next(s for s in iter(lambda: pipe.datamanager.next_train_batch(1), None)
+                      if (type(s[0]).__name__ == "CameraSample") == want_camera)
+        pair(f"splatad_{'camera' if want_camera else 'lidar'}", pipe, pipe.init_state,
+             lambda st: pipe.make_sharded_train_step(mesh)(st, sample), lambda st: pipe.train_step(st, sample[0]),
+             lr_of(probe), probe.optimizers.labels)
+    del pipe, probe
+    torch.cuda.empty_cache()
+
+    fcfg = METHODS["splatfacto"]().pipeline
+    fcfg.seed = SEED
+    pipe = SplatfactoPipeline(outputs, fcfg, device=DEVICE, mesh=mesh)
+    order = pipe.rng_state()
+
+    def facto_dp(st):
+        pipe.set_rng_state(order)
+        return pipe.make_sharded_train_step(mesh)(st)
+
+    def facto_plain(st):
+        pipe.set_rng_state(order)
+        return pipe.train_step(st, pipe._draw_cameras(1)[0])
+
+    pair("splatfacto", pipe, pipe.init_state, facto_dp, facto_plain, lambda n: pipe._lrs()[n])
+    del pipe
+    torch.cuda.empty_cache()
+
+    ncfg = METHODS["neurad"]().pipeline
+    ncfg.seed = SEED
+    pipe = ADPipeline(outputs, ncfg, device=DEVICE, mesh=mesh)
+    _liven(pipe.model)
+    probe = pipe.init_state()
+    bundle, batch = pipe.datamanager.next_train()
+    draws = pipe.draw(probe.generator, bundle.origins.shape[0])
+    pair("neurad", pipe, pipe.init_state, lambda st: pipe.make_sharded_train_step(mesh)(st, bundle, batch, draws),
+         lambda st: pipe.train_step(st, bundle, batch, draws), lr_of(probe), probe.optimizers.labels)
+    del pipe, probe, bundle, batch, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["nccl_seconds"] = time.perf_counter() - t_phase
+
+    # (c): the train script at full width under torchrun, a world of 1 on NCCL; the resume in this NCCL world
+    from neurad_tpu_torch.scripts import train as TTrain
+
+    t0 = time.perf_counter()
+    out_dir = RUNS / "dp_script"
+    device_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    argv = ["splatad", "--output-dir", str(out_dir), "--experiment-name", "r", "--max-iterations",
+            str(DP_SCRIPT_STEPS), *[a for k, v in SCENE.items() for a in ("--dp-set", f"{k}={v}")], *device_args]
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                           "-m", "neurad_tpu_torch.scripts.train", *argv], cwd=str(ROOT), capture_output=True,
+                          text=True, timeout=600)
+    launch_log = proc.stdout[-2000:] + proc.stderr[-2000:]
+    require(proc.returncode == 0, f"the train script under torchrun: {launch_log}")
+    require("rank 0 of 1 (nccl)" in proc.stdout, "the train script joined torchrun's world of 1 on NCCL")
+    first = sorted(p.name for p in (out_dir / "r" / "checkpoints").iterdir())
+    t_launch = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    pipe, state = TTrain.entrypoint(["splatad", "--load-dir", str(out_dir / "r"), "--max-iterations",
+                                     str(DP_SCRIPT_STEPS + 1), *device_args], mesh=mesh)
+    resumed_step, n_gauss = state.step, int(pipe.model.means.shape[0])
+    del pipe, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    files = sorted(p.name for p in (out_dir / "r" / "checkpoints").iterdir())
+    res["script"] = dict(seconds=time.perf_counter() - t0, torchrun_seconds=t_launch,
+                         resume_seconds=time.perf_counter() - t1, first=first, files=files, gaussians=n_gauss,
+                         scene=SCENE)
+    require(first == [f"step-{DP_SCRIPT_STEPS:09d}.pt"], f"one checkpoint after {DP_SCRIPT_STEPS} steps: {first}")
+    require(resumed_step == DP_SCRIPT_STEPS + 1 and files == [f"step-{DP_SCRIPT_STEPS:09d}.pt",
+                                                              f"step-{DP_SCRIPT_STEPS + 1:09d}.pt"],
+            f"the resume trained on from it: step {resumed_step}, {files}")
+    log(f"[dp script] torchrun splatad, then the resume in process: {res['script']}")
+    torch.distributed.destroy_process_group()
+
+    # (b), (d): the gloo world of 2 on this card
+    t0 = time.perf_counter()
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=RUNS))
+    mp.start_processes(_dp_rank, args=(str(workdir), "cuda:0" if DEVICE == "cuda" else DEVICE), nprocs=DP_WORLD,
+                       start_method="spawn")
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    res["gloo"] = dict(seconds=time.perf_counter() - t0, ranks=ranks)
+    res["launches"] = {k: min(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    log(f"[dp gloo] {DP_WORLD} ranks in {res['gloo']['seconds']:.1f} s; launches on every rank {res['launches']}; "
+        f"eval {ranks[0]['eval']}")
+
+    return res
+
+
+def library_phase(outputs):
+    """The last slice's library at full width: one SplatAD lidar step with
+    `lidar_raster_mode="points"` (per-point gathers in plain PyTorch), its
+    outputs and opacity gradients held against the tiled path's (K4, K5) on
+    the same parameters and scan at `test_lidar_tiled_matches_pointwise`'s
+    bounds (99% of the points within 2e-3 + 2e-2 |x|, every point within
+    `POINTS_GAP` + 2e-2 |x|, the points beside the azimuth's wrap alike; 99%
+    of the gaussians' gradients within 5e-2 + 5e-2 |g|, every one within
+    that + 1e-3 of the largest; the median is left out, its two
+    definitions differ: ROADMAP.md section 3), timed and its peak memory
+    beside a tiled step; one NeuRAD serving request with
+    `rgb_decoder_norm="batch"` (eval mode, running averages)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.models.splatad import SplatADConfig
+    from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
+    from neurad_tpu_torch.scripts.closed_loop import ClosedLoopState
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+
+    res = {}
+    cfg = SplatADPipelineConfig(cap_max=N_GAUSS, seed=SEED, model=SplatADConfig(num_downscales=0,
+                                                                                 lidar_raster_mode="points"))
+    pipe = SplatADPipeline(outputs, cfg, device=DEVICE)
+    dm = pipe.datamanager
+    sample = dm._lidar_sample(dm.train_lidars[0])
+    model = pipe.model
+    points_cfg = model.config
+    tiled_cfg = dataclasses.replace(points_cfg, lidar_raster_mode="tiled")
+    valid = torch.as_tensor(sample.valid, device=model.device)
+    azim = torch.as_tensor(sample.raster_pts[:, 0], device=model.device)
+    seam = valid & (azim.abs() >= 180.0 - points_cfg.lidar_tile_azim)  # the tiles beside the azimuth's wrap
+    keys = ("features", "depth", "alpha", "alpha_sum_until_points")
+    outs, grads = {}, {}
+    for mode, mcfg in (("points", points_cfg), ("tiled", tiled_cfg)):
+        # JAX's test loss, sum(features^2) + sum(alpha_sum_until_points) over the scan's points, and its
+        # gradient with respect to the opacities (the model's logits' gradient over the sigmoid's slope)
+        model.config = mcfg
+        model.zero_grad(set_to_none=True)
+        out = model.get_lidar_outputs(sample.l2w, sample.raster_pts, sample.time, sample.sensor_idx)
+        loss = (out["features"][valid] ** 2).sum() + out["alpha_sum_until_points"][valid].sum()
+        loss.backward()
+        sig = torch.sigmoid(model.opacities.detach())
+        grads[mode] = (model.opacities.grad / (sig * (1.0 - sig))).reshape(-1)
+        outs[mode] = {k: out[k].detach().reshape(out[k].shape[0], -1) for k in keys}
+        del out, loss
+    model.config = points_cfg
+    model.zero_grad(set_to_none=True)
+    # a point's excess over the relative part of `test_lidar_tiled_matches_pointwise`'s bound (2e-2 |x|), per
+    # output its largest over the channels; the every-point bound takes the depth (an alpha-weighted sum of
+    # distances) in units of the point's range, the other outputs as they are
+    rng = torch.as_tensor(sample.raster_pts[:, 2], device=model.device).clamp_min(1.0)
+    excess = {k: ((outs["points"][k] - outs["tiled"][k]).abs() - 2e-2 * outs["tiled"][k].abs()).amax(-1)
+              for k in keys}
+    ok = torch.stack([excess[k] for k in keys]).amax(0) <= 2e-3
+    gap = torch.stack([excess[k] / rng if k == "depth" else excess[k] for k in keys]).amax(0)
+    g_p, g_t = grads["points"], grads["tiled"]
+    # where the 1/255 alpha gate keeps a gaussian at a point in one path and drops it in the other (bf16 against
+    # fp32 quadratic forms) its gradient differs by that point's share: JAX's test allows 5e-2 on its toy scene,
+    # 2% of its largest gradient; a full-width scan's gradients reach a hundred times more, so beside the share
+    # within the test's bound every gaussian is held to it plus 1e-3 of the largest gradient
+    g_max = float(g_t.abs().max())
+    g_excess = (g_p - g_t).abs() - 5e-2 * g_t.abs()
+    gated = (g_p == 0) != (g_t == 0)  # kept at every point in one path, at none in the other
+    with_grad = (g_p != 0) | (g_t != 0)
+    res["points_vs_tiled"] = dict(
+        agree_share=float(ok[valid].float().mean()), valid_points=int(valid.sum()),
+        seam_points=int(seam.sum()), seam_agree_share=float(ok[seam].float().mean()),
+        largest_gap=float(gap[valid].max()), seam_largest_gap=float(gap[seam].max()),
+        largest_excess={k: float(excess[k][valid].max()) for k in keys},
+        depth_largest_excess_over_range=float((excess["depth"] / rng)[valid].max()),
+        opacity_grad_agree_share=float((g_excess <= 5e-2)[with_grad].float().mean()),
+        opacity_grad_largest_excess=float(g_excess.max()), opacity_grad_max_abs=g_max,
+        gaussians_with_grad=int(with_grad.sum()), gaussians_gated_apart=int(gated.sum()))
+    log(f"[library] points vs tiled lidar outputs and opacity gradients: {res['points_vs_tiled']}")
+    pv = res["points_vs_tiled"]
+    require(pv["agree_share"] >= 0.99, "99% of the scan's points agree with the tiled path within 2e-3 + 2e-2 |x| "
+                                       "(features, depth, alpha, alpha before the return)")
+    require(pv["largest_gap"] <= POINTS_GAP,
+            f"every valid point agrees with the tiled path within {POINTS_GAP} + 2e-2 |x| (the depth in units of its "
+            f"range; {pv['largest_gap']:.3g})")
+    require(pv["seam_points"] > 0 and pv["seam_agree_share"] >= 0.99 and pv["seam_largest_gap"] <= POINTS_GAP,
+            "the points beside the azimuth's wrap agree with the tiled path as the others do")
+    require(pv["opacity_grad_agree_share"] >= 0.99 and pv["opacity_grad_largest_excess"] <= 5e-2 + 1e-3 * g_max,
+            f"99% of the gaussians' opacity gradients agree with the tiled path's within 5e-2 + 5e-2 |g| "
+            f"(test_lidar_tiled_matches_pointwise's bound), every one within that + 1e-3 of the largest "
+            f"({pv['opacity_grad_largest_excess']:.3g} against {5e-2 + 1e-3 * g_max:.3g})")
+    del outs, grads, g_p, g_t, g_excess
+    steps = {}
+    for mode, mcfg in (("points", points_cfg), ("tiled", tiled_cfg)):
+        model.config = mcfg
+        state = pipe.init_state()
+        for i in range(2):  # the first apart
+            torch.cuda.reset_peak_memory_stats()
+            _sync()
+            t0 = time.perf_counter()
+            state, metrics = pipe.train_step(state, sample)
+            _sync()
+            steps.setdefault(mode, []).append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                                   loss=float(metrics["total_loss"])))
+        require(all(math.isfinite(s["loss"]) for s in steps[mode]), f"{mode} lidar steps' losses finite")
+    res["lidar_step"] = steps
+    log(f"[library] lidar steps (the first apart): {steps}")
+    del pipe, model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ncfg = METHODS["neurad"]().pipeline
+    ncfg.seed = SEED
+    ncfg.model_overrides = {**ncfg.model_overrides, "rgb_decoder_norm": "batch"}
+    t0 = time.perf_counter()
+    npipe = ADPipeline(outputs, ncfg, device=DEVICE)
+    _liven(npipe.model)
+    require(any("running_mean" in k for k in npipe.model.state_dict()), "the decoder normalises by batch norm")
+    cl = ClosedLoopState(npipe, device=DEVICE)
+    t_build = time.perf_counter() - t0
+    c2w = outputs.cameras.camera_to_worlds[0].numpy()
+    pose = np.eye(4)
+    pose[:3] = c2w
+    times = []
+    for _ in range(2):  # cold, warm
+        _sync()
+        t0 = time.perf_counter()
+        img = cl.render_image(pose.tolist(), float(outputs.cameras.times[0, 0]), outputs.sensor_idx_to_name[0])
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    require(np.isfinite(np.asarray(img)).all(), "the batch-norm decoder's request is finite")
+    res["batch_norm_request"] = dict(build_s=t_build, ms=times, shape=list(np.asarray(img).shape))
+    log(f"[library] NeuRAD request with a batch-norm decoder: {res['batch_norm_request']}")
+    del npipe, cl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def profiled(label, fn, rows=15, match=None):
     """Run fn once more under torch.profiler: device time by kernel, and the
     device's busy share of the host-clock interval (profiler on). `match`: also
@@ -3335,6 +4013,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     nerfacto_res = timed("nerfacto", nerfacto_phase, outputs, rng)
     presets_res = timed("presets", presets_phase, outputs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_res = timed("data_parallel", data_parallel_phase, outputs)
+    library_res = timed("library", library_phase, outputs)
     del outputs
     torch.cuda.empty_cache()
     drive_res = timed("drive", drive_phase)
@@ -3357,6 +4039,7 @@ def main(argv=None) -> int:
         {"name": names[key][0], "route": "cuda", "source": names[key][1],
          "replaces": names[key][2], "launches": names[key][3]["launches"][key],
          "train_launches": train_res["launches"][key], "drive_launches": drive_res["launches"][key],
+         "data_parallel_launches": dp_res["launches"][key],
          # max_rel_err (backward kernels): the largest error of a column of the table's gradient over that
          # column's largest entry; their absolute errors are large because the gradients are (up to 1e11)
          "max_abs_err": r["max_abs_err"], "max_rel_err": r.get("max_rel_err"), "ms": r["ms"],
@@ -3380,6 +4063,7 @@ def main(argv=None) -> int:
         "name": "hash_grid_fwd", "route": "cuda", "source": "neurad_tpu_torch/csrc/hash_grid.cu",
         "replaces": "neurad_tpu/ops/hash_encoding.py:492", "launches": neurad_res["launches"]["hash_grid"],
         "drive_launches": drive_res["launches"]["hash_grid"],
+        "data_parallel_launches": dp_res["launches"]["hash_grid"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None, "parent": k1.get("parent"),
         "nerfacto_launches": nerfacto_res["nerfacto"]["launches"]["hash_grid"],
@@ -3393,6 +4077,7 @@ def main(argv=None) -> int:
         "name": "hash_grid_bwd", "route": "cuda", "source": "neurad_tpu_torch/csrc/hash_grid.cu",
         "replaces": "neurad_tpu/ops/hash_encoding.py:531", "launches": neurad_train_res["launches"]["hash_grid_bwd"],
         "drive_launches": drive_res["launches"]["hash_grid_bwd"],
+        "data_parallel_launches": dp_res["launches"]["hash_grid_bwd"],
         "max_abs_err": k1b["max_abs_err"], "max_rel_err": k1b["max_rel_err"], "ms": k1b["ms"],
         "device_ms": k1b["device_ms"], "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": None,
         "nerfacto_launches": nerfacto_res["nerfacto"]["launches"]["hash_grid_bwd"],
@@ -3432,11 +4117,14 @@ def main(argv=None) -> int:
             "the render and viewer paths ran K2, K4 and K1f, the exports K4 and K1f")
     require(all(k["launches"] > 0 for k in line["kernels"]) and len(line["kernels"]) == 12,
             "all twelve kernels were launched on their main path")
+    require(all(by_name[n]["data_parallel_launches"] > 0 for n in (
+        "tile_composite_camera_fwd", "tile_composite_camera_bwd", "tile_composite_lidar_fwd", "tile_composite_lidar_bwd",
+        "hash_grid_fwd", "hash_grid_bwd")), "the data-parallel paths ran K2-K5, K1f and K1b on every rank")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
                   hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res, ptxas=ptxas,
                   neurad_train=neurad_train_res, train=train_res, splatfacto=splatfacto_res, drive=drive_res,
                   nerfacto=nerfacto_res, presets=presets_res, render=render_res, export=export_res,
-                  viewer=viewer_res,
+                  viewer=viewer_res, data_parallel=dp_res, library=library_res,
                   fid=fid_res, reference=ref, phase_seconds=phase_s,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

@@ -6,6 +6,7 @@ right=True)` and `torch.gather` compute the same values."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -31,6 +32,19 @@ def intersect_aabb(
     t_max = t_max.clamp(0.0, max_bound)
     miss = t_max <= t_min
     return t_min.masked_fill(miss, invalid_value), t_max.masked_fill(miss, invalid_value)
+
+
+def intersect_obb(
+    origins: torch.Tensor, directions: torch.Tensor, obb_r: torch.Tensor, obb_t: torch.Tensor,
+    obb_size: torch.Tensor, max_bound: float = 1e10, invalid_value: float = 1e10,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ray/oriented-box intersection: the rays rotated into the box's frame
+    (rotation `obb_r` [3, 3], centre `obb_t` [3]), then the slab test against
+    the centred box of side `obb_size` [3]."""
+    o = (origins - obb_t) @ obb_r
+    d = directions @ obb_r
+    aabb = torch.cat([-obb_size / 2.0, obb_size / 2.0], dim=-1)
+    return intersect_aabb(o, d, aabb, max_bound=max_bound, invalid_value=invalid_value)
 
 
 def power_fn(x: torch.Tensor, lam: float = -1.5, max_bound: float = 1e10) -> torch.Tensor:
@@ -59,6 +73,33 @@ def inv_power_fn(x: torch.Tensor, lam: float = -1.5, eps: float = 1e-10, max_bou
         return -torch.log(1.0 - x)
     lam_1 = abs(lam - 1)
     return ((x * lam / lam_1 + 1.0).clamp_min(eps) ** (1.0 / lam) - 1.0) * lam_1
+
+
+def erf_approx(x: torch.Tensor) -> torch.Tensor:
+    """ZipNeRF's approximation of erf (Eq. 11)."""
+    return torch.sign(x) * torch.sqrt(1.0 - torch.exp(-(4.0 / math.pi) * x**2))
+
+
+def expected_sin(x_means: torch.Tensor, x_vars: torch.Tensor) -> torch.Tensor:
+    """E[sin(x)] for x ~ N(mean, var)."""
+    return torch.exp(-0.5 * x_vars) * torch.sin(x_means)
+
+
+def normalized_depth_scale_and_shift(prediction: torch.Tensor, target: torch.Tensor, mask: torch.Tensor
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The least-squares scale and shift that align a (monocular) depth map
+    [..., H, W] to a target over `mask`; 0 and 0 where the system is singular."""
+    a_00 = torch.sum(mask * prediction * prediction, dim=(-2, -1))
+    a_01 = torch.sum(mask * prediction, dim=(-2, -1))
+    a_11 = torch.sum(mask, dim=(-2, -1))
+    b_0 = torch.sum(mask * prediction * target, dim=(-2, -1))
+    b_1 = torch.sum(mask * target, dim=(-2, -1))
+    det = a_00 * a_11 - a_01 * a_01
+    valid = det != 0
+    safe = torch.where(valid, det, torch.ones_like(det))
+    scale = torch.where(valid, (a_11 * b_0 - a_01 * b_1) / safe, torch.zeros_like(det))
+    shift = torch.where(valid, (-a_01 * b_0 + a_00 * b_1) / safe, torch.zeros_like(det))
+    return scale, shift
 
 
 def chamfer_distance(

@@ -11,7 +11,7 @@ samples on both sides, and its state rides the checkpoints.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -172,6 +172,27 @@ class FullImageLidarDataManager:
     def iter_train(self) -> Iterator:
         while True:
             yield self.next_train()
+
+    def next_train_batch(self, n: int, rank: Optional[int] = None) -> List:
+        """`n` same-modality samples for data-parallel training, drawn as the
+        JAX package draws them: a camera batch takes cameras of the first
+        pick's image shape (so that they stack), with replacement, as does a
+        lidar batch. With `rank` only that sample is built (the others are
+        None), but every draw is taken, a scan's first padding draw included,
+        so the generators of all ranks stay equal."""
+        use_camera = self._rng.uniform() < self.config.camera_fraction or not self.train_lidars
+        if use_camera and self.train_cams:
+            first = int(self._rng.choice(self.train_cams))
+            shape = self.outputs.images[first].shape
+            pool = [i for i in self.train_cams if self.outputs.images[i].shape == shape]
+            idxs = [first] + [int(i) for i in self._rng.choice(pool, size=n - 1, replace=True)]
+            return [self._camera_sample(i) if rank is None or r == rank else None for r, i in enumerate(idxs)]
+        idxs = [int(i) for i in self._rng.choice(self.train_lidars, size=n, replace=True)]
+        out = []
+        for r, i in enumerate(idxs):
+            sample = self._lidar_sample(i)  # builds (and caches) the scan's padded set from the shared generator
+            out.append(sample if rank is None or r == rank else None)
+        return out
 
     def all_seed_points(self, paint_topk: int = 4) -> np.ndarray:
         """World-frame accumulated point cloud for gaussian seeding, painted

@@ -11,6 +11,13 @@ starts at `state.step`. A live viewer (`viewer` set to a
 `viewer/server.ViewerServer`) pauses and throttles the loop before each step
 and shows its log lines; each step holds the viewer's `train_lock`, which its
 renders take too.
+
+In a data-parallel world (`mesh`, `parallel/sharding.py`; the pipeline's own
+by default) the loop runs the pipeline's `make_sharded_train_step` on every
+rank: the parameters and optimizer state are replicated from rank 0 before
+the first step, only rank 0 writes (checkpoints, the writer's lines, the
+viewer), every rank evaluates (a NeuRAD render is split over the ranks, and
+every rank's trackers see the same values) and every rank loads on resume.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from neurad_tpu_torch.engine.callbacks import TrainingCallback, TrainingCallbackLocation, run_callbacks
+from neurad_tpu_torch.parallel import sharding
 from neurad_tpu_torch.pipelines.ad_pipeline import CHECKPOINT_PATTERN, ADPipeline
 from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline
 from neurad_tpu_torch.utils.writer import Writer
@@ -83,20 +91,24 @@ class TrainerConfig:
     early_stop_patience: int = 0
 
 
-def train_batches(pipeline) -> Iterator[Tuple[tuple, Optional[int]]]:
+def train_batches(pipeline, mesh: Optional[sharding.Mesh] = None) -> Iterator[Tuple[tuple, Optional[int]]]:
     """The training batches of a pipeline: (`train_step`'s arguments after the
     state, the batch's ray count). A NeuRAD or nerfacto batch comes from the
     datamanager's prefetch threads (`iter_train`), or from `next_train` when
-    `prefetch` is 0, and counts its rays; a SplatAD sample is a frame or a
-    scan and counts none; splatfacto draws its camera in `train_step`.
-    Closing the iterator stops the threads."""
+    `prefetch` is 0, and counts its rays (a rank's own); a SplatAD sample is a
+    frame or a scan and counts none (in a world, the list of every rank's
+    samples, `next_train_batch`, this rank's built); splatfacto draws its
+    camera in `train_step`. Closing the iterator stops the threads."""
     if isinstance(pipeline, SplatfactoPipeline):
         while True:
             yield (), None
     dm = pipeline.datamanager
     if not isinstance(pipeline, ADPipeline):
         while True:
-            yield (dm.next_train(),), None
+            if mesh is not None:
+                yield (dm.next_train_batch(mesh.world_size, rank=mesh.rank),), None
+            else:
+                yield (dm.next_train(),), None
     source = dm.iter_train() if dm.config.prefetch > 0 else iter(dm.next_train, None)
     try:
         for bundle, batch in source:
@@ -120,8 +132,10 @@ class Trainer:
         writer: Optional[Writer] = None,
         callbacks: Sequence[TrainingCallback] = (),
         batches: Optional[Iterator[Tuple[tuple, Optional[int]]]] = None,
+        mesh: Optional[sharding.Mesh] = None,
     ):
         self.pipeline = pipeline
+        self.mesh = mesh if mesh is not None else getattr(pipeline, "mesh", None)
         self.state = state
         self.config = config or TrainerConfig()
         self.eval_fn = eval_fn if eval_fn is not None else pipeline.eval_metrics
@@ -137,7 +151,7 @@ class Trainer:
 
     def _record(self, step: int, metrics: Dict[str, float]) -> None:
         self.history.append(dict(metrics))
-        if self.writer is not None:
+        if self.writer is not None and sharding.is_writer(self.mesh):
             self.writer.write_scalars(step, metrics)
 
     def _sync(self) -> None:
@@ -154,10 +168,17 @@ class Trainer:
         `steps_per_save` steps unless the last eval degraded, and one at the
         end (`save_at_end`). Returns the last log line's metrics with the
         last eval's, and `early_stopped_at` when the early-stopping tracker
-        ended the run."""
+        ended the run. In a data-parallel world the step is the pipeline's
+        sharded step and the rays counted are the global batch's."""
         cfg = self.config
         n = cfg.max_num_iterations if num_iterations is None else num_iterations
-        batches = self.batches if self.batches is not None else train_batches(self.pipeline)
+        mesh = self.mesh
+        step_fn = self.pipeline.train_step
+        if mesh is not None:
+            step_fn = self.pipeline.make_sharded_train_step(mesh)
+            sharding.replicate(mesh, self.pipeline.model, self.state.optimizers)
+        world = 1 if mesh is None else mesh.world_size
+        batches = self.batches if self.batches is not None else train_batches(self.pipeline, mesh)
         last: Dict[str, float] = {}
         rays, t_window = 0, time.perf_counter()
         try:
@@ -171,10 +192,10 @@ class Trainer:
                     self.state = run_callbacks(self.callbacks, self.state, i,
                                                TrainingCallbackLocation.BEFORE_TRAIN_ITERATION)
                     args, n_rays = next(batches)
-                    self.state, metrics = self.pipeline.train_step(self.state, *args)
+                    self.state, metrics = step_fn(self.state, *args)
                     self.state = run_callbacks(self.callbacks, self.state, i,
                                                TrainingCallbackLocation.AFTER_TRAIN_ITERATION)
-                rays += n_rays or 0
+                rays += (n_rays or 0) * world
                 if i % cfg.steps_per_log == 0 or i == n - 1:
                     last = {k: float(v) for k, v in metrics.items()}
                     if n_rays is not None:
@@ -183,7 +204,7 @@ class Trainer:
                     self._record(i, last)
                     if self.viewer is not None:
                         self.viewer.update_train_stats(i, loss=last.get("total_loss"), steps_per_sec=(
-                            last["train_rays_per_sec"] / max(n_rays, 1) if n_rays is not None else None))
+                            last["train_rays_per_sec"] / max(n_rays * world, 1) if n_rays is not None else None))
                     rays, t_window = 0, time.perf_counter()
                 if self.eval_fn is not None and i > 0 and i % cfg.steps_per_eval_batch == 0:
                     evals = self.eval_fn()
@@ -209,12 +230,14 @@ class Trainer:
 
     def save_checkpoint(self) -> Optional[Path]:
         """The pipeline's checkpoint of the state in `checkpoint_dir` (none
-        without one), then the oldest deleted beyond `keep_last_n_checkpoints`."""
+        without one), then the oldest deleted beyond `keep_last_n_checkpoints`.
+        In a data-parallel world every rank calls the pipeline's save, which
+        gathers what it needs; rank 0 writes and deletes."""
         if not self.config.checkpoint_dir:
             return None
         path = self.pipeline.save_checkpoint(self.state, self.config.checkpoint_dir)
         keep = self.config.keep_last_n_checkpoints
-        if keep > 0:
+        if keep > 0 and path is not None:
             for old in sorted(Path(self.config.checkpoint_dir).glob(CHECKPOINT_PATTERN))[:-keep]:
                 old.unlink()
         return path

@@ -2,23 +2,79 @@
 `neurad_tpu/model_components/cnns.py`).
 
 Public tensors stay NHWC like the JAX module; the convs run NCHW inside.
+`norm="batch"` is flax's `nn.BatchNorm(use_running_average=not train)`:
+`FlaxBatchNorm` keeps flax's statistics, not `nn.BatchNorm2d`'s (see there).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
+_BATCH_MEAN: contextvars.ContextVar = contextvars.ContextVar("batch_mean", default=None)
+
+
+@contextlib.contextmanager
+def batch_statistics_over(mean_of_means: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block a batch norm in train mode takes its statistics
+    through `mean_of_means` (a data-parallel step's mean over the ranks,
+    each rank normalising its share of the global batch by the global
+    batch's statistics)."""
+    token = _BATCH_MEAN.set(mean_of_means)
+    try:
+        yield
+    finally:
+        _BATCH_MEAN.reset(token)
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax's `nn.BatchNorm` over NCHW channels, with its defaults: with
+    `train` the batch's mean and its biased variance (flax's fast form,
+    max(E[x^2] - E[x]^2, 0)) normalise, and the running averages move as
+    `r = 0.99 r + 0.01 batch` (with the biased variance); without it the
+    running averages normalise. `nn.BatchNorm2d` would take momentum 0.1 and
+    the unbiased variance into its running averages, so the update is written
+    out. epsilon 1e-5, a scale and a bias. Under `batch_statistics_over` the
+    batch's statistics are a data-parallel world's global batch's."""
+
+    def __init__(self, dim: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            over_ranks = _BATCH_MEAN.get()
+            if over_ranks is not None:
+                mean, mean_sq = over_ranks(mean), over_ranks(mean_sq)
+            var = (mean_sq - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean.detach())
+                self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
 def _make_norm(norm: str, dim: int) -> nn.Module:
     if norm == "group":
         return nn.GroupNorm(8, dim, eps=1e-6)
+    if norm == "batch":
+        return FlaxBatchNorm(dim)
     if norm == "none":
         return nn.Identity()
-    raise ValueError(f"unsupported norm {norm!r} (batch norm waits for the training slice)")
+    raise ValueError(f"unknown norm {norm!r}; one of group, batch, none")
 
 
 class BasicBlock(nn.Module):
@@ -43,14 +99,18 @@ class BasicBlock(nn.Module):
         dt = self.compute_dtype
         return F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=conv.padding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, H, W, C] -> [B, H, W, dim] fp32."""
+    def _norm(self, norm: nn.Module, h: torch.Tensor, train: bool) -> torch.Tensor:
+        return norm(h, train) if isinstance(norm, FlaxBatchNorm) else norm(h)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x [B, H, W, C] -> [B, H, W, dim] fp32. `train`: a batch norm
+        normalises by the batch and updates its running averages."""
         dt = self.compute_dtype
         x = x.to(dt).permute(0, 3, 1, 2)
         res = x if self.res is None else self._conv(self.res, x)
-        h = self.norm1(self._conv(self.conv1, x).float()).to(dt)
+        h = self._norm(self.norm1, self._conv(self.conv1, x).float(), train).to(dt)
         h = torch.relu(h)
-        h = self.norm2(self._conv(self.conv2, h).float()).to(dt)
+        h = self._norm(self.norm2, self._conv(self.conv2, h).float(), train).to(dt)
         return torch.relu(res + h).float().permute(0, 2, 3, 1)
 
 
@@ -73,14 +133,14 @@ class RGBDecoderCNN(nn.Module):
         self.upsample = nn.ConvTranspose2d(hidden_dim, hidden_dim, up, stride=up)
         self.head = nn.Conv2d(hidden_dim, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.compute_dtype
         h = x.to(dt).permute(0, 3, 1, 2)
         h = torch.relu(F.conv2d(h, self.stem.weight.to(dt), self.stem.bias.to(dt)))
         h = h.permute(0, 2, 3, 1)  # the blocks take and return NHWC fp32
-        h = self.blocks[1](self.blocks[0](h))
+        h = self.blocks[1](self.blocks[0](h, train), train)
         h = F.conv_transpose2d(h.to(dt).permute(0, 3, 1, 2), self.upsample.weight.to(dt), self.upsample.bias.to(dt),
                                stride=self.upsample.stride)
-        h = self.blocks[3](self.blocks[2](h.permute(0, 2, 3, 1)))
+        h = self.blocks[3](self.blocks[2](h.permute(0, 2, 3, 1), train), train)
         out = torch.sigmoid(self.head(h.float().permute(0, 3, 1, 2)))
         return out.permute(0, 2, 3, 1)

@@ -6,8 +6,8 @@ pairs. The JAX package's `take_along_small` is `torch.gather` here (the same
 values and gradients); its `searchsorted_dense` stays a count of the entries
 below each query (`_searchsorted`), which `torch.searchsorted` equals only on
 sorted input. The lidar nerfacto model adds gradient scaling by distance and
-the DS-NeRF depth loss. Not ported yet: the depth-ranking and URF depth
-losses.
+the DS-NeRF depth loss; SparseNeRF's depth ranking and the Urban Radiance
+Fields depth loss complete the set.
 """
 
 from __future__ import annotations
@@ -166,6 +166,35 @@ def masked_quantile(x: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tens
     return torch.where(frac > 0, srt[lo] * (1.0 - frac) + srt[hi] * frac, srt[lo])
 
 
+class BatchTerms:
+    """How a loss reduces over its batch: in one process, over the batch it
+    is given (NeuRAD's `compute_losses` by default).
+    `parallel/sharding.GlobalBatchTerms` reduces the same terms over a
+    data-parallel world's global batch, each rank holding its own rows."""
+
+    @staticmethod
+    def mean(x: torch.Tensor) -> torch.Tensor:
+        """The mean of x (a share of the batch equal on every rank)."""
+        return torch.mean(x)
+
+    @staticmethod
+    def of_mean(value: torch.Tensor) -> torch.Tensor:
+        """A value that is already a mean over such a share (VGG's loss)."""
+        return value
+
+    @staticmethod
+    def ratio(total: torch.Tensor, count: float) -> torch.Tensor:
+        """A sum over the batch over its count of rows."""
+        return total / count
+
+    masked_mean = staticmethod(masked_mean)
+    masked_quantile = staticmethod(masked_quantile)
+
+    @staticmethod
+    def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        return psnr(pred, gt)
+
+
 def psnr(pred: torch.Tensor, gt: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
     mse = torch.mean((pred - gt) ** 2)
     return 10.0 * torch.log10(max_val**2 / mse.clamp_min(1e-12))
@@ -213,3 +242,32 @@ def ds_nerf_depth_loss(weights: torch.Tensor, termination_depth: torch.Tensor, s
     loss = -torch.log(weights + EPS) * torch.exp(-((steps - termination_depth[:, None]) ** 2) / (2 * sigma)) * lengths
     loss = torch.sum(loss, dim=-2) * depth_mask
     return torch.mean(loss)
+
+
+def depth_ranking_loss(rendered_depth: torch.Tensor, gt_depth: torch.Tensor) -> torch.Tensor:
+    """SparseNeRF's depth ranking loss on pair-sampled rays (pairs
+    interleaved, an odd last ray dropped): the mean margin violation where a
+    pair's rendered order disagrees with its ground-truth order."""
+    m = 1e-4
+    n = (rendered_depth.shape[0] // 2) * 2
+    rendered_depth, gt_depth = rendered_depth[:n], gt_depth[:n]
+    dpt_diff = gt_depth[::2] - gt_depth[1::2]
+    out_diff = rendered_depth[::2] - rendered_depth[1::2] + m
+    differing = torch.sign(dpt_diff) != torch.sign(out_diff)
+    return masked_mean(out_diff * torch.sign(out_diff), differing)
+
+
+def urban_radiance_field_depth_loss(weights: torch.Tensor, termination_depth: torch.Tensor,
+                                    predicted_depth: torch.Tensor, steps: torch.Tensor, sigma: torch.Tensor
+                                    ) -> torch.Tensor:
+    """Urban Radiance Fields' depth loss: the expected depth's squared error
+    plus the line-of-sight term (the weights before the return against a
+    normalised gaussian around it), over rays with a return."""
+    depth_mask = termination_depth > 0
+    expected_depth_loss = (termination_depth - predicted_depth) ** 2
+    line_of_sight_ends = termination_depth[:, None] - EPS
+    target = torch.exp(-((steps - termination_depth[:, None]) ** 2) / (2 * sigma))
+    target = target / torch.sum(target, dim=-2, keepdim=True).clamp_min(EPS)
+    before = steps < line_of_sight_ends
+    line_of_sight_loss = torch.sum(torch.where(before, (weights - target) ** 2, torch.zeros_like(weights)), dim=-2)
+    return torch.mean((expected_depth_loss + line_of_sight_loss) * depth_mask)

@@ -4,7 +4,8 @@ sampling (torch port of `neurad_tpu/model_components/ray_samplers.py`).
 Samplers are pure functions. Where the JAX package takes a random key, these
 take the uniform draws themselves as tensors (`jitter`), so that a test can
 hand both packages the same numbers; None is the eval path (bin centres).
-The NeuS sampler and the sorted merge of sample sets are not ported yet.
+The NeuS sampler upsamples by an SDF's s-density, merging each round's
+samples into the set sorted by depth (`merge_ray_samples_sorted`).
 """
 
 from __future__ import annotations
@@ -137,6 +138,64 @@ def pdf_sampler(
         spacing_starts=bins[..., :-1, None],
         spacing_ends=bins[..., 1:, None],
     )
+
+
+def merge_ray_samples_sorted(a: RaySamples, b: RaySamples) -> RaySamples:
+    """Two sample sets of the same rays merged along the sample axis and
+    sorted by frustum start; the deltas are recomputed from the sorted bins
+    (per-ray fields such as the metadata are `a`'s)."""
+    order = torch.argsort(torch.cat([a.frustums.starts, b.frustums.starts], dim=-2)[..., 0], dim=-1)
+
+    def merged(x, y):
+        if x is None:
+            return None
+        xy = torch.cat([x, y], dim=-2)
+        return torch.gather(xy, -2, order[..., None].expand(order.shape + xy.shape[-1:]))
+
+    f = dataclasses.replace(a.frustums, **{k.name: merged(getattr(a.frustums, k.name), getattr(b.frustums, k.name))
+                                           for k in dataclasses.fields(a.frustums)})
+    out = a.replace(frustums=f, spacing_starts=merged(a.spacing_starts, b.spacing_starts),
+                    spacing_ends=merged(a.spacing_ends, b.spacing_ends),
+                    camera_indices=merged(a.camera_indices, b.camera_indices), times=merged(a.times, b.times))
+    return out.replace(deltas=f.ends - f.starts)
+
+
+def neus_sampler(
+    bundle: RayBundle,
+    sdf_fn: Callable[[RaySamples], torch.Tensor],
+    num_samples: int = 64,
+    num_samples_importance: int = 64,
+    num_upsample_steps: int = 4,
+    base_variance: float = 64.0,
+    jitters: Optional[Sequence[torch.Tensor]] = None,
+) -> RaySamples:
+    """NeuS's SDF-guided hierarchical sampling: uniform samples, then
+    `num_upsample_steps` rounds that each take the alphas of the SDF's
+    s-density (inverse variance `base_variance * 2^round`, from adjacent SDF
+    estimates), resample `num_samples_importance / num_upsample_steps` bins by
+    their weights and merge them in, sorted. `jitters`: the uniform draws of
+    the first round and of each upsampling round (1 + num_upsample_steps
+    tensors of [R, 1] or [R, n + 1]), or None for bin centres."""
+    jitters = [None] * (1 + num_upsample_steps) if jitters is None else list(jitters)
+    samples = spaced_sampler(bundle, num_samples, UNIFORM, jitter=jitters[0])
+    n_extra = num_samples_importance // num_upsample_steps
+    for step in range(num_upsample_steps):
+        sdf = sdf_fn(samples).detach()  # [R, S, 1]
+        inv_s = base_variance * 2**step
+        prev_sdf, next_sdf = sdf[..., :-1, :], sdf[..., 1:, :]
+        deltas = samples.deltas[..., :-1, :]
+        mid_sdf = (prev_sdf + next_sdf) * 0.5
+        cos_val = ((next_sdf - prev_sdf) / deltas.clamp_min(1e-6)).clamp(-1e3, 0.0)
+        prev_esti = mid_sdf - cos_val * deltas * 0.5
+        next_esti = mid_sdf + cos_val * deltas * 0.5
+        prev_cdf = torch.sigmoid(prev_esti * inv_s)
+        next_cdf = torch.sigmoid(next_esti * inv_s)
+        alphas = ((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)).clamp(0.0, 1.0)
+        weights, _ = RaySamples.get_weights_and_transmittance_from_alphas(alphas)
+        new = pdf_sampler(bundle, samples, weights, n_extra, UNIFORM, jitter=jitters[1 + step],
+                          histogram_padding=1e-5)
+        samples = merge_ray_samples_sorted(samples, new)
+    return samples
 
 
 def proposal_sampler(

@@ -201,7 +201,7 @@ class NeuRADModel(nn.Module):
                                        train=train)
         features = outputs.pop("features")
         rgb, intensity, ray_drop_logits = self.decode_features(
-            features, patch_size, num_cam_rays, intensity_for_cam=intensity_for_cam
+            features, patch_size, num_cam_rays, intensity_for_cam=intensity_for_cam, train=train
         )
         if rgb is not None:
             outputs["rgb"] = rgb
@@ -211,9 +211,12 @@ class NeuRADModel(nn.Module):
         return outputs
 
     def decode_features(
-        self, features: torch.Tensor, patch_size: Tuple[int, int], num_cam_rays: int, intensity_for_cam: bool = False
+        self, features: torch.Tensor, patch_size: Tuple[int, int], num_cam_rays: int, intensity_for_cam: bool = False,
+        train: bool = False,
     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
-        """Static-split modality decoding -> (rgb [B, D*up, D*up, 3], intensity, ray-drop logits)."""
+        """Static-split modality decoding -> (rgb [B, D*up, D*up, 3], intensity,
+        ray-drop logits). `train`: a batch-norm decoder normalises by the batch
+        and updates its running averages."""
         cam_features = features[:num_cam_rays]
         lidar_features = features if intensity_for_cam else features[num_cam_rays:]
 
@@ -225,7 +228,7 @@ class NeuRADModel(nn.Module):
         rgb = None
         if cam_features.shape[0] > 0:
             patches = cam_features.reshape(-1, *patch_size, cam_features.shape[-1])
-            rgb = self.rgb_decoder(patches)
+            rgb = self.rgb_decoder(patches, train)
         return rgb, intensity, ray_drop_logit
 
     def get_nff_outputs(
@@ -399,22 +402,26 @@ class NeuRADModel(nn.Module):
 
     def compute_losses(
         self, outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], num_cam_rays: int,
-        vgg: Optional[Vgg19Slices] = None,
+        vgg: Optional[Vgg19Slices] = None, terms: Optional[L.BatchTerms] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss -> (total, metrics: unweighted metrics and the
         weighted losses, detached). batch: `image` [B, Hp, Wp, 3] patches; the
         lidar rays' `distance`, `did_return`, `intensity` [N_l, 1]. `vgg`: the
-        perceptual network (the VGG term needs it and `vgg_mult` > 0)."""
+        perceptual network (the VGG term needs it and `vgg_mult` > 0).
+        `terms`: how each term reduces over the batch (`L.BatchTerms`: this
+        batch; `sharding.GlobalBatchTerms`: a data-parallel world's global
+        batch, of which `outputs` and `batch` are this rank's rows)."""
         conf = self.loss
+        terms = terms or L.BatchTerms()
         loss_dict: Dict[str, torch.Tensor] = {}
         metrics: Dict[str, torch.Tensor] = {}
 
         if "image" in batch and "rgb" in outputs:
             image, rgb = batch["image"], outputs["rgb"]
-            loss_dict["rgb_loss"] = torch.mean((image - rgb) ** 2) * conf.rgb_mult
-            metrics["psnr"] = L.psnr(rgb.detach(), image)
+            loss_dict["rgb_loss"] = terms.mean((image - rgb) ** 2) * conf.rgb_mult
+            metrics["psnr"] = terms.psnr(rgb.detach(), image)
             if conf.vgg_mult > 0.0 and vgg is not None:
-                loss_dict["vgg_loss"] = vgg_perceptual_loss(vgg, rgb, image) * conf.vgg_mult
+                loss_dict["vgg_loss"] = terms.of_mean(vgg_perceptual_loss(vgg, rgb, image)) * conf.vgg_mult
 
         if "distance" in batch:
             depth = outputs["depth"][num_cam_rays:]  # [N_l, 1]
@@ -429,44 +436,44 @@ class NeuRADModel(nn.Module):
                 return torch.where(did_return[:, None], unred, unred * conf.non_return_loss_mult)
 
             unred = depth_terms(depth)
-            quantile = L.masked_quantile(unred, torch.ones_like(unred, dtype=torch.bool), conf.quantile_threshold)
+            quantile = terms.masked_quantile(unred, torch.ones_like(unred, dtype=torch.bool), conf.quantile_threshold)
             qmask = (unred < quantile)[..., 0]
-            metrics["depth_loss"] = L.masked_mean(unred[..., 0], qmask)
+            metrics["depth_loss"] = terms.masked_mean(unred[..., 0], qmask)
             loss_dict["depth_loss"] = conf.depth_mult * metrics["depth_loss"]
 
             if "intensity" in outputs:
                 qr = qmask & did_return
                 int_err = (batch["intensity"] - outputs["intensity"]) ** 2
-                metrics["intensity_loss"] = L.masked_mean(int_err[..., 0], qr)
+                metrics["intensity_loss"] = terms.masked_mean(int_err[..., 0], qr)
                 loss_dict["intensity_loss"] = conf.intensity_mult * metrics["intensity_loss"]
 
                 logits = outputs["ray_drop_logits"][..., 0]
                 targets = (~did_return).to(logits.dtype)
                 bce = torch.clamp_min(logits, 0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
-                metrics["ray_drop_loss"] = torch.mean(bce)
+                metrics["ray_drop_loss"] = terms.mean(bce)
                 loss_dict["ray_drop_loss"] = conf.ray_drop_loss_mult * metrics["ray_drop_loss"]
-                metrics["ray_drop_accuracy"] = torch.mean(
+                metrics["ray_drop_accuracy"] = terms.mean(
                     ((torch.sigmoid(logits) > 0.5) == ~did_return).to(torch.float32))
 
-            metrics["depth_median_l2"] = L.masked_quantile((depth - termination) ** 2, did_return[:, None], 0.5)
+            metrics["depth_median_l2"] = terms.masked_quantile((depth - termination) ** 2, did_return[:, None], 0.5)
             rel = ((depth - termination) / termination.clamp_min(EPS)) ** 2
-            metrics["depth_mean_rel_l2"] = L.masked_mean(rel[..., 0], did_return)
+            metrics["depth_mean_rel_l2"] = terms.masked_mean(rel[..., 0], did_return)
 
             if "carving_per_ray" in outputs:
-                metrics["carving_loss"] = torch.sum(outputs["carving_per_ray"]) / n_lidar
+                metrics["carving_loss"] = terms.ratio(torch.sum(outputs["carving_per_ray"]), n_lidar)
                 loss_dict["carving_loss"] = conf.carving_mult * metrics["carving_loss"]
                 for i in range(self.num_proposal_rounds):
-                    metrics[f"carving_loss_{i}"] = torch.sum(outputs[f"prop_carving_per_ray_{i}"]) / n_lidar
+                    metrics[f"carving_loss_{i}"] = terms.ratio(torch.sum(outputs[f"prop_carving_per_ray_{i}"]), n_lidar)
                     loss_dict[f"carving_loss_{i}"] = (
                         conf.prop_lidar_loss_mult * conf.carving_mult * metrics[f"carving_loss_{i}"])
                     pd = outputs[f"prop_depth_{i}"][num_cam_rays:]
-                    metrics[f"depth_loss_{i}"] = torch.mean(depth_terms(pd))
+                    metrics[f"depth_loss_{i}"] = terms.mean(depth_terms(pd))
                     loss_dict[f"depth_loss_{i}"] = conf.prop_lidar_loss_mult * conf.depth_mult * metrics[
                         f"depth_loss_{i}"]
 
         if "interlevel_per_ray" in outputs:
-            loss_dict["interlevel_loss"] = conf.interlevel_loss_mult * torch.mean(outputs["interlevel_per_ray"])
-            metrics["distortion"] = torch.mean(outputs["distortion_per_ray"])
+            loss_dict["interlevel_loss"] = conf.interlevel_loss_mult * terms.mean(outputs["interlevel_per_ray"])
+            metrics["distortion"] = terms.mean(outputs["distortion_per_ray"])
             loss_dict["distortion_loss"] = conf.distortion_loss_mult * metrics["distortion"]
 
         if self.camera_opt_mode != "off":

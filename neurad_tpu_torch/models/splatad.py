@@ -266,7 +266,7 @@ class SplatADConfig:
     lidar_tile_azim: float = 2.0
     lidar_tile_elev: float = 2.0
     lidar_max_per_tile: int = 128
-    # only "tiled" is ported; the per-point "points" path waits
+    # "tiled": the lidar composite kernels; "points": per-point gathers in plain PyTorch (rasterize_lidar_points)
     lidar_raster_mode: str = "tiled"
     lidar_pts_per_tile: int = 128
     # the port's compositor is the fp32 Pallas composite ("pallas"); "hybrid"
@@ -296,8 +296,8 @@ class SplatADModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if config.lidar_raster_mode != "tiled":
-            raise NotImplementedError("only lidar_raster_mode='tiled' is ported")
+        if config.lidar_raster_mode not in ("tiled", "points"):
+            raise ValueError(f"unknown lidar_raster_mode {config.lidar_raster_mode!r}; tiled or points")
         self.config = config
         self.init_data = init_data
         self.actor_data = actor_data
@@ -484,16 +484,21 @@ class SplatADModel(nn.Module):
             means, covar6=covar6, viewmat=viewmat, velocities=vels,
             lidar_linear_velocity=lin, lidar_angular_velocity=ang,
         )
-        out = GR.rasterize_lidar_points_tiled(
-            proj, self.features, torch.sigmoid(self.opacities), raster_pts[:, :4],
+        raster_kw = dict(
             elev_range=cfg.lidar_elev_range,
             tile_size_azim=cfg.lidar_tile_azim,
             tile_size_elev=cfg.lidar_tile_elev,
             max_per_tile=cfg.lidar_max_per_tile,
             max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-            pts_per_tile=cfg.lidar_pts_per_tile,
-            backend=cfg.rasterize_backend,
         )
+        if cfg.lidar_raster_mode == "tiled":  # the lidar composite kernels
+            out = GR.rasterize_lidar_points_tiled(
+                proj, self.features, torch.sigmoid(self.opacities), raster_pts[:, :4],
+                pts_per_tile=cfg.lidar_pts_per_tile, backend=cfg.rasterize_backend, **raster_kw,
+            )
+        else:  # per-point gathers in plain PyTorch, as XLA computes them in the JAX package
+            out = GR.rasterize_lidar_points(proj, self.features, torch.sigmoid(self.opacities), raster_pts[:, :4],
+                                            **raster_kw)
         azim = torch.deg2rad(raster_pts[:, 0])
         elev = torch.deg2rad(raster_pts[:, 1])
         dirs = torch.stack(

@@ -11,7 +11,11 @@ port's only backend: "hybrid" and "xla" mean XLA's bf16 composite in the JAX
 package, a TPU trade-off with no counterpart in the port, and raise on every
 device.
 
-Both rasterizers are differentiable in the projected means, velocities,
+`rasterize_lidar_points` (`lidar_raster_mode="points"`, not the default) is
+the JAX package's per-point lidar path, which XLA computes there and plain
+PyTorch here: each query point gathers its tile's gaussian slots.
+
+The rasterizers are differentiable in the projected means, velocities,
 conics, depths, compensations, the opacities and the features. Binning and
 slot assignment produce indices only and run on detached values.
 """
@@ -21,9 +25,10 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from neurad_tpu_torch.ops.gaussians import Projected
-from neurad_tpu_torch.ops.tile_composite import tile_composite_camera, tile_composite_lidar
+from neurad_tpu_torch.ops.tile_composite import floored_mod, tile_composite_camera, tile_composite_lidar
 
 
 class TileBinning(NamedTuple):
@@ -358,4 +363,108 @@ def rasterize_lidar_points_tiled(
         "binning_dropped_pairs": binning.dropped_pairs,
         "binning_cropped_gaussians": binning.cropped_gaussians,
         "points_overflowed": ti["overflow"],
+    }
+
+
+def rasterize_lidar_points(
+    projected: Projected,
+    features: torch.Tensor,
+    opacities: torch.Tensor,
+    raster_pts: torch.Tensor,
+    azim_range: Tuple[float, float] = (-180.0, 180.0),
+    elev_range: Tuple[float, float] = (-25.0, 15.0),
+    tile_size_azim: float = 2.0,
+    tile_size_elev: float = 2.0,
+    max_per_tile: int = 128,
+    max_tiles_per_gaussian: int = 16,
+    compute_alpha_sum_until_points: bool = True,
+    depth_eps: float = 0.4,
+    point_chunk: int = 0,
+) -> dict:
+    """Rasterize gaussians at spherical query points raster_pts [M, >= 4]
+    (azim_deg, elev_deg, gt_depth, time), point by point: each point takes
+    the K = `max_per_tile` gaussian slots of its tile and composites them
+    front to back. The JAX package's math: the offsets subtracted in fp32
+    (the azimuth's wrapped to [-180, 180) on a full turn), the quadratic form
+    in bf16, alpha = min(opacity * exp(-clip(sigma, 0, 50)), 0.999) gated at
+    1/255, the median the depth of the first slot whose cumulative weight
+    reaches 0.5 (absolute; below an accumulation of 0.5 the normalised
+    expected depth), and the alpha summed before `gt_depth - depth_eps`.
+
+    Memory: the per-point gathers hold [M, K] slots of the gaussian's row, so
+    the working set is about M * K * (C + 12) * 4 bytes for C feature
+    channels, and that again for the backward: 131,072 points x 128 slots x
+    (8 + 12) floats are 1.3 GB a pass. `point_chunk` > 0 runs chunks of that
+    many points, recomputed in the backward (`torch.utils.checkpoint`, JAX's
+    `jax.checkpoint`), so the working set is a chunk's.
+
+    Returns per-point features, depth, alpha, alpha_sum_until_points and
+    median_depth, and the binning's counters."""
+    ntx = max(1, int(-(-(azim_range[1] - azim_range[0]) // tile_size_azim)))
+    nty = max(1, int(-(-(elev_range[1] - elev_range[0]) // tile_size_elev)))
+    wrap = (azim_range[1] - azim_range[0]) >= 360.0 - 1e-6
+    binning = bin_gaussians(
+        projected.means2d.detach(), projected.radii.detach(), projected.depths.detach(),
+        grid_min=(azim_range[0], elev_range[0]), tile_size=(tile_size_azim, tile_size_elev),
+        num_tiles=(ntx, nty), max_tiles_per_gaussian=max_tiles_per_gaussian, max_per_tile=max_per_tile,
+        wrap_x=wrap,
+    )
+    m = raster_pts.shape[0]
+    pts_all = raster_pts[:, :4]
+    qx = torch.div(pts_all[:, 0] - azim_range[0], tile_size_azim, rounding_mode="floor")
+    qy = torch.div(pts_all[:, 1] - elev_range[0], tile_size_elev, rounding_mode="floor")
+    q_tile = qy.to(torch.int64).clamp(0, nty - 1) * ntx + qx.to(torch.int64).clamp(0, ntx - 1)  # [M]
+    opac = opacities * projected.compensations
+    tile_gauss = binning.tile_gauss.long()
+
+    def chunk_fn(pts, tile_idx, means2d, vel2d, conics, depths, depth_vel, opac, features):
+        tg = tile_gauss[tile_idx]  # [mc, K]
+        tv = binning.tile_valid[tile_idx]
+        means = means2d[tg] + vel2d[tg] * pts[:, None, 3:4]  # the rolling-shutter warp
+        d = pts[:, None, :2] - means
+        if wrap:  # a circular azimuth: -179.5 deg is 1.1 deg from +179.4 deg
+            d = torch.stack([floored_mod(d[..., 0] + 180.0, 360.0) - 180.0, d[..., 1]], dim=-1)
+        d = d.to(torch.bfloat16)
+        con = conics[tg].to(torch.bfloat16)
+        sigma = (0.5 * (con[..., 0] * d[..., 0] ** 2 + con[..., 2] * d[..., 1] ** 2)
+                 + con[..., 1] * d[..., 0] * d[..., 1]).to(torch.float32)
+        alpha = torch.clamp(opac[tg] * torch.exp(-torch.clamp(sigma, 0.0, 50.0)), 0.0, 0.999)
+        alpha = torch.where(tv & (alpha >= 1.0 / 255.0), alpha, torch.zeros_like(alpha))
+        one_minus = 1.0 - alpha
+        trans = torch.cat([torch.ones_like(one_minus[..., :1]), torch.cumprod(one_minus, dim=-1)[..., :-1]], dim=-1)
+        w = alpha * trans  # [mc, K]
+        g_depth = depths[tg] + depth_vel[tg] * pts[:, None, 3]
+        feat = torch.einsum("mk,mkc->mc", w, features[tg])
+        depth = torch.sum(w * g_depth, dim=-1, keepdim=True)
+        acc = torch.sum(w, dim=-1, keepdim=True)
+        crossed = torch.cumsum(w, dim=-1) >= 0.5
+        med_idx = crossed.to(torch.uint8).argmax(dim=-1)
+        median_depth = torch.gather(g_depth, -1, med_idx[:, None])
+        median_depth = torch.where(acc > 0.5, median_depth, depth / acc.clamp_min(1e-10))
+        if compute_alpha_sum_until_points:
+            before = g_depth < (pts[:, None, 2] - depth_eps)
+            alpha_until = torch.sum(torch.where(before, w, torch.zeros_like(w)), dim=-1, keepdim=True)
+        else:
+            alpha_until = torch.zeros_like(acc)
+        return feat, depth, acc, alpha_until, median_depth
+
+    tensors = (projected.means2d, projected.vel2d, projected.conics, projected.depths, projected.depth_vel, opac,
+               features)
+    if point_chunk and m > point_chunk:
+        parts = []
+        for start in range(0, m, point_chunk):
+            args = (pts_all[start:start + point_chunk], q_tile[start:start + point_chunk]) + tensors
+            parts.append(checkpoint(chunk_fn, *args, use_reentrant=False) if torch.is_grad_enabled()
+                         else chunk_fn(*args))
+        feat, depth, acc, alpha_until, med = (torch.cat(xs, dim=0) for xs in zip(*parts))
+    else:
+        feat, depth, acc, alpha_until, med = chunk_fn(pts_all, q_tile, *tensors)
+    return {
+        "features": feat,
+        "depth": depth,
+        "alpha": acc,
+        "alpha_sum_until_points": alpha_until,
+        "median_depth": med,
+        "binning_dropped_pairs": binning.dropped_pairs,
+        "binning_cropped_gaussians": binning.cropped_gaussians,
     }

@@ -43,9 +43,22 @@ def _basic_block(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
     out = {}
     for flax_name, name in zip(convs, names):
         out.update(_conv(f"{prefix}.{name}", p[flax_name]))
-    for i, norm in enumerate(sorted(k for k in p if k.startswith("GroupNorm_"))):
+    norms = sorted(k for k in p if k.startswith(("GroupNorm_", "BatchNorm_")))
+    for i, norm in enumerate(norms):
         out[f"{prefix}.norm{i + 1}.weight"] = _t(p[norm]["scale"])
         out[f"{prefix}.norm{i + 1}.bias"] = _t(p[norm]["bias"])
+    return out
+
+
+def batch_stats_from_flax(prefix: str, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """flax `batch_stats` of an `RGBDecoderCNN` ({BasicBlock_i: {BatchNorm_j:
+    {mean, var}}}) -> the running averages of the port's blocks under `prefix`."""
+    out = {}
+    for name, block in stats.items():
+        i = int(name.split("_")[1])
+        for j, norm in enumerate(sorted(block)):
+            out[f"{prefix}.blocks.{i}.norm{j + 1}.running_mean"] = _t(block[norm]["mean"])
+            out[f"{prefix}.blocks.{i}.norm{j + 1}.running_var"] = _t(block[norm]["var"])
     return out
 
 
@@ -119,8 +132,9 @@ def neurad_decoder_from_flax(prefix: str, dec: Mapping) -> Dict[str, torch.Tenso
 
 def neurad_params_from_flax(tree: Mapping, like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """flax params of `neurad_tpu.models.neurad.NeuRADModel` (the dict under or
-    including the "params" key, leaves as numpy arrays) -> state dict of the
-    port's NeuRADModel. `like` is the target model's own state dict: it gives
+    including the "params" key, leaves as numpy arrays; a "batch_stats" key
+    beside it gives a batch-norm decoder's running averages) -> state dict of
+    the port's NeuRADModel. `like` is the target model's own state dict: it gives
     the 2-D shapes of the hash tables, which the JAX package keeps as 1-D
     leaves."""
     p = tree["params"] if "params" in tree else tree
@@ -147,6 +161,8 @@ def neurad_params_from_flax(tree: Mapping, like: Mapping[str, torch.Tensor]) -> 
             sd.update(hash_tables_from_flax(f"{prefix}.hashgrid", prop["hashgrid"], like))
 
     sd.update(neurad_decoder_from_flax("rgb_decoder", p["rgb_decoder"]))
+    if "batch_stats" in tree:  # rgb_decoder_norm="batch": the running averages
+        sd.update(batch_stats_from_flax("rgb_decoder", tree["batch_stats"]["rgb_decoder"]))
     sd.update(mlp_from_flax("lidar_decoder", p["lidar_decoder"]))
     for name, value in p.get("camera_optimizer", {}).items():
         sd[f"camera_optimizer.{name}"] = _t(value)
@@ -199,3 +215,11 @@ def nerfacto_params_from_flax(tree: Mapping, like: Mapping[str, torch.Tensor]) -
     for name, value in p.get("camera_optimizer", {}).items():
         sd[f"camera_optimizer.{name}"] = _t(value)
     return sd
+
+
+def extra_encoding_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params of one of `neurad_tpu.fields.extra_encodings`' tensor
+    decompositions (TensorCP, TensorVM, Triplane, KPlanes) -> the state dict
+    of the port's module: the coefficients under the same names."""
+    p = tree["params"] if "params" in tree else tree
+    return {name: _t(p[name]) for name in ("line_coef", "plane_coef") if name in p}

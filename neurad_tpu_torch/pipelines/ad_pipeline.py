@@ -22,8 +22,16 @@ with the lidar-only distances to the loss, and its step fails on any batch
 with lidar rays). The JAX package cannot evaluate or render a nerfacto model
 (its renders apply NeuRAD methods to it and raise AttributeError), so here
 the renders, `eval_metrics` and `eval_fid_suite` raise NotImplementedError
-for one. The mesh-sharded eval and the batched multi-host steps are not
-ported.
+for one.
+
+Data-parallel training and eval run over a `torch.distributed` world (`mesh`,
+`parallel/sharding.py`) with the JAX package's multi-host semantics: each rank
+samples its own ray batch (seeded `host_local_seed`), every rank draws the
+global batch's random draws from the same generator and keeps its own rows,
+and the loss is the loss of the global batch `[all cam | all lidar]`, each
+rank rendering, decoding and scoring its own rows with every loss term
+reduced over the ranks (`make_sharded_train_step`). With `eval_shard` a full-sensor render is split
+over the ranks chunk by chunk, and every rank gets the whole render.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +59,7 @@ from neurad_tpu_torch.engine.optimizers import (
 )
 from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
 from neurad_tpu_torch.model_components import losses as L
+from neurad_tpu_torch.model_components.cnns import batch_statistics_over
 from neurad_tpu_torch.model_components.dynamic_actors import (
     ActorEdits,
     actor_data_from_trajectories,
@@ -59,6 +68,7 @@ from neurad_tpu_torch.model_components.dynamic_actors import (
 from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
 from neurad_tpu_torch.models.nerfacto import NerfactoModel
 from neurad_tpu_torch.models.neurad import LossSettings, MLPProposalSettings, NeuRADModel, SamplingSettings
+from neurad_tpu_torch.parallel import sharding
 from neurad_tpu_torch.utils.eval_metrics import fid, fid_suite_shifts, lpips
 
 CHECKPOINT_PATTERN = "step-*.pt"
@@ -100,6 +110,9 @@ class ADPipelineConfig:
     optimizer_groups: dict = dataclasses.field(default_factory=lambda: dict(NEURAD_OPTIMIZER_GROUPS))
     # rays per chunk of a full-sensor render: bounds the hash-lookup intermediates
     eval_chunk: int = 1 << 15
+    # in a data-parallel world, split a full-sensor render over the ranks (chunk by chunk); False: every rank
+    # renders alone
+    eval_shard: bool = True
     # rays per chunk of the train step's feature-field render (0: no chunking)
     train_ray_chunk: int = 8192
     seed: int = 0
@@ -110,7 +123,8 @@ class ADPipelineConfig:
             datamanager=dataclasses.asdict(self.datamanager), model=self.model,
             model_overrides={k: _encode(v) for k, v in self.model_overrides.items()},
             optimizer_groups={k: dataclasses.asdict(v) for k, v in self.optimizer_groups.items()},
-            eval_chunk=self.eval_chunk, train_ray_chunk=self.train_ray_chunk, seed=self.seed,
+            eval_chunk=self.eval_chunk, eval_shard=self.eval_shard, train_ray_chunk=self.train_ray_chunk,
+            seed=self.seed,
         )
 
     @classmethod
@@ -119,7 +133,8 @@ class ADPipelineConfig:
             datamanager=ADDataManagerConfig(**d["datamanager"]), model=d["model"],
             model_overrides={k: _decode(v) for k, v in d["model_overrides"].items()},
             optimizer_groups={k: OptimizerGroupConfig(**v) for k, v in d["optimizer_groups"].items()},
-            eval_chunk=d["eval_chunk"], train_ray_chunk=d["train_ray_chunk"], seed=d["seed"],
+            eval_chunk=d["eval_chunk"], eval_shard=d.get("eval_shard", True), train_ray_chunk=d["train_ray_chunk"],
+            seed=d["seed"],
         )
 
 
@@ -149,15 +164,22 @@ TrainDraws = List[ChunkDraws]
 class ADPipeline:
     """Builds model + datamanager from dataparser outputs."""
 
-    def __init__(self, outputs: ADDataparserOutputs, config: Optional[ADPipelineConfig] = None, device="cuda"):
+    def __init__(self, outputs: ADDataparserOutputs, config: Optional[ADPipelineConfig] = None, device="cuda",
+                 mesh: Optional[sharding.Mesh] = None):
         self.device = resolve_device(device)
         self.config = config or ADPipelineConfig()
         if self.config.model not in MODELS:
             raise ValueError(f"unknown model {self.config.model!r}; one of {MODELS}")
         self.outputs = outputs
-        self.datamanager = ADDataManager(outputs, self.config.datamanager, device=self.device, seed=self.config.seed)
+        # the data-parallel world (None: one process): each rank samples its own rays, the model's seeds stay
+        self.mesh = mesh
+        rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+        self.datamanager = ADDataManager(outputs, self.config.datamanager, device=self.device,
+                                         seed=sharding.host_local_seed(self.config.seed, rank))
         self.model = self._build_model(self.config.seed)
         self.num_cam_rays = self.datamanager.num_cam_rays
+        # the train loss sees the global batch: every rank contributes num_cam_rays camera rays
+        self._train_num_cam_rays = self.num_cam_rays * world
         self.patch_size = self.datamanager.patch_shape
         # the perceptual network, loaded once (pretrained weights from NEURAD_TPU_VGG19_WEIGHTS when that file
         # exists, else a fixed random network)
@@ -249,40 +271,56 @@ class ADPipeline:
         feature-field render runs chunk by chunk (modality from the rays'
         `is_lidar`; the last chunk padded by repeating the last ray) and the
         features are decoded once; otherwise `get_outputs` runs on the batch."""
-        model = self.model
         n = bundle.origins.shape[0]
         chunks = self._chunks(n)
         if len(draws) != len(chunks):
             raise ValueError(f"{len(draws)} sets of draws for {len(chunks)} chunks")
-        if self._is_nerfacto:
-            return self._nerfacto_loss(bundle, batch, draws[0].jitters)
-        if len(chunks) > 1:
-            chunk = chunks[0]
-            total = chunk * len(chunks)
-            padded = map_tensors(lambda x: torch.cat([x, x[-1:].expand((total - n,) + x.shape[1:])], dim=0), bundle)
-            outs = []
-            for i, d in enumerate(draws):
-                piece = map_tensors(lambda x: x[i * chunk:(i + 1) * chunk], padded)
-                outs.append(model.get_nff_outputs(piece, 0, jitters=d.jitters, flip_draw=d.flip, train=True))
-            out = {k: torch.cat([o[k] for o in outs], dim=0)[:n] for k in outs[0]}
-            features = out.pop("features")
-            rgb, intensity, ray_drop_logits = model.decode_features(features, self.patch_size, self.num_cam_rays)
-            out["rgb"] = rgb
-            if intensity is not None:
-                out["intensity"] = intensity
-                out["ray_drop_logits"] = ray_drop_logits
-        else:
-            d = draws[0]
-            out = model.get_outputs(bundle, self.patch_size, self.num_cam_rays, jitters=d.jitters, flip_draw=d.flip,
-                                    train=True)
-        return model.compute_losses(out, batch, self.num_cam_rays, vgg=self.vgg)
+        return self._loss_of_outputs(self._ray_outputs(bundle, draws, self.num_cam_rays), batch, self.num_cam_rays)
 
-    def _nerfacto_loss(self, bundle: RayBundle, batch: Dict[str, torch.Tensor], jitters: Sequence[torch.Tensor]
+    def _ray_outputs(self, bundle: RayBundle, draws: TrainDraws, num_cam_rays: int) -> Dict:
+        """The per-ray part of the training forward: the feature-field render
+        (chunk by chunk above `train_ray_chunk` rays), or a nerfacto model's
+        outputs. Every tensor is per ray ([R, ...]), in dicts and lists."""
+        model = self.model
+        n = bundle.origins.shape[0]
+        chunks = self._chunks(n)
+        if self._is_nerfacto:
+            return model.get_outputs(bundle, train=True, jitters=draws[0].jitters)
+        if len(chunks) == 1:
+            d = draws[0]
+            return model.get_nff_outputs(bundle, num_cam_rays, jitters=d.jitters, flip_draw=d.flip, train=True)
+        chunk = chunks[0]
+        total = chunk * len(chunks)
+        padded = map_tensors(lambda x: torch.cat([x, x[-1:].expand((total - n,) + x.shape[1:])], dim=0), bundle)
+        outs = []
+        for i, d in enumerate(draws):
+            piece = map_tensors(lambda x: x[i * chunk:(i + 1) * chunk], padded)
+            outs.append(model.get_nff_outputs(piece, 0, jitters=d.jitters, flip_draw=d.flip, train=True))
+        return {k: torch.cat([o[k] for o in outs], dim=0)[:n] for k in outs[0]}
+
+    def _loss_of_outputs(self, out: Dict, batch: Dict[str, torch.Tensor], num_cam_rays: int,
+                         terms: Optional[L.BatchTerms] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss of a batch's per-ray outputs (`_ray_outputs`): NeuRAD
+        decodes the features (camera patches, lidar rays) first. `terms`:
+        NeuRAD's reductions (`compute_losses`)."""
+        if self._is_nerfacto:
+            return self._nerfacto_loss(out, batch, num_cam_rays)
+        out = dict(out)
+        features = out.pop("features")
+        rgb, intensity, ray_drop_logits = self.model.decode_features(features, self.patch_size, num_cam_rays,
+                                                                      train=True)
+        if rgb is not None:
+            out["rgb"] = rgb
+        if intensity is not None:
+            out["intensity"] = intensity
+            out["ray_drop_logits"] = ray_drop_logits
+        return self.model.compute_losses(out, batch, num_cam_rays, vgg=self.vgg, terms=terms)
+
+    def _nerfacto_loss(self, out: Dict, batch: Dict[str, torch.Tensor], n_cam: int
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """A nerfacto model's loss: the rgb and the image of the camera rays
         (one ray a pixel), the depth loss from the lidar rays' weights."""
-        n_cam = self.num_cam_rays
-        out = self.model.get_outputs(bundle, train=True, jitters=jitters)
+        out = dict(out)
         batch = dict(batch)
         if "image" in batch:
             batch["image"] = batch["image"].reshape(-1, 3)[:n_cam]
@@ -308,12 +346,103 @@ class ADPipeline:
         return state, metrics
 
     # ------------------------------------------------------------------
+    # data-parallel training
+    # ------------------------------------------------------------------
+
+    def _rank_draws(self, draws: TrainDraws, rows: torch.Tensor, n_global: int, n_local: int) -> TrainDraws:
+        """A rank's share of the global batch's draws: each ray's draws taken
+        at its row of the global batch, chunked as the rank's own batch is
+        (the last chunk padded by repeating its last ray's draws)."""
+        rows = rows.to(self.device)
+        take = lambda ts: torch.cat(ts, dim=0)[:n_global][rows]
+        jitters = tuple(take([d.jitters[k] for d in draws]) for k in range(len(draws[0].jitters)))
+        flip = take([d.flip for d in draws]) if draws[0].flip is not None else None
+        chunks = self._chunks(n_local)
+        if len(chunks) == 1:
+            return [ChunkDraws(jitters, flip)]
+        chunk, total = chunks[0], chunks[0] * len(chunks)
+        pad = lambda x: torch.cat([x, x[-1:].expand((total - n_local,) + x.shape[1:])], dim=0)
+        jitters, flip = tuple(pad(j) for j in jitters), (pad(flip) if flip is not None else None)
+        return [ChunkDraws(tuple(j[i * chunk:(i + 1) * chunk] for j in jitters),
+                           flip[i * chunk:(i + 1) * chunk] if flip is not None else None)
+                for i in range(len(chunks))]
+
+    def make_sharded_train_step(self, mesh: Optional[sharding.Mesh] = None):
+        """train_step_sharded(state, bundle, batch, draws=None) over `mesh`
+        (default: the pipeline's). Each rank passes its own `[cam | lidar]`
+        batch. Every rank draws the global batch's draws (`draws`: the
+        global batch's, one per chunk of it) and keeps its rows of the global
+        batch `[cam_0 .. cam_{w-1} | lidar_0 .. lidar_{w-1}]`, renders its
+        rays (the feature field and the hash-grid kernels), decodes its own
+        patches and lidar rays and scores them: each loss term is reduced
+        over the ranks (`sharding.GlobalBatchTerms`; a batch-norm decoder
+        takes the global batch's statistics), so the loss is the one-process
+        loss of the global batch while a rank's decoder, VGG and loss work
+        stay its own batch's. The parameter gradients are averaged over the
+        ranks. A nerfacto model's loss is per-ray arithmetic without a
+        decoder: its per-ray outputs and the ground truth are gathered and
+        every rank scores the global batch."""
+        mesh = mesh or self.mesh
+        if mesh is None:
+            raise ValueError("make_sharded_train_step needs a mesh")
+        w, rank = mesh.world_size, mesh.rank
+
+        def gather(tree, rows, n_global):
+            if isinstance(tree, dict):
+                return {k: gather(v, rows, n_global) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(gather(v, rows, n_global) for v in tree)
+            if tree is None:
+                return None
+            return sharding.gather_rows_with_grad(mesh, tree, rows, n_global)
+
+        def run(state: TrainState, bundle: RayBundle, batch: Dict[str, torch.Tensor],
+                draws: Optional[TrainDraws] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+            n_local = bundle.origins.shape[0]
+            n_cam = self.num_cam_rays
+            sharding.same_on_every_rank(mesh, float(n_local), "the ray batch's size")
+            n_global = n_local * w
+            if draws is None:
+                draws = self.draw(state.generator, n_global)
+            if len(draws) != len(self._chunks(n_global)):
+                raise ValueError(f"{len(draws)} sets of draws for {len(self._chunks(n_global))} chunks")
+            rows = sharding.train_batch_rows(rank, w, n_cam, n_local - n_cam)
+            out = self._ray_outputs(bundle, self._rank_draws(draws, rows, n_global, n_local), n_cam)
+            if self._is_nerfacto:
+                total, metrics = self._loss_of_outputs(gather(out, rows, n_global), sharding.gather_blocks(mesh, batch),
+                                                       self._train_num_cam_rays)
+            else:
+                terms = sharding.GlobalBatchTerms(mesh)
+                with batch_statistics_over(terms.of_mean):
+                    total, metrics = self._loss_of_outputs(out, batch, n_cam, terms)
+            state.optimizers.zero_grad()
+            total.backward()
+            sharding.all_reduce_gradients(mesh, sharding.optimizer_params(state.optimizers))
+            state.optimizers.step()
+            state.step += 1
+            metrics = dict(metrics)
+            metrics["total_loss"] = total.detach()
+            return state, metrics
+
+        return run
+
+    # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
 
-    def save_checkpoint(self, state: TrainState, checkpoint_dir) -> Path:
+    def save_checkpoint(self, state: TrainState, checkpoint_dir) -> Optional[Path]:
         """Write `step-<step>.pt`: the model's state dict, the optimizers'
-        state, the step, the generator's and the datamanager sampler's state."""
+        state, the step, the generator's and the datamanager sampler's state.
+        In a data-parallel world every rank's sampler state is gathered
+        (`datamanager_rng_ranks`, the ranks sample different rays; rank 0's is
+        also `datamanager_rng`), rank 0 writes (the others return None) and
+        every rank waits for the file."""
+        rank_states = None
+        if self.mesh is not None:
+            rank_states = sharding.gather_objects(self.mesh, self.datamanager.rng_state())
+            if not sharding.is_writer(self.mesh):
+                sharding.barrier(self.mesh)
+                return None
         checkpoint_dir = Path(checkpoint_dir)
         checkpoint_dir.mkdir(parents=True, exist_ok=True)
         path = checkpoint_dir / f"step-{state.step:09d}.pt"
@@ -325,10 +454,13 @@ class ADPipeline:
                 "optimizers": state.optimizers.state_dict(),
                 "generator": state.generator.get_state(),
                 "datamanager_rng": self.datamanager.rng_state(),
+                "datamanager_rng_ranks": rank_states,
             },
             tmp,
         )
         tmp.replace(path)
+        if self.mesh is not None:
+            sharding.barrier(self.mesh)
         return path
 
     @staticmethod
@@ -348,7 +480,14 @@ class ADPipeline:
         state.step = int(ckpt["step"])
         state.optimizers.load_state_dict(ckpt["optimizers"])
         state.generator.set_state(ckpt["generator"].cpu())
-        self.datamanager.set_rng_state(ckpt["datamanager_rng"])
+        rank_states = ckpt.get("datamanager_rng_ranks")
+        if self.mesh is not None and rank_states is not None:
+            if len(rank_states) != self.mesh.world_size:
+                raise ValueError(f"the checkpoint holds the samplers of {len(rank_states)} ranks, "
+                                 f"not {self.mesh.world_size}")
+            self.datamanager.set_rng_state(rank_states[self.mesh.rank])
+        else:
+            self.datamanager.set_rng_state(ckpt["datamanager_rng"])
         return state
 
     # ------------------------------------------------------------------
@@ -366,6 +505,8 @@ class ADPipeline:
         trimmed."""
         chunk = self.config.eval_chunk
         n = bundle.origins.shape[0]
+        if self._eval_sharded():
+            return self._chunked_nff_sharded(bundle, all_camera, edits)
         outs = []
         for start in range(0, n, chunk):
             piece = map_tensors(lambda x: x[start : start + chunk], bundle)
@@ -377,6 +518,41 @@ class ADPipeline:
         if len(outs) == 1:
             return outs[0]
         return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+    def _eval_sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.world_size > 1 and self.config.eval_shard
+
+    @torch.no_grad()
+    def _chunked_nff_sharded(self, bundle: RayBundle, all_camera: bool, edits: Optional[ActorEdits] = None
+                             ) -> Dict[str, torch.Tensor]:
+        """`_chunked_nff` split over the data-parallel world: super-chunks of
+        `eval_chunk * world_size` rays, rank r rendering the super-chunk's
+        r-th chunk (padded with zero rays to the chunk's size, as one process
+        pads its last chunk, so each chunk is rendered as one process renders
+        it), and the chunks gathered (an all-reduce of a zero-filled buffer),
+        so that every rank holds the whole render."""
+        mesh, chunk = self.mesh, self.config.eval_chunk
+        n = bundle.origins.shape[0]
+        outs = []
+        for start in range(0, n, chunk * mesh.world_size):
+            rows = min(chunk * mesh.world_size, n - start)
+            mine = start + mesh.rank * chunk
+            piece = map_tensors(lambda x: x[mine:min(mine + chunk, n)], bundle)
+            m = piece.origins.shape[0]
+            if m < chunk:
+                piece = map_tensors(lambda x: torch.cat([x, x.new_zeros((chunk - m,) + x.shape[1:])], dim=0), piece)
+            out = self.model.get_nff_outputs(piece, chunk if all_camera else 0, edits=edits)
+            idx = torch.arange(mesh.rank * chunk, mesh.rank * chunk + m)
+            outs.append({k: sharding.gather_rows(mesh, v[:m], idx, rows) for k, v in out.items()})
+        if len(outs) == 1:
+            return outs[0]
+        return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+    def _eval_params(self) -> None:
+        """Before a sharded render: rank 0's parameters on every rank,
+        checked bit for bit (the JAX package replicates them onto the mesh)."""
+        if self._eval_sharded():
+            sharding.replicate(self.mesh, self.model)
 
     # ------------------------------------------------------------------
     # evaluation renders
@@ -400,6 +576,7 @@ class ADPipeline:
         """Full-image render -> (pred rgb [H', W', 3], gt rgb). `edits`: actor
         edits applied at render time."""
         self._no_nerfacto()
+        self._eval_params()
         rgb, gt = self._render_camera(cam_idx, edits)
         return rgb.cpu().numpy(), gt
 
@@ -423,6 +600,7 @@ class ADPipeline:
     @torch.no_grad()
     def render_eval_lidar(self, scan_idx: int) -> Dict[str, np.ndarray]:
         self._no_nerfacto()
+        self._eval_params()
         return {k: v.cpu().numpy() for k, v in self._render_lidar(scan_idx).items()}
 
     # ------------------------------------------------------------------
@@ -556,6 +734,7 @@ class ADPipeline:
         measured points (the measured points' mean range where every ray is
         predicted dropped). On the device; np.median on the host."""
         self._no_nerfacto()
+        self._eval_params()
         metrics: Dict[str, float] = {}
         cams = self.outputs.eval_camera_indices
         if cams:
@@ -618,6 +797,7 @@ class ADPipeline:
         vertical shift of 1 m, each moving every ray's origin along the
         camera's right or up axis."""
         self._no_nerfacto()
+        self._eval_params()
         lane_sign = 1
         if self.outputs.metadata and "lane_shift_sign" in self.outputs.metadata:
             lane_sign = int(self.outputs.metadata["lane_shift_sign"])

@@ -8,8 +8,11 @@ training state: the per-group optimizers, the step count and the generator the
 densification draws from. `train_step` takes one camera frame or one lidar
 scan: forward, loss, backward (the tile composites' backward kernels on a CUDA
 device), one optimizer update, then the densification strategy when it is due.
-`eval_metrics` and `eval_fid_suite` score the eval split. The batched /
-mesh-sharded steps of the JAX pipeline are not ported yet.
+`eval_metrics` and `eval_fid_suite` score the eval split.
+`make_sharded_train_step` is the data-parallel step over a `torch.distributed`
+world (one frame or scan a rank, `parallel/sharding.py`);
+`_make_camera_step_batched` and `_make_lidar_step_batched` are the same update
+in one process.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from neurad_tpu_torch.model_components.strategy import (
     should_refine_default,
 )
 from neurad_tpu_torch.models.splatad import SplatADConfig, SplatADModel, seed_gaussians
+from neurad_tpu_torch.parallel import sharding
 from neurad_tpu_torch.utils.eval_metrics import fid, fid_suite_shifts
 
 # Per-group learning-rate presets, grouped by parameter name.
@@ -129,10 +133,13 @@ class SplatADPipeline:
         outputs: ADDataparserOutputs,
         config: Optional[SplatADPipelineConfig] = None,
         device="cuda",
+        mesh: Optional[sharding.Mesh] = None,
     ):
         self.device = resolve_device(device)
         self.config = config or SplatADPipelineConfig()
         self.outputs = outputs
+        # the data-parallel world (None: one process); every rank draws the same samples, and rank 0 writes
+        self.mesh = mesh
         self.datamanager = FullImageLidarDataManager(outputs, self.config.datamanager, seed=self.config.seed)
 
         seed_pts = self.datamanager.all_seed_points()
@@ -186,35 +193,63 @@ class SplatADPipeline:
         K[:2] /= d
         return dataclasses.replace(sample, image=img, K=K, width=img.shape[1], height=img.shape[0])
 
+    def _offset(self, sample) -> Optional[torch.Tensor]:
+        """The zeros `means2d_offset` whose gradient is the absgrad signal
+        (Default strategy, camera samples), else None."""
+        if self.config.strategy != "default" or not isinstance(sample, CameraSample):
+            return None
+        return torch.zeros((self.model.means.shape[0], 2), device=self.device, requires_grad=True)
+
+    def _forward_loss(self, sample, offset: Optional[torch.Tensor] = None):
+        """(loss, metrics, outputs) of one camera frame or lidar scan."""
+        model = self.model
+        if isinstance(sample, CameraSample):
+            out = model.get_camera_outputs(
+                sample.c2w, sample.K, sample.width, sample.height, sample.time, sample.sensor_idx, sample.cam_idx,
+                cam_linear_vel=sample.linear_velocity,
+                rolling_shutter_time=sample.rolling_shutter_time,
+                time_to_center_pixel=sample.time_to_center_pixel,
+                means2d_offset=offset,
+            )
+            total, metrics = model.camera_loss(out, sample.image)
+        elif isinstance(sample, LidarSample):
+            out = model.get_lidar_outputs(
+                sample.l2w, sample.raster_pts, sample.time, sample.sensor_idx,
+                lidar_linear_vel=sample.linear_velocity,
+            )
+            total, metrics = model.lidar_loss(out, sample.raster_pts, sample.did_return, sample.valid)
+        else:
+            raise TypeError(f"train_step takes a CameraSample or a LidarSample, got {type(sample).__name__}")
+        return total, metrics, out
+
+    @staticmethod
+    def _absgrad(offset_grad: torch.Tensor, out: Dict[str, torch.Tensor], sample: CameraSample, scale: float = 1.0):
+        """(pixel-gradient norms where the gaussian was visible, visibility as
+        int32): the gradients scaled by half the image dimensions, as gsplat
+        does, and by `scale` (a batched step's n undoes its mean's 1/n)."""
+        g2d = torch.linalg.norm(offset_grad * offset_grad.new_tensor(
+            [scale * sample.width / 2.0, scale * sample.height / 2.0]), dim=-1)
+        visible = out["radii"] > 0
+        return torch.where(visible, g2d, torch.zeros_like(g2d)), visible.to(torch.int32)
+
+    def _accumulate_absgrad(self, g2d: torch.Tensor, count: torch.Tensor) -> None:
+        if self._grad2d_sum is None:
+            self._grad2d_sum = torch.zeros_like(g2d)
+            self._count = torch.zeros_like(count)
+        self._grad2d_sum += g2d
+        self._count += count
+
     def train_step(self, state: TrainState, sample) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer update from a camera frame or a lidar scan, then the
         densification strategy when it is due. Metrics are detached tensors on
         the model's device."""
         model = self.model
-        use_absgrad = self.config.strategy == "default"
+        if isinstance(sample, CameraSample):
+            sample = self._downscale_sample(sample, state.step)
+        offset = self._offset(sample)
         model.train()
         try:
-            if isinstance(sample, CameraSample):
-                sample = self._downscale_sample(sample, state.step)
-                offset = None
-                if use_absgrad:
-                    offset = torch.zeros((model.means.shape[0], 2), device=self.device, requires_grad=True)
-                out = model.get_camera_outputs(
-                    sample.c2w, sample.K, sample.width, sample.height, sample.time, sample.sensor_idx, sample.cam_idx,
-                    cam_linear_vel=sample.linear_velocity,
-                    rolling_shutter_time=sample.rolling_shutter_time,
-                    time_to_center_pixel=sample.time_to_center_pixel,
-                    means2d_offset=offset,
-                )
-                total, metrics = model.camera_loss(out, sample.image)
-            elif isinstance(sample, LidarSample):
-                out = model.get_lidar_outputs(
-                    sample.l2w, sample.raster_pts, sample.time, sample.sensor_idx,
-                    lidar_linear_vel=sample.linear_velocity,
-                )
-                total, metrics = model.lidar_loss(out, sample.raster_pts, sample.did_return, sample.valid)
-            else:
-                raise TypeError(f"train_step takes a CameraSample or a LidarSample, got {type(sample).__name__}")
+            total, metrics, out = self._forward_loss(sample, offset)
             state.optimizers.zero_grad()
             total.backward()
             state.optimizers.step()
@@ -223,18 +258,101 @@ class SplatADPipeline:
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
-        if use_absgrad and isinstance(sample, CameraSample):
-            # pixel gradients scaled by half the image dimensions, as gsplat does
-            scale = offset.new_tensor([sample.width / 2.0, sample.height / 2.0])
-            g2d = torch.linalg.norm(offset.grad * scale, dim=-1)
-            visible = out["radii"] > 0
-            if self._grad2d_sum is None:
-                self._grad2d_sum = torch.zeros_like(g2d)
-                self._count = torch.zeros_like(visible, dtype=torch.int32)
-            self._grad2d_sum += torch.where(visible, g2d, torch.zeros_like(g2d))
-            self._count += visible.to(torch.int32)
+        if offset is not None:
+            self._accumulate_absgrad(*self._absgrad(offset.grad, out, sample))
         self._maybe_refine(state)
         return state, metrics
+
+    # ------------------------------------------------------------------
+    # data-parallel training: one camera frame or lidar scan per rank, the
+    # per-sample losses averaged (nerfstudio's DDP semantics). The batched
+    # steps are the same update in one process.
+    # ------------------------------------------------------------------
+
+    def _step_batched(self, state: TrainState, samples) -> Tuple[TrainState, Dict, tuple]:
+        """One update from n same-modality samples: the mean of their losses
+        (each sample's backward taken in turn, scaled by 1/n), and the absgrad
+        statistics summed over the samples with the mean's 1/n undone. No
+        refine. Returns (state, metrics averaged over the samples, (absgrad
+        sums, visibility counts))."""
+        model = self.model
+        n = len(samples)
+        if isinstance(samples[0], CameraSample):
+            samples = [self._downscale_sample(s, state.step) for s in samples]
+        n_gauss = model.means.shape[0]
+        g2d_sum = torch.zeros(n_gauss, device=self.device)
+        count = torch.zeros(n_gauss, dtype=torch.int32, device=self.device)
+        totals, per_sample = [], []
+        model.train()
+        try:
+            state.optimizers.zero_grad()
+            for s in samples:
+                offset = self._offset(s)
+                total, metrics, out = self._forward_loss(s, offset)
+                (total / n).backward()
+                totals.append(total.detach())
+                per_sample.append({k: v.detach() for k, v in metrics.items()})
+                if offset is not None:
+                    g2d, vis = self._absgrad(offset.grad, out, s, scale=float(n))
+                    g2d_sum += g2d
+                    count += vis
+            state.optimizers.step()
+        finally:
+            model.eval()
+        state.step += 1
+        metrics = {k: torch.stack([m[k] for m in per_sample]).float().mean() for k in per_sample[0]}
+        metrics["total_loss"] = torch.stack(totals).mean()
+        return state, metrics, (g2d_sum, count)
+
+    def _make_camera_step_batched(self):
+        """The batched camera step: step(state, samples) -> (state, metrics, (absgrad sums, counts))."""
+        return self._step_batched
+
+    def _make_lidar_step_batched(self):
+        """The batched lidar step: step(state, samples) -> (state, metrics)."""
+        return lambda state, samples: self._step_batched(state, samples)[:2]
+
+    def make_sharded_train_step(self, mesh: Optional[sharding.Mesh] = None):
+        """train_step_sharded(state, samples) over `mesh` (default: the
+        pipeline's): `samples` is one list of `world_size` same-modality
+        samples that every rank draws alike (`next_train_batch`); rank r
+        trains on samples[r]. The gradients are averaged over the ranks, the
+        absgrad sums and visibility counts summed over them before the
+        strategy runs, and every rank refines with the same generator. A rank
+        whose sample is of another modality raises."""
+        mesh = mesh or self.mesh
+        if mesh is None:
+            raise ValueError("make_sharded_train_step needs a mesh")
+        model = self.model
+
+        def run(state: TrainState, samples) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+            if len(samples) != mesh.world_size:
+                raise ValueError(f"{len(samples)} samples for a world of {mesh.world_size}")
+            sample = samples[mesh.rank]
+            is_camera = isinstance(sample, CameraSample)
+            sharding.same_on_every_rank(mesh, float(is_camera), "the step's modality")
+            if is_camera:
+                sample = self._downscale_sample(sample, state.step)
+            offset = self._offset(sample)
+            model.train()
+            try:
+                total, metrics, out = self._forward_loss(sample, offset)
+                state.optimizers.zero_grad()
+                total.backward()
+                sharding.all_reduce_gradients(mesh, sharding.optimizer_params(state.optimizers))
+                state.optimizers.step()
+            finally:
+                model.eval()
+            state.step += 1
+            metrics = sharding.reduce_metrics(mesh, {**{k: v.detach() for k, v in metrics.items()},
+                                                     "total_loss": total.detach()})
+            if offset is not None:
+                g2d, count = self._absgrad(offset.grad, out, sample)
+                self._accumulate_absgrad(sharding.all_reduce_(mesh, g2d), sharding.all_reduce_(mesh, count))
+            self._maybe_refine(state)
+            return state, metrics
+
+        return run
 
     def _gaussians(self) -> Dict[str, torch.Tensor]:
         gauss = {k: getattr(self.model, k).detach() for k in GAUSSIAN_KEYS}
@@ -297,7 +415,11 @@ class SplatADPipeline:
     def save_checkpoint(self, state: TrainState, checkpoint_dir) -> Path:
         """Write `step-<step>.pt`: the model's state dict, the optimizers'
         state, the step, the generator's and the datamanager sampler's state
-        and the absgrad sums."""
+        and the absgrad sums. In a data-parallel world rank 0 writes (the
+        others return None) and every rank waits for the file."""
+        if not sharding.is_writer(self.mesh):
+            sharding.barrier(self.mesh)
+            return None
         checkpoint_dir = Path(checkpoint_dir)
         checkpoint_dir.mkdir(parents=True, exist_ok=True)
         path = checkpoint_dir / f"step-{state.step:09d}.pt"
@@ -315,6 +437,8 @@ class SplatADPipeline:
             tmp,
         )
         tmp.replace(path)
+        if self.mesh is not None:
+            sharding.barrier(self.mesh)
         return path
 
     @staticmethod

@@ -9,8 +9,10 @@ shape. The model owns the parameters; `init_state` makes the rest of the
 training state (one Adam per parameter, the step, the generator the refines
 draw from). `train_step` draws a train camera with numpy's generator seeded as
 the JAX pipeline's, renders it, takes one update and refines when the strategy
-says so; the absgrad signal is the gradient of a zeros `means2d_offset`. The
-batched and mesh-sharded steps of the JAX pipeline are not ported yet.
+says so; the absgrad signal is the gradient of a zeros `means2d_offset`.
+`make_sharded_train_step` is the data-parallel step over a `torch.distributed`
+world (one camera a rank, `parallel/sharding.py`), `_make_step_batched` the
+same update in one process.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from neurad_tpu_torch.model_components.strategy import (
     should_refine_default,
 )
 from neurad_tpu_torch.models.splatfacto import PARAM_KEYS, SplatfactoConfig, SplatfactoModel, random_init_gaussians
+from neurad_tpu_torch.parallel import sharding
 
 CHECKPOINT_PATTERN = "step-*.pt"
 STATIC_ID = 10**6  # every gaussian is static: an id beyond any actor's
@@ -99,10 +102,12 @@ class SplatfactoPipeline:
     """Camera-only splatting over a parsed dataset's train cameras."""
 
     def __init__(self, outputs: ADDataparserOutputs, config: Optional[SplatfactoPipelineConfig] = None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[sharding.Mesh] = None):
         self.device = resolve_device(device)
         self.config = config or SplatfactoPipelineConfig()
         self.outputs = outputs
+        # the data-parallel world (None: one process); every rank draws the same cameras, and rank 0 writes
+        self.mesh = mesh
         cfg = self.config
         self.scene_scale = float(outputs.scene_box.aabb.abs().max())
         init = random_init_gaussians(cfg.num_init, extent=self.scene_scale, seed=cfg.seed,
@@ -147,34 +152,123 @@ class SplatfactoPipeline:
         optimizers = Optimizers(self.model.named_parameters(), groups, tuple((k, k) for k in PARAM_KEYS))
         return TrainState(step=0, optimizers=optimizers, generator=generator)
 
+    def _draw_camera(self) -> int:
+        return self.train_indices[int(self._order.integers(len(self.train_indices)))]
+
+    def _loss_and_absgrad(self, cam_idx: int, scale: float = 1.0):
+        """(loss, metrics, an absgrad closure) of one train camera. The
+        closure, called after the backward, gives the pixel-space gradient
+        norms (scaled by half the image's size and by `scale`) where the
+        gaussian was visible, and the visibility as int32."""
+        c2w, K, img = self._camera(cam_idx)
+        h, w = img.shape[:2]
+        offset = torch.zeros((self.config.capacity, 2), device=self.device, requires_grad=True)
+        out = self.model.render(c2w, K, w, h, means2d_offset=offset)
+        total, metrics = self.model.loss(out, img)
+
+        def absgrad():
+            g2d = torch.linalg.norm(offset.grad * offset.new_tensor([scale * w / 2.0, scale * h / 2.0]), dim=-1)
+            visible = out["radii"] > 0
+            return torch.where(visible, g2d, torch.zeros_like(g2d)), visible.to(torch.int32)
+
+        return total, metrics, absgrad
+
+    def _after_step(self, state: TrainState, g2d: torch.Tensor, count: torch.Tensor) -> None:
+        """The absgrad sums, then the refine and the opacity reset when they are due."""
+        cfg = self.config
+        self._grad2d_sum += g2d
+        self._count += count
+        if should_refine_default(state.step, cfg.strategy):
+            self._refine(state)
+        if state.step % cfg.strategy.reset_every == 0 and 0 < state.step < cfg.strategy.refine_stop_iter:
+            self._set_gaussians(reset_opacities(self._gaussians(), cfg.strategy))
+
     def train_step(self, state: TrainState, cam_idx: Optional[int] = None) -> Tuple[TrainState, Dict]:
         """One update from a train camera (drawn when not given), the absgrad
         sums, then the refine and the opacity reset when they are due."""
-        cfg = self.config
         if cam_idx is None:
-            cam_idx = self.train_indices[int(self._order.integers(len(self.train_indices)))]
-        c2w, K, img = self._camera(cam_idx)
-        h, w = img.shape[:2]
-        offset = torch.zeros((cfg.capacity, 2), device=self.device, requires_grad=True)
-        out = self.model.render(c2w, K, w, h, means2d_offset=offset)
-        total, metrics = self.model.loss(out, img)
+            cam_idx = self._draw_camera()
+        total, metrics, absgrad = self._loss_and_absgrad(cam_idx)
         state.optimizers.zero_grad()
         total.backward()
         state.optimizers.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
-        # absgrad statistics: pixel-space gradients scaled by half the image's size, where the gaussian was visible
-        g2d = torch.linalg.norm(offset.grad * offset.new_tensor([w / 2.0, h / 2.0]), dim=-1)
-        visible = out["radii"] > 0
-        self._grad2d_sum += torch.where(visible, g2d, torch.zeros_like(g2d))
-        self._count += visible.to(torch.int32)
-
-        if should_refine_default(state.step, cfg.strategy):
-            self._refine(state)
-        if state.step % cfg.strategy.reset_every == 0 and 0 < state.step < cfg.strategy.refine_stop_iter:
-            self._set_gaussians(reset_opacities(self._gaussians(), cfg.strategy))
+        self._after_step(state, *absgrad())
         return state, metrics
+
+    # ------------------------------------------------------------------
+    # data-parallel training: one camera per rank, the per-sample losses
+    # averaged (nerfstudio's DDP semantics); the batched step is the same
+    # update in one process
+    # ------------------------------------------------------------------
+
+    def _draw_cameras(self, n: int) -> list:
+        """n train cameras of one image shape, drawn as the JAX package draws
+        them: the first pick decides the shape, a later pick of another shape
+        becomes the first camera of that shape."""
+        first = self._draw_camera()
+        shape = self.outputs.images[first].shape[:2]
+        pool = [i for i in self.train_indices if self.outputs.images[i].shape[:2] == shape]
+        idxs = [first] + [self._draw_camera() for _ in range(n - 1)]
+        return [i if self.outputs.images[i].shape[:2] == shape else pool[0] for i in idxs]
+
+    def _step_batched(self, state: TrainState, cam_idxs) -> Tuple[TrainState, Dict, tuple]:
+        """One update from n cameras: the mean of their losses (each
+        camera's backward in turn, scaled by 1/n) and the absgrad statistics
+        summed over the cameras with the mean's 1/n undone. No refine.
+        Returns (state, metrics averaged over the cameras, (absgrad sums,
+        visibility counts))."""
+        n = len(cam_idxs)
+        g2d_sum = torch.zeros(self.config.capacity, device=self.device)
+        count = torch.zeros(self.config.capacity, dtype=torch.int32, device=self.device)
+        totals, per_cam = [], []
+        state.optimizers.zero_grad()
+        for ci in cam_idxs:
+            total, metrics, absgrad = self._loss_and_absgrad(ci, scale=float(n))
+            (total / n).backward()
+            totals.append(total.detach())
+            per_cam.append({k: v.detach() for k, v in metrics.items()})
+            g2d, vis = absgrad()
+            g2d_sum += g2d
+            count += vis
+        state.optimizers.step()
+        state.step += 1
+        metrics = {k: torch.stack([m[k] for m in per_cam]).float().mean() for k in per_cam[0]}
+        metrics["total_loss"] = torch.stack(totals).mean()
+        return state, metrics, (g2d_sum, count)
+
+    def _make_step_batched(self, h: int = 0, w: int = 0):
+        """The batched step: step(state, cam_idxs) -> (state, metrics, (absgrad
+        sums, counts)). (The JAX package compiles one per image shape; h and w
+        are not needed here.)"""
+        return self._step_batched
+
+    def make_sharded_train_step(self, mesh: Optional[sharding.Mesh] = None):
+        """train_step_sharded(state) over `mesh` (default: the pipeline's):
+        every rank draws the same `world_size` cameras and trains on camera
+        `rank`; the gradients are averaged over the ranks and the absgrad
+        sums and counts summed over them before the refine."""
+        mesh = mesh or self.mesh
+        if mesh is None:
+            raise ValueError("make_sharded_train_step needs a mesh")
+
+        def run(state: TrainState) -> Tuple[TrainState, Dict]:
+            cam_idx = self._draw_cameras(mesh.world_size)[mesh.rank]
+            total, metrics, absgrad = self._loss_and_absgrad(cam_idx)
+            state.optimizers.zero_grad()
+            total.backward()
+            sharding.all_reduce_gradients(mesh, sharding.optimizer_params(state.optimizers))
+            state.optimizers.step()
+            state.step += 1
+            metrics = sharding.reduce_metrics(mesh, {**{k: v.detach() for k, v in metrics.items()},
+                                                     "total_loss": total.detach()})
+            g2d, count = absgrad()
+            self._after_step(state, sharding.all_reduce_(mesh, g2d), sharding.all_reduce_(mesh, count))
+            return state, metrics
+
+        return run
 
     def _gaussians(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self.model, k).detach() for k in PARAM_KEYS}
@@ -203,7 +297,12 @@ class SplatfactoPipeline:
 
     def save_checkpoint(self, state: TrainState, checkpoint_dir) -> Path:
         """Write `step-<step>.pt`: the model's state dict, the optimizers, the
-        step, the generator's and the camera sampler's state and the absgrad sums."""
+        step, the generator's and the camera sampler's state and the absgrad sums.
+        In a data-parallel world rank 0 writes (the others return None) and
+        every rank waits for the file."""
+        if not sharding.is_writer(self.mesh):
+            sharding.barrier(self.mesh)
+            return None
         checkpoint_dir = Path(checkpoint_dir)
         checkpoint_dir.mkdir(parents=True, exist_ok=True)
         path = checkpoint_dir / f"step-{state.step:09d}.pt"
@@ -212,6 +311,8 @@ class SplatfactoPipeline:
                     "optimizers": state.optimizers.state_dict(), "generator": state.generator.get_state(),
                     "sampler_rng": self.rng_state(), "grad2d_sum": self._grad2d_sum, "count": self._count}, tmp)
         tmp.replace(path)
+        if self.mesh is not None:
+            sharding.barrier(self.mesh)
         return path
 
     @staticmethod

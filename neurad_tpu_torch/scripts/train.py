@@ -34,6 +34,17 @@ TensorBoard event files in `<run dir>/tb` (otherwise one line says so).
 into the run directory (a splat PLY of a gaussian model, else a point cloud)
 run on the current parameters, under the lock each train step holds. The
 JAX script ignores `--viewer` for splatfacto; here every model is served.
+
+Several GPUs train data-parallel (`parallel/sharding.py`), as the JAX script
+shards over every device by default: started by torchrun
+(`python -m torch.distributed.run --nproc_per_node 8 -m
+neurad_tpu_torch.scripts.train neurad ...`; a world over several hosts
+needs `--multihost`), the script joins its world, a world of one included; started
+plainly on a machine with more than one visible GPU, it spawns one rank per
+GPU (nerfstudio's `launch`) unless `--no-mesh` is given. Rank 0 writes the
+run directory, checkpoints and log lines and serves the viewer; every rank
+evaluates and resumes. The ranks run on `cuda:<LOCAL_RANK>` unless `--device
+cpu` is given (gloo).
 """
 
 from __future__ import annotations
@@ -41,13 +52,18 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import sys
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
+import torch
+
 from neurad_tpu_torch import resolve_device
 from neurad_tpu_torch.configs.method_configs import METHODS, TrainerConfig, dataparser_config, get_method_config
 from neurad_tpu_torch.engine.trainer import Trainer
+from neurad_tpu_torch.parallel import sharding
 from neurad_tpu_torch.pipelines import ad_pipeline, splatad_pipeline, splatfacto_pipeline
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
@@ -106,9 +122,11 @@ def _pipeline_classes(method: str):
     return PIPELINES[METHODS[method]().pipeline_type]
 
 
-def load_run(run_dir, device="cuda", with_state: bool = False) -> Tuple[Pipeline, Optional[TrainState]]:
+def load_run(run_dir, device="cuda", with_state: bool = False, mesh: Optional[sharding.Mesh] = None
+             ) -> Tuple[Pipeline, Optional[TrainState]]:
     """Rebuild the pipeline of a run directory and load its newest checkpoint
-    (and, with `with_state`, the training state to resume from)."""
+    (and, with `with_state`, the training state to resume from); with a
+    `mesh`, as a rank of that data-parallel world."""
     device = resolve_device(device)
     run_dir = Path(run_dir)
     meta = json.loads((run_dir / "config.json").read_text())
@@ -116,7 +134,8 @@ def load_run(run_dir, device="cuda", with_state: bool = False) -> Tuple[Pipeline
         raise NotImplementedError(f"method {meta['method']!r} is not ported")
     pipeline_cls, cfg_cls = _pipeline_classes(meta["method"])
     outputs = dataparser_config(meta["dataparser"], **meta["dataparser_config"]).setup().get_dataparser_outputs()
-    pipeline = pipeline_cls(outputs, cfg_cls.from_dict(meta["pipeline"]), device=device)
+    kwargs = {} if mesh is None else {"mesh": mesh}
+    pipeline = pipeline_cls(outputs, cfg_cls.from_dict(meta["pipeline"]), device=device, **kwargs)
     state = pipeline.init_state() if with_state else None
     pipeline.load_checkpoint(run_dir / "checkpoints", state)
     return pipeline, state
@@ -165,7 +184,43 @@ def train_loop(pipeline: Pipeline, state: TrainState, trainer: TrainerConfig,
     return run.state, run.history
 
 
-def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
+def _rank_main(local_rank: int, argv: List[str], world_size: int, port: int) -> None:
+    """One spawned rank: torchrun's environment for a local world, then the script."""
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank), WORLD_SIZE=str(world_size),
+                      LOCAL_WORLD_SIZE=str(world_size), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    entrypoint(argv)
+
+
+def spawn_ranks(argv: List[str], world_size: int) -> None:
+    """Train with one spawned rank per GPU on this machine; returns when every
+    rank has ended (an error in one raises here)."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_rank_main, args=(list(argv), world_size, sharding.free_port()), nprocs=world_size,
+                       start_method="spawn")
+
+
+def _world(args) -> Optional[sharding.Mesh]:
+    """The data-parallel world the script trains in: torchrun's, or none. A
+    world whose ranks span several hosts needs `--multihost`, as the JAX
+    script joins other hosts only with it (`jax.distributed.initialize()`);
+    `--multihost` needs torchrun's environment to join."""
+    if not (args.multihost or sharding.in_launched_world()):
+        return None
+    if not sharding.in_launched_world():
+        raise SystemExit("--multihost joins the world that torchrun's environment describes (RANK, WORLD_SIZE, "
+                         "MASTER_ADDR, MASTER_PORT); none is set")
+    if sharding.spans_hosts() and not args.multihost:
+        raise SystemExit(f"torchrun's world of {os.environ['WORLD_SIZE']} ranks spans several hosts "
+                         f"({os.environ.get('LOCAL_WORLD_SIZE')} on this one): pass --multihost")
+    if args.no_mesh and int(os.environ["WORLD_SIZE"]) > 1:
+        raise SystemExit("--no-mesh trains in one process; start the script without a launcher")
+    if args.device == "cuda":
+        return sharding.make_mesh()  # cuda:<LOCAL_RANK>
+    return sharding.make_mesh(device=resolve_device(args.device))
+
+
+def entrypoint(argv=None, mesh: Optional[sharding.Mesh] = None) -> Optional[Tuple[Pipeline, TrainState]]:
     parser = argparse.ArgumentParser(description="Train a neurad_tpu_torch method")
     parser.add_argument("method", help=f"method name ({', '.join(METHODS)})")
     parser.add_argument("--dataparser", default=None, help="dataparser name (default: the method's)")
@@ -177,6 +232,11 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--load-dir", default=None, help="run directory of a previous run to resume from")
+    parser.add_argument("--multihost", action="store_true",
+                        help="train in a world of torchrun's that spans several hosts (required there; a world "
+                             "on this host is joined without it)")
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="train in one process on one GPU (data-parallel over the visible GPUs by default)")
     parser.add_argument("--viewer", action="store_true", help="serve the live browser viewer during training")
     parser.add_argument("--viewer-port", type=int, default=7007)
     parser.add_argument("--set", action="append", default=[], metavar="PATH=VALUE",
@@ -185,6 +245,14 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
                         help="dataparser config override (e.g. image_height=480, cameras=front,back)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    if mesh is None:
+        mesh = _world(args)
+    if mesh is None and not args.no_mesh and args.device == "cuda" and torch.cuda.device_count() > 1:
+        spawn_ranks(sys.argv[1:] if argv is None else argv, torch.cuda.device_count())
+        return None
+    if mesh is not None:
+        device = mesh.device
+    writes = sharding.is_writer(mesh)
     register_discovered_methods()
     try:
         cfg = get_method_config(args.method)
@@ -209,31 +277,38 @@ def entrypoint(argv=None) -> Tuple[Pipeline, TrainState]:
             raise SystemExit(f"dataparser {dataparser!r} has no setting {key!r}")
         setattr(dp_cfg, key, _parse(value, getattr(dp_cfg, key)))
 
+    kwargs = {} if mesh is None else {"mesh": mesh}
     if args.load_dir:
         run_dir = Path(args.load_dir)
-        pipeline, state = load_run(run_dir, device=device, with_state=True)
+        pipeline, state = load_run(run_dir, device=device, with_state=True, mesh=mesh)
     else:
         exp_name = args.experiment_name or f"{args.method}-{time.strftime('%Y%m%d-%H%M%S')}"
-        run_dir = write_run_config(Path(args.output_dir) / exp_name, args.method, dp_cfg, cfg.pipeline, args.seed,
-                                   args.set, dataparser)
+        if mesh is not None:
+            exp_name = sharding.broadcast_object(mesh, exp_name)  # rank 0's clock names the run
+        run_dir = Path(args.output_dir) / exp_name
+        if writes:
+            write_run_config(run_dir, args.method, dp_cfg, cfg.pipeline, args.seed, args.set, dataparser)
         pipeline_cls, _ = PIPELINES[cfg.pipeline_type]
-        pipeline = pipeline_cls(dp_cfg.setup().get_dataparser_outputs(), cfg.pipeline, device=device)
+        pipeline = pipeline_cls(dp_cfg.setup().get_dataparser_outputs(), cfg.pipeline, device=device, **kwargs)
         state = pipeline.init_state()
     cfg.trainer.checkpoint_dir = str(run_dir / "checkpoints")
+    world = "" if mesh is None else f", rank {mesh.rank} of {mesh.world_size} ({mesh.backend})"
     print(f"[train] {args.method} on {dataparser}: {cfg.trainer.max_num_iterations} iterations from step "
-          f"{state.step}, device={device}, run dir {run_dir}")
+          f"{state.step}, device={device}{world}, run dir {run_dir}")
 
-    writer = make_writer(run_dir)
-    trainer = Trainer(pipeline, state, cfg.trainer, writer=writer)
-    if args.viewer:
+    writer = make_writer(run_dir) if writes else None
+    trainer = Trainer(pipeline, state, cfg.trainer, writer=writer, mesh=mesh)
+    if args.viewer and writes:
         trainer.viewer = _start_viewer(pipeline, run_dir, args.viewer_port)
     try:
         metrics = trainer.train()
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
         if trainer.viewer is not None:
             trainer.viewer.stop()
-    print(f"[train] done: {json.dumps(metrics)}")
+    if writes:
+        print(f"[train] done: {json.dumps(metrics)}")
     return pipeline, trainer.state
 
 

@@ -61,6 +61,11 @@ def test_importing_every_module_loads_no_jax():
             "neurad_tpu_torch.exporter.tsdf", "neurad_tpu_torch.exporter.poisson", "neurad_tpu_torch.scripts.render",
             "neurad_tpu_torch.scripts.export", "neurad_tpu_torch.viewer.server", "neurad_tpu_torch.scripts.viewer",
             "neurad_tpu_torch.process_data", "neurad_tpu_torch.process_data_converters"} <= set(mods)
+    assert {"neurad_tpu_torch.parallel", "neurad_tpu_torch.parallel.sharding", "neurad_tpu_torch.data.pixel_samplers",
+            "neurad_tpu_torch.data.data_utils", "neurad_tpu_torch.data.datasets",
+            "neurad_tpu_torch.model_components.ray_generators", "neurad_tpu_torch.model_components.scene_colliders",
+            "neurad_tpu_torch.model_components.occupancy_grid", "neurad_tpu_torch.model_components.renderers",
+            "neurad_tpu_torch.fields.extra_encodings"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -212,3 +217,41 @@ def test_neurad_train_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
             refused()
     assert closed_loop.ClosedLoopState.from_run_dir(tmp_path / "r", device="cpu").pipeline.device.type == "cpu"
     assert next(load_vgg19_params().parameters()).device.type == "cpu"
+
+
+def test_data_parallel_ranks_need_their_device_unless_asked_for_cpu(tmp_path, monkeypatch):
+    """The train script's ranks run on `cuda:<LOCAL_RANK>` unless asked for
+    the CPU: under torchrun's environment it refuses without CUDA before it
+    joins the world or writes anything, `--multihost` refuses without that
+    environment, a world over several hosts refuses without `--multihost`
+    (JAX's meaning), and a local rank beyond the visible GPUs raises (the caller
+    passing a device, as a gloo world of ranks on one GPU does, is the
+    exception). Nothing here starts a world."""
+    from neurad_tpu_torch.parallel import sharding
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    argv = ["splatad-tiny", "--max-iterations", "1", "--output-dir", str(tmp_path), "--experiment-name", "r"]
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(SystemExit, match="torchrun"):
+        train.entrypoint(argv + ["--multihost", "--device", "cpu"])
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    with pytest.raises(SystemExit, match="spans several hosts.*--multihost"):
+        train.entrypoint(argv + ["--device", "cpu"])
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.entrypoint(argv)
+    with pytest.raises(SystemExit, match="--no-mesh"):
+        train.entrypoint(argv + ["--no-mesh", "--device", "cpu"])
+    assert not (tmp_path / "r").exists(), "refused before anything was written"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sharding.make_mesh()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="local rank 1 has no GPU: 1 visible"):
+        sharding.make_mesh()
+    assert not torch.distributed.is_initialized()
