@@ -188,6 +188,17 @@ order, within BWD_TOL of each entry's terms' magnitude).
    outputs and opacity gradients against the tiled path's (K4, K5) on the
    same scan, the points beside the azimuth's wrap apart, its time and peak
    beside a tiled step's; one NeuRAD request with `rgb_decoder_norm="batch"`.
+15. API (`api_phase`, after the drive phase): the rest of the JAX package's
+   public API, each piece on the card against the same function on the CPU:
+   the SDS loss and its gradient at Stable Diffusion's latent size over the
+   guidance's t range, classifier-free guidance, the positional prompt
+   embeddings in their three modes at SD 1.5's [2, 77, 768],
+   `BottleneckBlock` (group norm; batch norm in train and eval mode) on
+   [1, 32, 360, 640] fp32 with its forward timed beside `BasicBlock`'s, the
+   scene-box and oriented-box masks on 1,000,000 points, the pose inverse,
+   normalisation and rotation difference on the drive's poses (cameras,
+   lidar, actors; the rotation difference between every pair); and
+   `StableDiffusionGuidance()` must raise ImportError without `diffusers`.
 
 Prints the card's name and power limit, one JSON line with the twelve
 kernels' numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
@@ -2067,10 +2078,14 @@ def drive_phase():
     res["launches"] = counts()
     log(f"[drive] kernel launches in this phase: {res['launches']}")
     require(all(v > 0 for v in res["launches"].values()), "the drive phase launched K1f, K1b, K2, K3, K4 and K5")
+    # every pose of the drive, [N, 3, 4]: the cameras', the lidar's and each tracked actor's at every frame
+    scene = dict(poses=torch.cat([outputs.cameras.camera_to_worlds, outputs.lidars.lidar_to_worlds] +
+                                 [torch.as_tensor(t["poses"][:, :3]).float() for t in outputs.trajectories]),
+                 aabb=outputs.scene_box.aabb.clone())
     del pipeline, state, outputs
     gc.collect()
     torch.cuda.empty_cache()
-    return res
+    return res, scene
 
 
 # ---------------------------------------------------------------------------
@@ -3795,6 +3810,208 @@ def library_phase(outputs):
     return res
 
 
+API_T_STRIDE = 48  # sds_loss is checked at every API_T_STRIDE-th step of the guidance's t range
+API_POINTS = 1_000_000  # seeded points of the box masks
+API_TOL = 1e-6  # card against CPU, fp32: the SDS math, CFG, the prompt embeddings, the poses (relative)
+API_BLOCK_TOL = 1e-4  # the bottleneck block card against CPU (fp32 convolutions and norms over 230,400 pixels)
+API_FACE = 1e-5  # a rotated box's points this close to a face (float64, the box's frame) may fall either side
+
+
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over the largest |want| (the largest |got - want| where want is all zero)."""
+    want = want.to(got.device, got.dtype)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    return err / scale if scale > 0 else err
+
+
+def api_phase(drive_scene):
+    """The rest of the JAX package's public API (slice 13), each piece on the
+    card against the same function on the CPU: `sds_loss` and its gradient
+    at Stable Diffusion's latent size ([1, 4, 64, 64] for IMG_DIM = 512) at
+    t over the guidance's t range; `classifier_free_guidance`;
+    `PositionalTextEmbeddings` in all three modes on SD 1.5's text-encoder
+    shape [2, 77, 768]; `BottleneckBlock` (group norm, batch norm in train
+    and eval mode) on the NeuRAD decoder's pre-upsample map of a 1920x1080
+    frame, [1, 32, 360, 640] fp32, its forward timed beside `BasicBlock`'s;
+    `SceneBox.within` and `OrientedBox.within` on API_POINTS seeded points
+    around the drive's scene box; `inverse`, `normalize` and
+    `rotation_difference` on the drive's poses (cameras, lidar, actors; the
+    rotation difference between every pair); and
+    `StableDiffusionGuidance()`'s ImportError without `diffusers`."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from neurad_tpu_torch.core import poses as P
+    from neurad_tpu_torch.core.scene_box import OrientedBox, SceneBox
+    from neurad_tpu_torch.generative import PositionalTextEmbeddings, StableDiffusionGuidance
+    from neurad_tpu_torch.generative import stable_diffusion as SD
+    from neurad_tpu_torch.model_components.cnns import BasicBlock, BottleneckBlock
+
+    res = {}
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED)
+
+    # --- the SDS math at SD's latent size ---
+    d = SD.IMG_DIM // 8
+    lat, noise, pred_text, pred_uncond = (torch.randn((1, 4, d, d), generator=gen) for _ in range(4))
+    alphas = SD.scaled_linear_alphas_cumprod(1000)
+    lo, hi = int(1000 * 0.02), int(1000 * 0.98)  # the guidance's default t_range, as its min_step and max_step
+    require(_rel_err(SD.scaled_linear_alphas_cumprod(1000, device=DEVICE), alphas) <= 1e-5,
+            "the noise schedule on the card")
+    cfg_err = _rel_err(SD.classifier_free_guidance(pred_text.to(DEVICE), pred_uncond.to(DEVICE), 100.0),
+                       SD.classifier_free_guidance(pred_text, pred_uncond, 100.0))
+    pred = SD.classifier_free_guidance(pred_text, pred_uncond, 100.0)
+    worst = dict(loss=0.0, grad=0.0, noisy=0.0, score=0.0)
+    ts = list(range(lo, hi + 1, API_T_STRIDE)) + [hi]
+    for t in ts:
+        outs = {}
+        for dev in (DEVICE, cpu):
+            x = lat.to(dev, copy=True).requires_grad_(True)
+            a = alphas.to(dev)
+            loss = SD.sds_loss(x, noise.to(dev), pred.to(dev), a, t)
+            loss.backward()
+            outs[dev] = (loss.detach(), x.grad, SD.add_noise(lat.to(dev), noise.to(dev), a, t))
+        (loss_c, grad_c, noisy_c), (loss_r, grad_r, noisy_r) = outs[DEVICE], outs[cpu]
+        score = (1.0 - alphas[t]) * (pred - noise) / lat.shape[0]  # the gradient: DreamFusion's score, over B
+        for key, got, want in (("loss", loss_c, loss_r), ("grad", grad_c, grad_r), ("noisy", noisy_c, noisy_r),
+                               ("score", grad_c, score)):
+            worst[key] = max(worst[key], _rel_err(got, want))
+    res["sds"] = dict(shape=list(lat.shape), t=[ts[0], ts[-1], len(ts)], cfg_rel_err=cfg_err, **worst)
+    log(f"[api] sds_loss at {list(lat.shape)}, t in {lo}..{hi} ({len(ts)} values), card against CPU: {res['sds']}")
+    require(max(worst.values()) <= 1e-5 and cfg_err <= API_TOL,
+            "sds_loss, its gradient (the score), add_noise and CFG agree with the CPU within 1e-5 relative")
+
+    # --- view-conditioned prompt embeddings on SD 1.5's text-encoder shape ---
+    embeds = {k: torch.randn((2, 77, 768), generator=gen) for k in ("base", "top", "side", "back", "front")}
+    angles = [(v, h) for v in (20.0, 45.0, 80.0) for h in range(-30, 400, 15)]
+    pte = {}
+    for mode in ("discrete", "interpolated", "off"):
+        on_card = PositionalTextEmbeddings({k: e.to(DEVICE) for k, e in embeds.items()}, mode)
+        on_cpu = PositionalTextEmbeddings(embeds, mode)
+        pte[mode] = max(_rel_err(on_card(v, h), on_cpu(v, h)) for v, h in angles)
+    res["positional_text_embeddings"] = dict(angles=len(angles), rel_err=pte)
+    log(f"[api] PositionalTextEmbeddings at [2, 77, 768], {len(angles)} camera angles: largest error {pte}")
+    require(max(pte.values()) <= API_TOL, "the prompt embeddings agree with the CPU in every mode")
+
+    # --- BottleneckBlock on the decoder's pre-upsample map of a 1080p frame ---
+    x = torch.randn((1, 360, 640, 32), generator=gen)
+    x_card = x.to(DEVICE)
+    blocks = {}
+    for norm in ("group", "batch"):
+        torch.manual_seed(SEED)
+        block = BottleneckBlock(32, kernel_size=3, norm=norm)
+        with torch.no_grad():  # norms that are not the identity, running averages that are not 0 and 1
+            for m in (block.norm1, block.norm2, block.norm3):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.2, 0.2, generator=gen)
+                if norm == "batch":
+                    m.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                    m.running_var.uniform_(0.5, 1.5, generator=gen)
+        card = copy.deepcopy(block).to(DEVICE)
+        rec = {}
+        for mode in (("eval", "train", "eval_after") if norm == "batch" else ("eval",)):
+            train = mode == "train"
+            with torch.no_grad():
+                got, want = card(x_card, train=train), block(x, train=train)
+            require(got.dtype == torch.float32 and got.shape == (1, 360, 640, 32), f"bottleneck {norm}: fp32 NHWC")
+            rec[mode] = _rel_err(got, want)
+            if train:
+                rec["running_stats"] = max(_rel_err(bc, bb) for bc, bb in zip(card.buffers(), block.buffers()))
+        with torch.no_grad():
+            rec["ms"] = cuda_time_ms(lambda: card(x_card))
+        blocks[norm] = rec
+        del card, block
+    with torch.no_grad():
+        for label, dtype in (("basic_bf16_k7", torch.bfloat16), ("basic_fp32_k7", torch.float32)):
+            torch.manual_seed(SEED)
+            basic = BasicBlock(32, 32, 7, "group", compute_dtype=dtype).to(DEVICE)
+            blocks[label] = dict(ms=cuda_time_ms(lambda: basic(x_card)))
+            del basic
+    res["bottleneck_block"] = blocks
+    log(f"[api] BottleneckBlock at [1, 32, 360, 640] fp32, card against CPU (largest error over the largest entry) "
+        f"and forward ms (warm, CUDA events, median of 10) beside BasicBlock's: {blocks}")
+    require(all(v <= API_BLOCK_TOL for norm in ("group", "batch") for k, v in blocks[norm].items() if k != "ms"),
+            f"the bottleneck block (group norm; batch norm in train and eval mode, its running averages) agrees "
+            f"with the CPU within {API_BLOCK_TOL} of the largest entry")
+    del x_card
+    torch.cuda.empty_cache()
+
+    # --- the box masks ---
+    aabb = drive_scene["aabb"].float()
+    lo3, hi3 = aabb[0], aabb[1]
+    centre, size = (lo3 + hi3) / 2.0, hi3 - lo3
+    pts = centre + (torch.rand((API_POINTS, 3), generator=gen) - 0.5) * 1.5 * size
+    pts[: API_POINTS // 20, 0] = lo3[0]  # 5% on a face of the scene box: outside on both
+    cos, sin = math.cos(0.6), math.sin(0.6)
+    rot = torch.tensor([[cos, -sin, 0.0], [sin, cos, 0.0], [0.0, 0.0, 1.0]])
+    # the oriented boxes: half the scene box's size about its centre, axis-aligned and turned 0.6 rad about z
+    boxes = {"scene_box": SceneBox(aabb), "oriented_box_axis_aligned": OrientedBox(torch.eye(3), centre, size / 2),
+             "oriented_box_rotated": OrientedBox(rot, centre, size / 2)}
+    pts_card = pts.to(DEVICE)
+    masks = {}
+    for name, box in boxes.items():
+        on_card = dataclasses.replace(box, **{f.name: getattr(box, f.name).to(DEVICE)
+                                              for f in dataclasses.fields(box)})
+        on_card.within(pts_card)  # warm: the timing below is a warm call's
+        _sync()
+        t0 = time.perf_counter()
+        got = on_card.within(pts_card)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = box.within(pts)
+        differ = got.cpu() != want
+        if name == "oriented_box_rotated":
+            local = (pts.double() - centre.double()) @ rot.double()
+            near = ((local.abs() - size.double() / 4).abs() < API_FACE).any(-1)
+        else:
+            near = torch.zeros_like(differ)
+        masks[name] = dict(inside=int(want.sum()), differ=int(differ.sum()), near_face=int(near.sum()),
+                           differ_away_from_faces=int((differ & ~near).sum()), ms=ms)
+    res["masks"] = dict(points=API_POINTS, **masks)
+    log(f"[api] box masks on {API_POINTS} points, card against CPU: {res['masks']}")
+    require(masks["scene_box"]["differ"] == 0 and masks["oriented_box_axis_aligned"]["differ"] == 0,
+            "the scene-box and axis-aligned oriented-box masks are bit-equal to the CPU's")
+    require(masks["oriented_box_rotated"]["differ_away_from_faces"] == 0,
+            f"the rotated box's mask equals the CPU's but for points within {API_FACE} of a face")
+    require(0 < masks["scene_box"]["inside"] < API_POINTS, "the scene box holds some of the points")
+
+    # --- the pose helpers on the drive's poses (cameras, lidar, actors) ---
+    drive = drive_scene["poses"]
+    drive_card = drive.to(DEVICE)
+    poses = dict(n_poses=int(drive.shape[0]), inverse=_rel_err(P.inverse(drive_card), P.inverse(drive)),
+                 normalize=_rel_err(P.normalize(drive_card), P.normalize(drive)))
+    # rotation_difference between every pair of the drive's rotations. arccos turns a few ulps of the cosine
+    # (tr(R1^T R2) - 1) / 2 into 1e-6 / sin(theta) of the angle (and of the axis, the skew part over
+    # 2 sin(theta)): each pair is held to 1e-6 + 1e-6 / sin(theta), theta the CPU's
+    rots = drive[:, :3, :3]
+    want = P.rotation_difference(rots[:, None], rots[None, :])
+    err = (P.rotation_difference(drive_card[:, None, :3, :3], drive_card[None, :, :3, :3]).cpu() - want).abs().amax(-1)
+    theta = torch.linalg.norm(want, dim=-1)
+    worst = float((err / (1e-6 + 1e-6 / torch.sin(theta).clamp_min(1e-12))).max())
+    poses["rotation_difference"] = dict(pairs=int(theta.numel()), abs_err=float(err.max()), err_over_bound=worst,
+                                        angles=sorted({round(float(a), 4) for a in theta.flatten()}))
+    res["poses"] = poses
+    log(f"[api] pose helpers on the drive's {drive.shape[0]} poses (cameras, lidar, actors), card against CPU: "
+        f"{poses}")
+    require(poses["inverse"] <= API_TOL and poses["normalize"] <= API_TOL,
+            "the pose inverse and normalisation agree with the CPU")
+    require(worst <= 1.0, "rotation_difference agrees with the CPU within 1e-6 + 1e-6 / sin(theta)")
+
+    # --- the diffusion backbone is gated on `diffusers` ---
+    try:
+        StableDiffusionGuidance()
+        raised = None
+    except ImportError as e:
+        raised = str(e)
+    res["guidance_import_error"] = raised
+    log(f"[api] StableDiffusionGuidance(): ImportError {raised!r}")
+    require(raised is not None and "diffusers" in raised,
+            "StableDiffusionGuidance() raises ImportError naming diffusers on this machine, which has none")
+    return res
+
+
 def profiled(label, fn, rows=15, match=None):
     """Run fn once more under torch.profiler: device time by kernel, and the
     device's busy share of the host-clock interval (profiler on). `match`: also
@@ -4019,7 +4236,8 @@ def main(argv=None) -> int:
     library_res = timed("library", library_phase, outputs)
     del outputs
     torch.cuda.empty_cache()
-    drive_res = timed("drive", drive_phase)
+    drive_res, drive_scene = timed("drive", drive_phase)
+    api_res = timed("api", api_phase, drive_scene)
     fid_res = timed("fid", fid_phase)
     ref = timed("reference", reference_phase)
     ref["neurad"] = timed("neurad_reference", neurad_reference_phase)
@@ -4124,7 +4342,7 @@ def main(argv=None) -> int:
                   hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res, ptxas=ptxas,
                   neurad_train=neurad_train_res, train=train_res, splatfacto=splatfacto_res, drive=drive_res,
                   nerfacto=nerfacto_res, presets=presets_res, render=render_res, export=export_res,
-                  viewer=viewer_res, data_parallel=dp_res, library=library_res,
+                  viewer=viewer_res, data_parallel=dp_res, library=library_res, api=api_res,
                   fid=fid_res, reference=ref, phase_seconds=phase_s,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

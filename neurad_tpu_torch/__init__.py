@@ -14,7 +14,11 @@ the fused hash-grid lookup and its backward (`ops/hash_encoding.py`,
 (`benchmarks/gather_microbench.py`, `csrc/gather_probes.cu`). The library
 modules that no path of the JAX package imports (pixel samplers, datasets,
 renderers, colliders, the occupancy grid, the extra encodings, the NeuS
-sampler) are ported too.
+sampler) are ported too, and so is the generative guidance
+(`generative/`: the SDS math and the view-conditioned prompt embeddings;
+the Stable Diffusion backbone needs the optional `diffusers`).
+`tests/test_torch_api_parity.py` holds the port's public names to the JAX
+package's.
 The module layout mirrors `neurad_tpu/` so each counterpart is easy to find.
 """
 

@@ -25,7 +25,9 @@
 
 `get_method_config(name)` builds a preset (or a method another package
 registered, `plugins/registry.py`; a known external method's name gives its
-install instructions). `get_dataparser(name, **kwargs)` builds a dataparser
+install instructions); `all_methods()` lists every registered method with its
+description, and `MethodConfig.build_pipeline(outputs)` builds the pipeline
+of its `pipeline_type`. `get_dataparser(name, **kwargs)` builds a dataparser
 by name (`DATAPARSERS`): the synthetic scene, or a logged drive in one of the
 real datasets' layouts. `TrainerConfig` lives in `engine/trainer.py`.
 """
@@ -35,7 +37,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import importlib
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 from neurad_tpu_torch.data.datamanager import ADDataManagerConfig
 from neurad_tpu_torch.data.full_image_datamanager import FullImageLidarDataManagerConfig
@@ -45,9 +47,13 @@ from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSetting
 from neurad_tpu_torch.model_components.strategy import MCMCStrategyConfig
 from neurad_tpu_torch.models.neurad import LossSettings, SamplingSettings
 from neurad_tpu_torch.models.splatad import SplatADConfig
-from neurad_tpu_torch.pipelines.ad_pipeline import ADPipelineConfig
-from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipelineConfig
-from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipelineConfig
+from neurad_tpu_torch.parallel import sharding
+from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
+from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
+from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline, SplatfactoPipelineConfig
+
+
+PIPELINES = {"ad": ADPipeline, "splatad": SplatADPipeline, "splatfacto": SplatfactoPipeline}
 
 
 @dataclasses.dataclass
@@ -56,7 +62,14 @@ class MethodConfig:
     trainer: TrainerConfig
     pipeline: Union[ADPipelineConfig, SplatADPipelineConfig, SplatfactoPipelineConfig]
     dataparser: str = "synthetic"
+    description: str = ""
     pipeline_type: str = "ad"  # "ad" (ray batches) | "splatad" (full sensors) | "splatfacto" (camera frames)
+
+    def build_pipeline(self, outputs, device="cuda", mesh: Optional[sharding.Mesh] = None):
+        """The pipeline of `pipeline_type` on `outputs` with this method's
+        pipeline config, on `device` (the card unless asked for the CPU), as
+        a rank of `mesh` when one is given."""
+        return PIPELINES[self.pipeline_type](outputs, self.pipeline, device=device, mesh=mesh)
 
 
 def neurad_tiny_overrides() -> dict:
@@ -77,8 +90,9 @@ def neurad_tiny_overrides() -> dict:
 def _neurad() -> MethodConfig:
     return MethodConfig(
         "neurad",
-        TrainerConfig(max_num_iterations=20001, steps_per_save=2000, steps_per_log=100, steps_per_eval_batch=500),
-        ADPipelineConfig(
+        description="NeuRAD: neural feature field for dynamic AD scenes",
+        trainer=TrainerConfig(max_num_iterations=20001, steps_per_save=2000, steps_per_log=100, steps_per_eval_batch=500),
+        pipeline=ADPipelineConfig(
             datamanager=ADDataManagerConfig(num_cam_patches=40, patch_size=32, num_lidar_rays=16384),
             model_overrides=dict(sampling=SamplingSettings()),
             optimizer_groups=dict(NEURAD_OPTIMIZER_GROUPS),
@@ -89,6 +103,7 @@ def _neurad() -> MethodConfig:
 def _neurad_parity() -> MethodConfig:
     cfg = _neurad()
     cfg.method_name = "neurad-parity"
+    cfg.description = "NeuRAD with reference-exact architecture + numerics (slower on TPU)"
     cfg.pipeline.model_overrides = dict(
         cfg.pipeline.model_overrides,
         proposal_mode="hashgrid",
@@ -125,6 +140,7 @@ def _scaled(cfg: MethodConfig, scale: float, name: str) -> MethodConfig:
 def _neurad_scaleopt() -> MethodConfig:
     cfg = _neurad()
     cfg.method_name = "neurad-scaleopt"
+    cfg.description = "NeuRAD with per-axis-scaled camera pose optimization (nuScenes)"
     cfg.pipeline.model_overrides = dict(
         cfg.pipeline.model_overrides,
         camera_opt_mode="SO3xR3",
@@ -137,8 +153,9 @@ def _neurad_scaleopt() -> MethodConfig:
 def _nerfacto(lidar: bool = False) -> MethodConfig:
     return MethodConfig(
         "nerfacto-lidar" if lidar else "nerfacto",
-        TrainerConfig(max_num_iterations=30001, steps_per_eval_batch=500, steps_per_save=2000),
-        ADPipelineConfig(
+        description="Nerfacto: hashgrid field + proposal density fields" + (" + lidar depth loss" if lidar else ""),
+        trainer=TrainerConfig(max_num_iterations=30001, steps_per_eval_batch=500, steps_per_save=2000),
+        pipeline=ADPipelineConfig(
             datamanager=ADDataManagerConfig(num_cam_patches=64, patch_size=8, num_lidar_rays=4096 if lidar else 0,
                                             rgb_upsample_factor=1),
             model="lidar-nerfacto" if lidar else "nerfacto",
@@ -156,8 +173,9 @@ def _nerfacto(lidar: bool = False) -> MethodConfig:
 def _neurad_tiny() -> MethodConfig:
     return MethodConfig(
         "neurad-tiny",
-        TrainerConfig(max_num_iterations=200, steps_per_save=10**9, steps_per_log=20, steps_per_eval_batch=100),
-        ADPipelineConfig(
+        description="Tiny NeuRAD for CPU smoke testing",
+        trainer=TrainerConfig(max_num_iterations=200, steps_per_save=10**9, steps_per_log=20, steps_per_eval_batch=100),
+        pipeline=ADPipelineConfig(
             datamanager=ADDataManagerConfig(num_cam_patches=4, patch_size=6, num_lidar_rays=256),
             model_overrides=neurad_tiny_overrides(),
             optimizer_groups={
@@ -176,15 +194,20 @@ def _long_run() -> TrainerConfig:
 
 
 def _splatad(strategy: str = "mcmc") -> MethodConfig:
-    name = "splatad" if strategy == "mcmc" else "splatad-default"
-    return MethodConfig(name, _long_run(), SplatADPipelineConfig(strategy=strategy), pipeline_type="splatad")
+    if strategy == "mcmc":
+        name, description = "splatad", "SplatAD: rolling-shutter gaussian splatting with camera+lidar"
+    else:
+        name, description = "splatad-default", "SplatAD with Default (absgrad) densification strategy"
+    return MethodConfig(name, _long_run(), SplatADPipelineConfig(strategy=strategy), description=description,
+                        pipeline_type="splatad")
 
 
 def _splatad_tiny() -> MethodConfig:
     return MethodConfig(
         "splatad-tiny",
-        TrainerConfig(max_num_iterations=100, steps_per_save=10**9, steps_per_log=10, steps_per_eval_batch=50),
-        SplatADPipelineConfig(
+        description="Tiny SplatAD for CPU smoke testing",
+        trainer=TrainerConfig(max_num_iterations=100, steps_per_save=10**9, steps_per_log=10, steps_per_eval_batch=50),
+        pipeline=SplatADPipelineConfig(
             datamanager=FullImageLidarDataManagerConfig(max_lidar_points=512),
             model=SplatADConfig(num_downscales=0, feature_dim=8, appearance_dim=4, max_per_tile=64, lidar_max_per_tile=32),
             mcmc=MCMCStrategyConfig(cap_max=2048, refine_start_iter=10, refine_every=25),
@@ -195,7 +218,8 @@ def _splatad_tiny() -> MethodConfig:
 
 
 def _splatfacto() -> MethodConfig:
-    return MethodConfig("splatfacto", _long_run(), SplatfactoPipelineConfig(), pipeline_type="splatfacto")
+    return MethodConfig("splatfacto", _long_run(), SplatfactoPipelineConfig(),
+                        description="Static 3D gaussian splatting (SH colors, camera only)", pipeline_type="splatfacto")
 
 
 METHODS: Dict[str, Callable[[], MethodConfig]] = {
@@ -226,6 +250,11 @@ def get_method_config(name: str) -> MethodConfig:
             raise KeyError(f"method {name!r} is an external method.\n{external[name].instructions}")
         raise KeyError(f"unknown method {name!r}; available: {sorted(METHODS)}")
     return METHODS[name]()
+
+
+def all_methods() -> Dict[str, str]:
+    """{name: description} of every registered method, plugins included."""
+    return {name: factory().description for name, factory in METHODS.items()}
 
 
 def register_method(name: str, factory: Callable[[], MethodConfig]) -> None:

@@ -1,6 +1,7 @@
 """Pose algebra and trajectory interpolation (torch port of `neurad_tpu/core/poses.py`).
 
-Homogeneous padding, quaternions and the 6D rotation representation, the
+Homogeneous padding, rigid inverse and composition, translation
+normalisation, the axis-angle between two rotations, quaternions and the 6D rotation representation, the
 dense trajectory/velocity interpolation used by `DynamicActors`, and the slerp
 trajectory interpolation the dataparsers resample actor tracks with.
 """
@@ -19,11 +20,31 @@ def to4x4(pose: torch.Tensor) -> torch.Tensor:
     return torch.cat([pose, bottom], dim=-2)
 
 
+def inverse(pose: torch.Tensor) -> torch.Tensor:
+    """Invert [..., 3, 4] rigid poses: R^T, -R^T t (`nerfstudio/utils/poses.py:38-52`)."""
+    r_inv = pose[..., :3, :3].transpose(-1, -2)
+    return torch.cat([r_inv, -(r_inv @ pose[..., :3, 3:])], dim=-1)
+
+
 def multiply(pose_a: torch.Tensor, pose_b: torch.Tensor) -> torch.Tensor:
     """Compose [..., 3, 4] poses a∘b."""
     r = pose_a[..., :3, :3] @ pose_b[..., :3, :3]
     t = pose_a[..., :3, :3] @ pose_b[..., :3, 3:] + pose_a[..., :3, 3:]
     return torch.cat([r, t], dim=-1)
+
+
+def normalize(poses: torch.Tensor) -> torch.Tensor:
+    """Poses [..., 3|4, 4] with their translations divided by the largest
+    absolute translation component of all of them, so they lie in [-1, 1]
+    (`nerfstudio/utils/poses.py:71-87`)."""
+    out = poses.clone()
+    out[..., :3, 3] = poses[..., :3, 3] / poses[..., :3, 3].abs().max()
+    return out
+
+
+def transform_points(points: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """Apply [..., 3, 4] poses to [..., N, 3] points."""
+    return points @ pose[..., :3, :3].transpose(-1, -2) + pose[..., None, :3, 3]
 
 
 def rotmat_to_quat(r: torch.Tensor) -> torch.Tensor:
@@ -180,3 +201,31 @@ def interpolate_velocities(
     v1 = torch.index_select(velocities, 0, right_idx)
     frac = frac.reshape(frac.shape + (1,) * (v0.ndim - 1))
     return v0 + (v1 - v0) * frac
+
+
+def rotation_difference(rot1: torch.Tensor, rot2: torch.Tensor) -> torch.Tensor:
+    """Axis-angle [..., 3] of the rotation from rot1 to rot2 [..., 3, 3]
+    (`nerfstudio/utils/poses.py:221-249`): theta = arccos((tr(R1^T R2) - 1) / 2),
+    the argument clipped to [-1, 1], times the skew part's direction, its norm
+    floored at 1e-8.
+
+    Where the clipped argument is +-1 (theta 0 or pi) arccos has no finite
+    derivative, and the JAX function's gradient is NaN there. Its value there
+    is a constant (0 or pi), so the port takes the constant and leaves arccos
+    an argument of 0: the same values, a finite gradient."""
+    r_rel = rot1.transpose(-2, -1) @ rot2
+    trace = r_rel[..., 0, 0] + r_rel[..., 1, 1] + r_rel[..., 2, 2]
+    cos = ((trace - 1.0) / 2.0).clamp(-1.0, 1.0)
+    inside = cos.abs() < 1.0
+    theta = torch.where(inside, torch.arccos(torch.where(inside, cos, torch.zeros_like(cos))),
+                        torch.where(cos > 0, 0.0, torch.pi).to(cos.dtype))
+    axis = torch.stack(
+        [
+            r_rel[..., 2, 1] - r_rel[..., 1, 2],
+            r_rel[..., 0, 2] - r_rel[..., 2, 0],
+            r_rel[..., 1, 0] - r_rel[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True).clamp_min(1e-8)
+    return theta[..., None] * axis

@@ -54,6 +54,10 @@ class Frustums:
         """Midpoint of each frustum [*batch, 3]."""
         return self.origins + self.directions * (self.starts + self.ends) / 2.0
 
+    def get_start_positions(self) -> torch.Tensor:
+        """Start point of each frustum [*batch, 3]."""
+        return self.origins + self.directions * self.starts
+
     def get_fast_isotropic_gaussian(self, num_multisamples: int) -> GaussiansStd:
         """Isotropic gaussian approximation of the frustum: `num_multisamples`
         points evenly inside (starts, ends); std is the cube root of
@@ -129,6 +133,15 @@ class RayBundle:
         for d in self.shape:
             n *= d
         return n
+
+    def reshape(self, shape: tuple) -> "RayBundle":
+        """The bundle with batch shape `shape`: every tensor keeps its last
+        (feature) dimension."""
+        return map_tensors(lambda x: x.reshape(tuple(shape) + x.shape[-1:]), self)
+
+    def flatten(self) -> "RayBundle":
+        """The bundle with one batch dimension."""
+        return self.reshape((-1,))
 
     def get_ray_samples(
         self,

@@ -88,6 +88,11 @@ def label_params(
     return {name: next((group for needle, group in rules if needle in name), default) for name in names}
 
 
+def learning_rates_at(groups: Dict[str, OptimizerGroupConfig], step: int) -> Dict[str, float]:
+    """Each group's learning rate at `step`, for logging (`nerfstudio/engine/optimizers.py:198-202`)."""
+    return {g: float(cfg.schedule()(step)) for g, cfg in groups.items()}
+
+
 def _clip_by_global_norm(params: Sequence[torch.nn.Parameter], max_norm: float) -> None:
     norm = torch.sqrt(sum(torch.sum(p.grad.float() ** 2) for p in params))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)

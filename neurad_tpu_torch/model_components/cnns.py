@@ -1,4 +1,4 @@
-"""Residual conv block and NeuRAD's patch RGB decoder (torch port of
+"""Residual conv blocks and NeuRAD's patch RGB decoder (torch port of
 `neurad_tpu/model_components/cnns.py`).
 
 Public tensors stay NHWC like the JAX module; the convs run NCHW inside.
@@ -77,6 +77,10 @@ def _make_norm(norm: str, dim: int) -> nn.Module:
     raise ValueError(f"unknown norm {norm!r}; one of group, batch, none")
 
 
+def _apply_norm(norm: nn.Module, h: torch.Tensor, train: bool) -> torch.Tensor:
+    return norm(h, train) if isinstance(norm, FlaxBatchNorm) else norm(h)
+
+
 class BasicBlock(nn.Module):
     """Basic residual block: conv-norm-relu-conv-norm + skip (a 1x1 conv on the
     skip when the channel count changes).
@@ -99,19 +103,47 @@ class BasicBlock(nn.Module):
         dt = self.compute_dtype
         return F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=conv.padding)
 
-    def _norm(self, norm: nn.Module, h: torch.Tensor, train: bool) -> torch.Tensor:
-        return norm(h, train) if isinstance(norm, FlaxBatchNorm) else norm(h)
-
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x [B, H, W, C] -> [B, H, W, dim] fp32. `train`: a batch norm
         normalises by the batch and updates its running averages."""
         dt = self.compute_dtype
         x = x.to(dt).permute(0, 3, 1, 2)
         res = x if self.res is None else self._conv(self.res, x)
-        h = self._norm(self.norm1, self._conv(self.conv1, x).float(), train).to(dt)
+        h = _apply_norm(self.norm1, self._conv(self.conv1, x).float(), train).to(dt)
         h = torch.relu(h)
-        h = self._norm(self.norm2, self._conv(self.conv2, h).float(), train).to(dt)
+        h = _apply_norm(self.norm2, self._conv(self.conv2, h).float(), train).to(dt)
         return torch.relu(res + h).float().permute(0, 2, 3, 1)
+
+
+class BottleneckBlock(nn.Module):
+    """Bottleneck residual block (`nerfstudio/model_components/cnns.py:49-66`):
+    1x1 conv to `channel_multiplier * dim` channels, norm, relu; k x k conv,
+    norm, relu; 1x1 conv back to `dim`, norm; plus the skip (a 1x1 conv when
+    `in_dim` differs from `dim`), relu. fp32 throughout, as the JAX block is.
+    `in_dim` defaults to `dim`."""
+
+    def __init__(self, dim: int, kernel_size: int = 3, channel_multiplier: int = 1, norm: str = "group",
+                 in_dim: Optional[int] = None):
+        super().__init__()
+        in_dim = dim if in_dim is None else in_dim
+        mid = channel_multiplier * dim
+        self.res = nn.Conv2d(in_dim, dim, 1) if in_dim != dim else None
+        self.conv1 = nn.Conv2d(in_dim, mid, 1)
+        self.norm1 = _make_norm(norm, mid)
+        self.conv2 = nn.Conv2d(mid, mid, kernel_size, padding="same")
+        self.norm2 = _make_norm(norm, mid)
+        self.conv3 = nn.Conv2d(mid, dim, 1)
+        self.norm3 = _make_norm(norm, dim)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x [B, H, W, in_dim] -> [B, H, W, dim] fp32. `train`: a batch norm
+        normalises by the batch and updates its running averages."""
+        x = x.float().permute(0, 3, 1, 2)
+        res = x if self.res is None else self.res(x)
+        h = torch.relu(_apply_norm(self.norm1, self.conv1(x), train))
+        h = torch.relu(_apply_norm(self.norm2, self.conv2(h), train))
+        h = _apply_norm(self.norm3, self.conv3(h), train)
+        return torch.relu(res + h).permute(0, 2, 3, 1)
 
 
 class RGBDecoderCNN(nn.Module):

@@ -156,7 +156,6 @@ class NeuRADModel(nn.Module):
         else:
             fields = [hash_proposal(s) for s in proposal_static]
         self.proposal_fields = nn.ModuleList(fields)
-        self.num_proposal_rounds = len(proposal_static)
 
         self.camera_optimizer = CameraOptimizer(
             num_cameras=num_train_images, mode=camera_opt_mode, weights=camera_opt_weights,
@@ -170,6 +169,12 @@ class NeuRADModel(nn.Module):
         )
         self.lidar_decoder = MLP(nff_out_dim + appearance_dim, 2, num_layers=3, layer_width=32,
                                  compute_dtype=compute_dtype)
+
+    @property
+    def num_proposal_rounds(self) -> int:
+        """The proposal sampler's rounds before the field's: one a count of
+        `sampling.num_proposal_samples`."""
+        return len(self.sampling.num_proposal_samples)
 
     @property
     def _num_embeds_per_sensor(self) -> int:

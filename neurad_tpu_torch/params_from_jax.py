@@ -62,6 +62,26 @@ def batch_stats_from_flax(prefix: str, stats: Mapping) -> Dict[str, torch.Tensor
     return out
 
 
+def bottleneck_block_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax variables of a `BottleneckBlock` ({"params": ...} and, with
+    norm="batch", {"batch_stats": ...}) -> the state dict of the port's block.
+    Its convs in creation order: the 1x1 residual conv when the input width
+    differs, then the three convs; its norms GroupNorm_j / BatchNorm_j."""
+    p = tree["params"]
+    convs = sorted((k for k in p if k.startswith("Conv_")), key=lambda k: int(k.split("_")[1]))
+    names = (["res"] if len(convs) == 4 else []) + ["conv1", "conv2", "conv3"]
+    sd = {}
+    for flax_name, name in zip(convs, names):
+        sd.update(_conv(name, p[flax_name]))
+    for i, norm in enumerate(sorted(k for k in p if k.startswith(("GroupNorm_", "BatchNorm_")))):
+        sd[f"norm{i + 1}.weight"] = _t(p[norm]["scale"])
+        sd[f"norm{i + 1}.bias"] = _t(p[norm]["bias"])
+    for i, norm in enumerate(sorted(tree.get("batch_stats", {}))):
+        sd[f"norm{i + 1}.running_mean"] = _t(tree["batch_stats"][norm]["mean"])
+        sd[f"norm{i + 1}.running_var"] = _t(tree["batch_stats"][norm]["var"])
+    return sd
+
+
 def splatad_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """flax params of `neurad_tpu.models.splatad.SplatADModel` (the dict under
     or including the "params" key) -> state dict of the port's SplatADModel.

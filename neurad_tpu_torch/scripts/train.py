@@ -65,9 +65,9 @@ from neurad_tpu_torch.configs.method_configs import METHODS, TrainerConfig, data
 from neurad_tpu_torch.engine.trainer import Trainer
 from neurad_tpu_torch.parallel import sharding
 from neurad_tpu_torch.pipelines import ad_pipeline, splatad_pipeline, splatfacto_pipeline
-from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
-from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
-from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline, SplatfactoPipelineConfig
+from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
+from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline
+from neurad_tpu_torch.pipelines.splatfacto_pipeline import SplatfactoPipeline
 from neurad_tpu_torch.plugins.registry import register_discovered_methods
 from neurad_tpu_torch.scripts.export import export_gaussian_splat, export_pointcloud
 from neurad_tpu_torch.scripts.viewer import viewer_fns
@@ -76,8 +76,6 @@ from neurad_tpu_torch.viewer.server import ViewerServer
 
 Pipeline = Union[ADPipeline, SplatADPipeline, SplatfactoPipeline]
 TrainState = Union[ad_pipeline.TrainState, splatad_pipeline.TrainState, splatfacto_pipeline.TrainState]
-PIPELINES = {"ad": (ADPipeline, ADPipelineConfig), "splatad": (SplatADPipeline, SplatADPipelineConfig),
-             "splatfacto": (SplatfactoPipeline, SplatfactoPipelineConfig)}
 
 
 def _parse(value: str, current):
@@ -117,11 +115,6 @@ def write_run_config(run_dir, method: str, dp_cfg, pipeline_cfg, seed: int, over
     return run_dir
 
 
-def _pipeline_classes(method: str):
-    """(pipeline class, its config class) of a method."""
-    return PIPELINES[METHODS[method]().pipeline_type]
-
-
 def load_run(run_dir, device="cuda", with_state: bool = False, mesh: Optional[sharding.Mesh] = None
              ) -> Tuple[Pipeline, Optional[TrainState]]:
     """Rebuild the pipeline of a run directory and load its newest checkpoint
@@ -132,10 +125,10 @@ def load_run(run_dir, device="cuda", with_state: bool = False, mesh: Optional[sh
     meta = json.loads((run_dir / "config.json").read_text())
     if meta["method"] not in METHODS:
         raise NotImplementedError(f"method {meta['method']!r} is not ported")
-    pipeline_cls, cfg_cls = _pipeline_classes(meta["method"])
+    cfg = METHODS[meta["method"]]()
+    cfg.pipeline = type(cfg.pipeline).from_dict(meta["pipeline"])
     outputs = dataparser_config(meta["dataparser"], **meta["dataparser_config"]).setup().get_dataparser_outputs()
-    kwargs = {} if mesh is None else {"mesh": mesh}
-    pipeline = pipeline_cls(outputs, cfg_cls.from_dict(meta["pipeline"]), device=device, **kwargs)
+    pipeline = cfg.build_pipeline(outputs, device=device, mesh=mesh)
     state = pipeline.init_state() if with_state else None
     pipeline.load_checkpoint(run_dir / "checkpoints", state)
     return pipeline, state
@@ -277,7 +270,6 @@ def entrypoint(argv=None, mesh: Optional[sharding.Mesh] = None) -> Optional[Tupl
             raise SystemExit(f"dataparser {dataparser!r} has no setting {key!r}")
         setattr(dp_cfg, key, _parse(value, getattr(dp_cfg, key)))
 
-    kwargs = {} if mesh is None else {"mesh": mesh}
     if args.load_dir:
         run_dir = Path(args.load_dir)
         pipeline, state = load_run(run_dir, device=device, with_state=True, mesh=mesh)
@@ -288,8 +280,7 @@ def entrypoint(argv=None, mesh: Optional[sharding.Mesh] = None) -> Optional[Tupl
         run_dir = Path(args.output_dir) / exp_name
         if writes:
             write_run_config(run_dir, args.method, dp_cfg, cfg.pipeline, args.seed, args.set, dataparser)
-        pipeline_cls, _ = PIPELINES[cfg.pipeline_type]
-        pipeline = pipeline_cls(dp_cfg.setup().get_dataparser_outputs(), cfg.pipeline, device=device, **kwargs)
+        pipeline = cfg.build_pipeline(dp_cfg.setup().get_dataparser_outputs(), device=device, mesh=mesh)
         state = pipeline.init_state()
     cfg.trainer.checkpoint_dir = str(run_dir / "checkpoints")
     world = "" if mesh is None else f", rank {mesh.rank} of {mesh.world_size} ({mesh.backend})"

@@ -66,6 +66,8 @@ def test_importing_every_module_loads_no_jax():
             "neurad_tpu_torch.model_components.ray_generators", "neurad_tpu_torch.model_components.scene_colliders",
             "neurad_tpu_torch.model_components.occupancy_grid", "neurad_tpu_torch.model_components.renderers",
             "neurad_tpu_torch.fields.extra_encodings"} <= set(mods)
+    assert {"neurad_tpu_torch.generative", "neurad_tpu_torch.generative.stable_diffusion",
+            "neurad_tpu_torch.generative.positional_text_embeddings"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
