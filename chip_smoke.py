@@ -47,7 +47,9 @@ order, within BWD_TOL of each entry's terms' magnitude).
    4 features, the preset's tables, on uniform positions and on a serving
    chunk's ray-ordered ones from the scene's cameras; a train chunk's
    N=262,144; the unpacked layout of `neurad-parity`; actor grid: N=131,072,
-   D=4, 4 levels), in each read mode (bf16 reads of the bf16 copy, bf16 reads
+   D=4, 4 levels; the `neurad-parity` preset's proposal grids at F = 1, fp32
+   reads: 6 levels of 2^20 on a proposal round's 8,192 x 128 positions, and
+   its actor proposal grid, D = 4, 4 levels of 2^15, N=131,072), in each read mode (bf16 reads of the bf16 copy, bf16 reads
    of the fp32 master, fp32 reads), must equal its plain version on the fp32
    master bit for bit; its bytes bound counts rows in the bytes of the type it
    reads, and the copy's conversion is timed apart. The six gather and
@@ -87,7 +89,8 @@ order, within BWD_TOL of each entry's terms' magnitude).
    32,768 rays. Before it, the lookup's backward (K1b) at a train chunk's full
    width (static grid: 8,192 rays x 32 samples from the scene's cameras, bf16
    and fp32 reads; the same N in one cell of the coarsest level; actor grid:
-   N=32,768, D=4; the unpacked layout of `neurad-parity`) is held against its
+   N=32,768, D=4; the unpacked layout of `neurad-parity`; the parity
+   preset's two F = 1 proposal grids at the forward's shapes) is held against its
    plain version and timed as a call and as device time, and the probe run includes the three scatter-add probes
    beside index_add_.
 6. NeuRAD train phase: the `neurad` preset at full width (57,344 rays a batch
@@ -199,6 +202,23 @@ order, within BWD_TOL of each entry's terms' magnitude).
    normalisation and rotation difference on the drive's poses (cameras,
    lidar, actors; the rotation difference between every pair); and
    `StableDiffusionGuidance()` must raise ImportError without `diffusers`.
+
+16. The `neurad-parity` preset (`parity_phase`, after the presets phase):
+   hash-grid proposal fields (6 levels of 2^20 at F = 1, actor proposals 4
+   of 2^15), every table hashed at every level and unpacked, fp32 reads,
+   MLPs and decoder, at full width (the table shapes, the parameter count
+   and every grid's fp32 reads checked), served through
+   `closed_loop.build_state("neurad-parity")`: a cold and three warm 1080p
+   requests and two scans, K1f six times a chunk (the field's static and
+   actor grids, then each proposal round's), one profiled request; trained
+   on the same pipeline: `init_state`, 4 steps of 57,344 rays in 7 chunks,
+   2 more through `train_loop`, K1f and K1b six times a chunk, every group
+   and every proposal field's tables moved, one profiled step, a checkpoint
+   served by `ClosedLoopState.from_run_dir`; then one train chunk of 1,024
+   rays on the card against the CPU with the same weights, batch and draws
+   (the loss within PARITY_LOSS_TOL, each gradient within PARITY_GRAD_TOL of
+   its parameter's largest entry). Its K1f and K1b launches are the
+   `parity_launches` of the lookup's entries in the `kernels` line.
 
 Prints the card's name and power limit, one JSON line with the twelve
 kernels' numbers, and as its last line {"ok": true, "device": {...}}. Any failure raises
@@ -1034,8 +1054,9 @@ def hash_grid_phase(outputs, rng):
     pixels of the scene's cameras, samples spread over 1-80 m, where a render
     chunk's rays are neighbours and its samples the proposal's; the profiled
     NeuRAD request measures the path itself), on a train chunk's ray-ordered
-    positions (where a train step's lookup runs), the actor grid (D = 4) and
-    the unpacked layout of `neurad-parity`."""
+    positions (where a train step's lookup runs), the actor grid (D = 4),
+    the unpacked layout of `neurad-parity` and that preset's two F = 1
+    proposal grids (`_proposal_round_inputs`)."""
     import torch
 
     from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, StaticSettings
@@ -1056,15 +1077,40 @@ def hash_grid_phase(outputs, rng):
     n_actor = n_static // 8
     pos4 = torch.rand((n_actor, 4), generator=gen, device=DEVICE)
     _hash_grid_case("hash_grid_actor", ActorSettings(flip_prob=0.25), 4, pos4, std[:n_actor].contiguous(), gen, results)
+    prop, prop_actor, pos, std, pos4 = _proposal_round_inputs(outputs, gen)
+    _hash_grid_case("hash_grid_parity_proposal", prop, 3, pos, std, gen, results, modes=HASH_MODES[2:])
+    _hash_grid_case("hash_grid_parity_actor_proposal", prop_actor, 4, pos4, std[:pos4.shape[0]].contiguous(), gen,
+                    results, modes=HASH_MODES[2:])
     return results
 
 
-def _train_chunk_gaussians(outputs, gen, n_rays=K1B_RAYS):
+def _proposal_round_inputs(outputs, gen):
+    """The `neurad-parity` preset's proposal grids (D = 3: 6 levels of 2^20,
+    base 128, max 4096; D = 4: 4 levels of 2^15; F = 1, hashed, unpacked,
+    fp32 reads) and the first proposal round's lookup inputs in a train chunk:
+    8,192 rays x 128 samples from the scene's cameras, and the compacted
+    actor lookup's capacity (an eighth of them) inside actor 0's box ->
+    (static settings, actor settings, positions [N, 3], stds [N], positions
+    [N / 8, 4])."""
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+
+    over = METHODS["neurad-parity"]().pipeline.model_overrides
+    samples = over["sampling"].num_proposal_samples[0]
+    pos, std = _train_chunk_gaussians(outputs, gen, K1B_RAYS, samples)
+    n_actor = pos.shape[0] // 8
+    pos4 = torch.cat([0.35 + 0.3 * torch.rand((n_actor, 3), generator=gen, device=DEVICE),
+                      torch.zeros((n_actor, 1), device=DEVICE)], dim=-1)
+    return over["proposal_static"][0], over["proposal_actor"], pos, std, pos4
+
+
+def _train_chunk_gaussians(outputs, gen, n_rays=K1B_RAYS, samples=K1B_SAMPLES):
     """The static field's lookup inputs in one chunk of rays (a train chunk's
     K1B_RAYS by default): rays through random pixels of the scene's cameras,
-    K1B_SAMPLES samples each spread over 1-80 m, ray-major, contracted into the
-    grid's [0, 1]^3 with their cone radii as stds -> (positions [N, 3], stds
-    [N])."""
+    `samples` each (the field's K1B_SAMPLES by default) spread over 1-80 m,
+    ray-major, contracted into the grid's [0, 1]^3 with their cone radii as
+    stds -> (positions [N, 3], stds [N])."""
     import math
 
     import torch
@@ -1077,7 +1123,7 @@ def _train_chunk_gaussians(outputs, gen, n_rays=K1B_RAYS):
     hw = torch.tensor([HEIGHT, WIDTH], dtype=torch.float32, device=DEVICE)
     idx = torch.randint(0, len(outputs.images), (n,), generator=gen, device=DEVICE)
     bundle = generate_rays(outputs.cameras, idx, torch.rand((n, 2), generator=gen, device=DEVICE) * hw)
-    t = torch.exp(torch.rand((n, K1B_SAMPLES), generator=gen, device=DEVICE) * math.log(80.0)).sort(dim=-1).values
+    t = torch.exp(torch.rand((n, samples), generator=gen, device=DEVICE) * math.log(80.0)).sort(dim=-1).values
     mean = bundle.origins[:, None, :] + bundle.directions[:, None, :] * t[..., None]
     std = torch.sqrt(bundle.pixel_area * 9.0) * t  # a camera ray covers upsample^2 = 9 pixels
     scale = float(outputs.scene_box.aabb.abs().max())
@@ -1158,8 +1204,9 @@ def hash_grid_bwd_phase(outputs, rng):
     positions from the scene's cameras (bf16 and fp32 reads) and on as many
     positions in one cell of its coarsest level (bf16: every update of a
     level lands on one row), its actor grid (N = the compacted lookup's
-    capacity, D = 4), and the unpacked layout of `neurad-parity` (fp32
-    reads)."""
+    capacity, D = 4), the unpacked layout of `neurad-parity` (fp32
+    reads), and that preset's two F = 1 proposal grids at the forward's
+    shapes."""
     import torch
 
     from neurad_tpu_torch.fields.neurad_encoding import ActorSettings, HashGrid, StaticSettings
@@ -1180,6 +1227,10 @@ def hash_grid_bwd_phase(outputs, rng):
                         gen, results)
     _hash_grid_bwd_case("hash_grid_bwd_unpacked", StaticSettings(cell_packed=False, parity=True), 3, pos, std, gen,
                         results, modes=(False,))
+    prop, prop_actor, pos, std, pos4 = _proposal_round_inputs(outputs, gen)
+    _hash_grid_bwd_case("hash_grid_bwd_parity_proposal", prop, 3, pos, std, gen, results, modes=(False,))
+    _hash_grid_bwd_case("hash_grid_bwd_parity_actor_proposal", prop_actor, 4, pos4, std[:pos4.shape[0]].contiguous(),
+                        gen, results, modes=(False,))
     return results
 
 
@@ -2412,6 +2463,277 @@ def presets_phase(outputs):
         f"{res['neurad-scaleopt']['total_loss']:.4f}, camera adjustments moved by up to {moved:.2e}; peak "
         f"{res['neurad-scaleopt']['peak_memory_gib']:.2f} GiB")
     del pipeline, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the `neurad-parity` preset
+# ---------------------------------------------------------------------------
+
+PARITY_REQUESTS = 4  # 1080p camera requests: a cold one, then warm ones
+PARITY_SCANS = 2
+PARITY_TRAIN_STEPS = 4  # on `next_train` batches, the first apart
+PARITY_LOOP_STEPS = 2  # then through the train script's loop
+PARITY_K1 = 6  # K1f (and K1b) launches a chunk: the field's static and actor grids, then two proposal rounds' each
+PARITY_REF = dict(num_cam_patches=1, patch_size=16, num_lidar_rays=768)  # one train chunk of 1,024 rays
+PARITY_LOSS_TOL = 1e-5  # card against CPU, relative
+# card against CPU, each gradient: the largest entry's error over the parameter's largest entry (floored at 1e-3
+# of its optimizer group's largest entry, for a parameter whose gradient is that small). Matmuls, reductions and
+# K1b's atomics sum in other orders on the two devices, and the finest levels amplify position rounding: a
+# sample one ulp (6e-8) apart moves its corner weights at resolution 8,192 by about 5e-4. Measured: 7.5e-4 in
+# the field's two finest static tables, 4.7e-4 in the actor positions, the loss 1.6e-6.
+PARITY_GRAD_TOL = 1e-3
+
+
+def parity_phase(outputs):
+    """The `neurad-parity` preset at full width: hash-grid proposal fields (F =
+    1), every table hashed at every level and unpacked, fp32 reads, MLPs and
+    decoder. Serving through `closed_loop.build_state("neurad-parity")`
+    (livened): a cold and three warm 1080p requests and two scans, K1f six
+    times a chunk, one profiled request; training on the same pipeline:
+    `init_state`, PARITY_TRAIN_STEPS steps of 57,344 rays in 7 chunks, then
+    PARITY_LOOP_STEPS through `train_loop`, K1f and K1b six times a chunk,
+    every group moved (the proposal tables too), one profiled step, a
+    checkpoint served by `ClosedLoopState.from_run_dir`; then one train
+    chunk of 1,024 rays on the card against the CPU with the same weights,
+    batch and draws."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from neurad_tpu_torch.configs.method_configs import METHODS
+    from neurad_tpu_torch.core.structs import map_tensors
+    from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+    from neurad_tpu_torch.engine.optimizers import DEFAULT_GROUP_RULES, label_params
+    from neurad_tpu_torch.fields.neurad_encoding import NeuRADHashEncoding
+    from neurad_tpu_torch.fields.neurad_field import NeuRADProposalField
+    from neurad_tpu_torch.ops import hash_encoding as HE
+    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ChunkDraws
+    from neurad_tpu_torch.scripts.closed_loop import ClosedLoopState, build_state
+    from neurad_tpu_torch.scripts.train import train_loop, write_run_config
+
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = build_state("neurad-parity", device=DEVICE, seed=SEED, outputs=outputs)
+    pipeline, model = state.pipeline, state.pipeline.model
+    _liven(model)
+    _sync()
+    res["pipeline_s"] = time.perf_counter() - t0
+
+    # ---- the preset's grids ----
+    shapes = lambda tables: [tuple(t.shape) for t in tables]
+    field = model.field.hashgrid
+    props = list(model.proposal_fields)
+    require(shapes(field.static_hash_table) == [(2**22, 4)] * 8, "field static: 8 levels of 2^22 hashed slots, F = 4")
+    require(shapes(field.actor_hash_table) == [(2**17, 4)] * 4, "field actor: 4 levels of 2^17 hashed slots, F = 4")
+    require(len(props) == 2 and all(isinstance(f, NeuRADProposalField) for f in props), "two hash proposal fields")
+    for f in props:
+        require(shapes(f.hashgrid.static_hash_table) == [(2**20, 1)] * 6, "proposal: 6 levels of 2^20 slots, F = 1")
+        require(shapes(f.hashgrid.actor_hash_table) == [(2**15, 1)] * 4, "actor proposal: 4 levels of 2^15, F = 1")
+    grids = [g for m in model.modules() if isinstance(m, NeuRADHashEncoding) for g in (m.static_grid, m.actor_grid)]
+    require(len(grids) == 6 and all(g.gather_dtype is None and g.force_hash and not g.cell_packed for g in grids),
+            "every grid hashed at every level, unpacked, read in fp32")
+    require(all(g.copies is None for g in grids), "the serving state keeps no bf16 copy of fp32 tables")
+    table_entries = sum(p.numel() for n, p in model.named_parameters() if "hash_table" in n)
+    n_params = sum(p.numel() for p in model.parameters())
+    require(table_entries == 8 * 2**22 * 4 + 4 * 2**17 * 4 + 2 * (6 * 2**20 + 4 * 2**15), "the tables' entries")
+    require(model.field.mlp_geo.compute_dtype is None and model.rgb_decoder.compute_dtype == torch.float32,
+            "fp32 field MLPs and decoder")
+    res.update(parameters=n_params, table_entries=table_entries)
+    log(f"[parity] pipeline in {res['pipeline_s']:.1f} s: {n_params / 1e6:.1f} M parameters, {table_entries / 1e6:.1f} M "
+        f"of them in 2 x 6 + 12 fp32 tables ({table_entries * 4 / 2**20:.0f} MiB)")
+
+    # ---- serving: a cold and warm 1080p requests, scans ----
+    hs, ws = HEIGHT // 3, WIDTH // 3
+    cam_chunks = -(-(hs * ws) // NEURAD_CHUNK)
+    c2w_all = outputs.cameras.camera_to_worlds.numpy()
+    times = outputs.cameras.times[:, 0].numpy()
+    requests = []
+    HE.reset_launch_counts()
+    for i in range(PARITY_REQUESTS):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3] = c2w_all[i % len(c2w_all)]
+        pose[:3, 3] += pose[:3, 0] * 0.5 * i
+        before = HE.hash_grid_launches
+        img = state.render_image(pose.tolist(), float(times[i % len(times)]) + 0.05 * i, "front_camera")
+        launched = HE.hash_grid_launches - before
+        require(img.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(img).all()) and 0.0 <= float(img.min())
+                and float(img.max()) <= 1.0, "a finite 1080p image in [0, 1]")
+        require(launched == PARITY_K1 * cam_chunks, f"K1f launched {PARITY_K1} times a chunk ({launched} in "
+                                                     f"{cam_chunks} chunks)")
+        requests.append(dict(render_ms=state.last_render_seconds * 1e3, launches=launched, std=float(img.std())))
+        log(f"[parity] camera request {i} ({'cold' if i == 0 else 'warm'}): {requests[-1]['render_ms']:.1f} ms "
+            f"(synchronised, incl. copy to host), {launched} K1f launches in {cam_chunks} chunks, image std "
+            f"{img.std():.3f}")
+    require(requests[-1]["std"] > 0.02, "the picture is not flat")
+    n_pts = int(outputs.point_clouds[0].shape[0])
+    lidar_chunks = -(-n_pts // NEURAD_CHUNK)
+    scans = []
+    for _ in range(PARITY_SCANS):
+        before = HE.hash_grid_launches
+        _sync()
+        t_l = time.perf_counter()
+        lid = pipeline.render_eval_lidar(0)
+        scans.append((time.perf_counter() - t_l) * 1e3)
+        require(HE.hash_grid_launches - before == PARITY_K1 * lidar_chunks, "K1f six times a lidar chunk")
+        require(all(lid[k].shape == (n_pts, 1) and bool(np.isfinite(lid[k]).all())
+                    for k in ("depth", "intensity", "ray_drop_logits")), "finite lidar outputs, one per point")
+    serve_k1f = HE.hash_grid_launches
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[parity] scan: {n_pts} returns in {lidar_chunks} chunks, {', '.join(f'{t:.1f}' for t in scans)} ms; K1f "
+        f"launches on the serving path {serve_k1f}; peak device memory {serve_peak:.2f} GiB")
+    prof = profiled("parity camera request", lambda: state.render_image(pose.tolist(), float(times[1]), "front_camera"),
+                    rows=18, match=HASH_KERNEL)
+    require(prof["matched_launches"] == PARITY_K1 * cam_chunks, "the profile shows K1f's launches")
+    res["serve"] = dict(requests=requests, scan_ms=scans, lidar_returns=n_pts, camera_chunks=cam_chunks,
+                        lidar_chunks=lidar_chunks, k1f_per_chunk=PARITY_K1, launches=serve_k1f, peak_memory_gib=serve_peak,
+                        busy_share=prof["device_busy_ms"] / prof["host_ms"], k1f_profile_ms=prof["matched_ms"],
+                        profile={k: v for k, v in prof.items() if k != "all"})
+    log(f"[parity] profiled request: K1f {prof['matched_ms']:.3f} ms in {prof['matched_launches']} launches, the "
+        f"device busy {100 * res['serve']['busy_share']:.0f}% (profiler on)")
+
+    # ---- training on the same pipeline ----
+    cfg = pipeline.config
+    torch.cuda.reset_peak_memory_stats()
+    tstate = pipeline.init_state()
+    n_rays = pipeline.num_cam_rays + cfg.datamanager.num_lidar_rays
+    n_chunks = -(-n_rays // cfg.train_ray_chunk)
+    require(n_rays == 57344 and n_chunks == 7 and pipeline.vgg is not None, "57,344 rays in 7 chunks, VGG on")
+    groups = sorted(set(tstate.optimizers.labels.values()))
+    require("camera_opt" not in groups, "the camera optimizer is off")
+    # the field's 512 MiB of static tables compared on their first rows, every other parameter whole
+    head = lambda n, p: p.detach()[:4096] if n.startswith("field.hashgrid.static") else p.detach()
+    before = {n: head(n, p).clone() for n, p in model.named_parameters()}
+    steps = []
+    HE.reset_launch_counts()
+    for i in range(PARITY_TRAIN_STEPS):
+        bundle, batch = pipeline.datamanager.next_train()
+        f0, b0 = HE.hash_grid_launches, HE.hash_grid_bwd_launches
+        _sync()
+        t1 = time.perf_counter()
+        tstate, metrics = pipeline.train_step(tstate, bundle, batch)
+        _sync()
+        ms = (time.perf_counter() - t1) * 1e3
+        fwd, bwd = HE.hash_grid_launches - f0, HE.hash_grid_bwd_launches - b0
+        loss = float(metrics["total_loss"])
+        require(math.isfinite(loss), f"parity step {tstate.step}: a finite loss")
+        require(fwd == bwd == PARITY_K1 * n_chunks, f"K1f and K1b {PARITY_K1} times a chunk ({fwd}, {bwd})")
+        steps.append(dict(step=tstate.step, ms=ms, total_loss=loss, k1f=fwd, k1b=bwd,
+                          interlevel_loss=float(metrics["interlevel_loss"])))
+        log(f"[parity] train step {tstate.step}: {ms:.1f} ms (synchronised{', the first' if i == 0 else ''}), loss "
+            f"{loss:.5f}, interlevel {steps[-1]['interlevel_loss']:.5f}; K1f {fwd}, K1b {bwd}")
+    warm = [st["ms"] for st in steps[1:]]
+    trainer = METHODS["neurad-parity"]().trainer
+    trainer.max_num_iterations, trainer.steps_per_log, trainer.steps_per_save = (
+        tstate.step + PARITY_LOOP_STEPS, 1, 10**9)
+    tstate, history = train_loop(pipeline, tstate, trainer, OUT_DIR)
+    require(len(history) == PARITY_LOOP_STEPS and all(math.isfinite(h["total_loss"]) for h in history),
+            "the train loop's steps have finite losses")
+    train_launches = {"hash_grid": HE.hash_grid_launches, "hash_grid_bwd": HE.hash_grid_bwd_launches}
+    require(train_launches["hash_grid_bwd"] == PARITY_K1 * n_chunks * (PARITY_TRAIN_STEPS + PARITY_LOOP_STEPS),
+            "every step of the loop ran K1b six times a chunk")
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = {}
+    for n, p in model.named_parameters():
+        now = head(n, p)
+        label = tstate.optimizers.labels[n]
+        moved[label] = max(moved.get(label, 0.0), float((now - before[n]).abs().max()))
+        require(bool(torch.isfinite(p).all()), f"{n} finite after training")
+    prop_moved = [float((p.detach() - before[n]).abs().max()) for n, p in model.named_parameters()
+                  if n.startswith("proposal_fields.") and "hash_table" in n]
+    require(all(v > 0 for v in moved.values()) and set(moved) == set(groups), f"every group moved: {moved}")
+    require(min(prop_moved[:6]) > 0 and min(prop_moved[10:16]) > 0, "every proposal field's static tables moved")
+    loop_rates = [h["train_rays_per_sec"] for h in history]
+    log(f"[parity] warm steps {min(warm):.1f}-{max(warm):.1f} ms ({n_rays * len(warm) / (sum(warm) / 1e3):.0f} rays/s), "
+        f"train_loop {', '.join(f'{r:.0f}' for r in loop_rates)} rays/s; peak {train_peak:.2f} GiB; largest change by "
+        f"group {moved}")
+    prof = profiled("parity train step", lambda: pipeline.train_step(tstate, *pipeline.datamanager.next_train()),
+                    rows=25, match=HASH_BWD_KERNEL)
+    k1f_ms = sum(ms for name, ms, _ in prof["all"] if HASH_KERNEL in name)
+    require(prof["matched_launches"] == PARITY_K1 * n_chunks, "the profile shows K1b's launches")
+    res["train"] = dict(steps=steps, rays=n_rays, chunks=n_chunks, warm_rays_per_s=n_rays * len(warm) / (sum(warm) / 1e3),
+                        loop_rays_per_s=loop_rates, peak_memory_gib=train_peak,
+                        launches=train_launches, moved=moved, busy_share=prof["device_busy_ms"] / prof["host_ms"],
+                        k1b_profile_ms=prof["matched_ms"], k1f_profile_ms=k1f_ms,
+                        profile={k: v for k, v in prof.items() if k != "all"})
+    log(f"[parity] profiled step: K1b {prof['matched_ms']:.3f} ms in {prof['matched_launches']}, K1f {k1f_ms:.3f} ms; "
+        f"the device busy {100 * res['train']['busy_share']:.0f}% (profiler on)")
+    res["launches"] = {"hash_grid": serve_k1f + train_launches["hash_grid"],
+                       "hash_grid_bwd": train_launches["hash_grid_bwd"]}
+
+    run_dir = write_run_config(RUNS / "parity", "neurad-parity", SyntheticDataParserConfig(**SCENE), cfg, SEED)
+    ckpt = pipeline.save_checkpoint(tstate, run_dir / "checkpoints")
+    trained = {n: p.detach().cpu() for n, p in model.named_parameters() if n.startswith("proposal_fields.")}
+    del state, pipeline, model, tstate, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = ClosedLoopState.from_run_dir(run_dir, device=DEVICE)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3] = c2w_all[1]
+    img = served.render_image(pose.tolist(), float(times[1]), "front_camera")
+    require(img.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(img).all()), "the checkpoint serves a finite image")
+    require(all(torch.equal(p.detach().cpu(), trained[n]) for n, p in served.pipeline.model.named_parameters()
+                if n in trained), "the checkpoint holds the trained proposal fields")
+    res["checkpoint"] = dict(mib=ckpt.stat().st_size / 2**20, served_render_ms=served.last_render_seconds * 1e3)
+    log(f"[parity] checkpoint {ckpt.name} ({res['checkpoint']['mib']:.0f} MiB) served: 1080p render "
+        f"{res['checkpoint']['served_render_ms']:.1f} ms")
+    del served, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one train chunk on the card against the CPU ----
+    ref_cfg = METHODS["neurad-parity"]().pipeline
+    ref_cfg.seed = SEED
+    ref_cfg.datamanager = dataclasses.replace(ref_cfg.datamanager, **PARITY_REF)
+    ref_cfg.train_ray_chunk = 1024
+    gpu, cpu = ADPipeline(outputs, ref_cfg, device=DEVICE), ADPipeline(outputs, ref_cfg, device="cpu")
+    _liven(gpu.model)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    bundle_c, batch_c = cpu.datamanager.next_train()
+    n_ref = bundle_c.origins.shape[0]
+    require(n_ref == 1024 and len(cpu._chunks(n_ref)) == 1, "one train chunk of 1,024 rays")
+    draws = cpu.draw(torch.Generator().manual_seed(SEED), n_ref)
+    inputs = {"cuda": (map_tensors(lambda x: x.to(DEVICE), bundle_c), {k: v.to(DEVICE) for k, v in batch_c.items()},
+                       [ChunkDraws(tuple(j.to(DEVICE) for j in d.jitters), d.flip.to(DEVICE)) for d in draws]),
+              "cpu": (bundle_c, batch_c, draws)}
+    losses, grads = {}, {}
+    for dev, pipe in (("cuda", gpu), ("cpu", cpu)):
+        pipe.model.zero_grad()
+        f0, b0 = HE.hash_grid_launches, HE.hash_grid_bwd_launches
+        total, _ = pipe.loss_fn(*inputs[dev])
+        total.backward()
+        if dev == "cuda":
+            _sync()
+            require((HE.hash_grid_launches - f0, HE.hash_grid_bwd_launches - b0) == (PARITY_K1, PARITY_K1),
+                    "the card's chunk went through K1f and K1b six times each")
+        losses[dev] = float(total.detach())
+        grads[dev] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                      for n, p in pipe.model.named_parameters()}
+    labels = label_params(grads["cpu"], DEFAULT_GROUP_RULES)
+    group_max = {}
+    for n, g in grads["cpu"].items():
+        group_max[labels[n]] = max(group_max.get(labels[n], 0.0), float(g.abs().max()))
+    rel = {}
+    for n, g in grads["cpu"].items():
+        scale = max(float(g.abs().max()), 1e-3 * group_max[labels[n]])
+        if scale > 0:
+            rel[n] = float((grads["cuda"][n] - g).abs().max()) / scale
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    worst = sorted(rel, key=rel.get)[-3:]
+    res["reference"] = dict(losses=losses, loss_rel_err=loss_err, grad_rel_err=rel, grad_tol=PARITY_GRAD_TOL)
+    log(f"[parity] one chunk of {n_ref} rays, card against CPU: losses {losses['cuda']:.7f} / {losses['cpu']:.7f} "
+        f"(relative {loss_err:.2e}); largest gradient errors over their parameters' largest entries: "
+        f"{', '.join(f'{n} {rel[n]:.2e}' for n in worst)}; the tables' largest "
+        f"{max(v for n, v in rel.items() if 'hash_table' in n):.2e}")
+    require(loss_err <= PARITY_LOSS_TOL, f"the card's loss within {PARITY_LOSS_TOL:g} of the CPU's")
+    require(all(bool(torch.isfinite(g).all()) for g in grads["cuda"].values()), "finite gradients on the card")
+    require(all(v <= PARITY_GRAD_TOL for v in rel.values()),
+            f"every gradient within {PARITY_GRAD_TOL:g} of its parameter's largest entry: {rel}")
+    del gpu, cpu, grads, inputs
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -4232,6 +4554,9 @@ def main(argv=None) -> int:
     presets_res = timed("presets", presets_phase, outputs)
     gc.collect()
     torch.cuda.empty_cache()
+    parity_res = timed("parity", parity_phase, outputs)
+    gc.collect()
+    torch.cuda.empty_cache()
     dp_res = timed("data_parallel", data_parallel_phase, outputs)
     library_res = timed("library", library_phase, outputs)
     del outputs
@@ -4282,6 +4607,7 @@ def main(argv=None) -> int:
         "replaces": "neurad_tpu/ops/hash_encoding.py:492", "launches": neurad_res["launches"]["hash_grid"],
         "drive_launches": drive_res["launches"]["hash_grid"],
         "data_parallel_launches": dp_res["launches"]["hash_grid"],
+        "parity_launches": parity_res["launches"]["hash_grid"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None, "parent": k1.get("parent"),
         "nerfacto_launches": nerfacto_res["nerfacto"]["launches"]["hash_grid"],
@@ -4296,6 +4622,7 @@ def main(argv=None) -> int:
         "replaces": "neurad_tpu/ops/hash_encoding.py:531", "launches": neurad_train_res["launches"]["hash_grid_bwd"],
         "drive_launches": drive_res["launches"]["hash_grid_bwd"],
         "data_parallel_launches": dp_res["launches"]["hash_grid_bwd"],
+        "parity_launches": parity_res["launches"]["hash_grid_bwd"],
         "max_abs_err": k1b["max_abs_err"], "max_rel_err": k1b["max_rel_err"], "ms": k1b["ms"],
         "device_ms": k1b["device_ms"], "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": None,
         "nerfacto_launches": nerfacto_res["nerfacto"]["launches"]["hash_grid_bwd"],
@@ -4338,10 +4665,12 @@ def main(argv=None) -> int:
     require(all(by_name[n]["data_parallel_launches"] > 0 for n in (
         "tile_composite_camera_fwd", "tile_composite_camera_bwd", "tile_composite_lidar_fwd", "tile_composite_lidar_bwd",
         "hash_grid_fwd", "hash_grid_bwd")), "the data-parallel paths ran K2-K5, K1f and K1b on every rank")
+    require(by_name["hash_grid_fwd"]["parity_launches"] > 0 and by_name["hash_grid_bwd"]["parity_launches"] > 0,
+            "the neurad-parity preset's serving and training ran K1f and K1b")
     REPORT.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kernels, hash_grid=hash_kernels,
                   hash_grid_bwd=hash_bwd, gather_probes=probes, slice=slice_res, neurad=neurad_res, ptxas=ptxas,
                   neurad_train=neurad_train_res, train=train_res, splatfacto=splatfacto_res, drive=drive_res,
-                  nerfacto=nerfacto_res, presets=presets_res, render=render_res, export=export_res,
+                  nerfacto=nerfacto_res, presets=presets_res, parity=parity_res, render=render_res, export=export_res,
                   viewer=viewer_res, data_parallel=dp_res, library=library_res, api=api_res,
                   fid=fid_res, reference=ref, phase_seconds=phase_s,
                   seconds=time.perf_counter() - t_start)

@@ -139,11 +139,13 @@ def keep_bf16_copies(model: nn.Module) -> None:
     the copy (the same bits, half the bytes); the first such lookup after a
     table changes makes the copy anew. They cost half the tables' bytes of
     device memory and are not worth making where the tables change every
-    step."""
+    step. A grid that reads fp32 (`parity`, `gather_f32`) reads its masters
+    and gets none."""
     for module in model.modules():
         if isinstance(module, NeuRADHashEncoding):
             for grid in (module.static_grid, module.actor_grid):
-                grid.copies = he.Bf16Copies()
+                if grid.gather_dtype is not None:
+                    grid.copies = he.Bf16Copies()
 
 
 class NeuRADHashEncoding(nn.Module):

@@ -15,7 +15,7 @@ params by `params_from_jax`);
 `ClosedLoopState.from_run_dir` rebuilds the pipeline of a training run
 (`scripts/train.py`, SplatAD or NeuRAD) and loads its newest checkpoint.
 
-    python -m neurad_tpu_torch.scripts.closed_loop --port 8000 [--method splatad|neurad|neurad-tiny]
+    python -m neurad_tpu_torch.scripts.closed_loop --port 8000 [--method splatad|neurad|neurad-parity|neurad-tiny]
         [--load-dir outputs/<run>] [--state-dict model.pt] [--seed 0] [--device cuda]
 
 serves the run's scene, or the synthetic scene without `--load-dir` (a NeuRAD
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from neurad_tpu_torch import resolve_device
-from neurad_tpu_torch.configs.method_configs import neurad_tiny_overrides
+from neurad_tpu_torch.configs.method_configs import METHODS, neurad_tiny_overrides
 from neurad_tpu_torch.core import poses as pose_utils
 from neurad_tpu_torch.fields.neurad_encoding import keep_bf16_copies
 from neurad_tpu_torch.model_components.dynamic_actors import actor_data_from_trajectories
@@ -167,8 +167,9 @@ def make_handler(cls_state: ClosedLoopState):
 
 def build_state(method: str = "splatad", device="cuda", seed: int = 0, outputs=None) -> ClosedLoopState:
     """A server state on the synthetic scene (or `outputs`) with a model drawn
-    from `seed`: method "splatad", "neurad" (the preset's full width) or
-    "neurad-tiny"."""
+    from `seed`: method "splatad", "neurad" or "neurad-parity" (the presets'
+    full width: `neurad-parity`'s grids read their fp32 tables, so its state
+    keeps no bf16 copies) or "neurad-tiny"."""
     from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
 
     device = resolve_device(device)
@@ -176,9 +177,13 @@ def build_state(method: str = "splatad", device="cuda", seed: int = 0, outputs=N
         outputs = SyntheticDataParserConfig().setup().get_dataparser_outputs()
     if method == "splatad":
         pipeline = SplatADPipeline(outputs, device=device)
-    elif method in ("neurad", "neurad-tiny"):
-        overrides = neurad_tiny_overrides() if method == "neurad-tiny" else {}
-        pipeline = ADPipeline(outputs, ADPipelineConfig(model_overrides=overrides, seed=seed), device=device)
+    elif method in ("neurad", "neurad-parity"):
+        cfg = METHODS[method]().pipeline
+        cfg.seed = seed
+        pipeline = ADPipeline(outputs, cfg, device=device)
+    elif method == "neurad-tiny":
+        pipeline = ADPipeline(outputs, ADPipelineConfig(model_overrides=neurad_tiny_overrides(), seed=seed),
+                              device=device)
     else:
         raise ValueError(f"unknown method {method!r}")
     return ClosedLoopState(pipeline, device=device)
@@ -189,7 +194,7 @@ def state_from_args(argv=None):
     parser = argparse.ArgumentParser(description="Closed-loop render server (synthetic scene)")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--method", default="splatad", choices=("splatad", "neurad", "neurad-tiny"))
+    parser.add_argument("--method", default="splatad", choices=("splatad", "neurad", "neurad-parity", "neurad-tiny"))
     parser.add_argument("--seed", type=int, default=0, help="seed of a NeuRAD state's weights")
     parser.add_argument("--state-dict", default=None, help="torch.save'd state dict for the model")
     parser.add_argument("--load-dir", default=None, help="run directory of scripts/train.py to serve")

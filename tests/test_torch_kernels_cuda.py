@@ -455,6 +455,37 @@ def test_hash_grid_kernel_level_counts(cuda, levels, f, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 4], ids=["proposal", "actor_proposal"])
+def test_hash_grid_kernels_at_the_parity_proposal_grids(cuda, d):
+    """K1f and K1b at the preset's proposal grids (D = 3: 6 levels of 2^20,
+    base 128, max 4096; D = 4: 4 levels of 2^15, base 64, max 1024; F = 1,
+    hashed, unpacked, fp32 reads) on ray-ordered positions: the forward bit
+    for bit, the backward within 1e-5 of each entry's terms (K1b adds with
+    atomics)."""
+    levels, base, top, rows = (6, 128, 4096, 2**20) if d == 3 else (4, 64, 1024, 2**15)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    scales = HE.level_scales(levels, base, top)
+    _, dense, _ = HE.level_layout(scales, d, rows, False, True)
+    tables = [t * 300.0 for t in HE.init_hash_tables(gen, scales, d, rows, 1, force_hash=True)]
+    n_rays = 256
+    a, b = (torch.rand((n_rays, 1, d), generator=gen, device="cuda") for _ in range(2))
+    pos = (a + (b - a) * torch.rand((n_rays, 64, 1), generator=gen, device="cuda").sort(dim=1).values).reshape(-1, d)
+    std = torch.rand((pos.shape[0],), generator=gen, device="cuda") * 1e-3
+    layout = ([float(s) for s in scales], [rows] * levels, dense, 1, False, False)
+    before = HE.hash_grid_launches, HE.hash_grid_bwd_launches
+    with torch.no_grad():
+        got = HE.hash_grid_encode(pos, std, tables, *layout)
+    assert torch.equal(got, HE.hash_grid_encode_plain(pos, std, tables, *layout))
+    g = torch.randn(got.shape, generator=gen, device="cuda")
+    dt, dp, ds = HE.hash_grid_encode_bwd(pos, std, tables, *layout, g)
+    assert (HE.hash_grid_launches, HE.hash_grid_bwd_launches) == (before[0] + 1, before[1] + 1)
+    wt, wp, ws = HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g)
+    mt, mp, ms = HE.hash_grid_encode_bwd_plain(pos, std, tables, *layout, g, magnitude=True)
+    for got_l, want_l, mag_l in zip(dt + (dp, ds), wt + (wp, ws), mt + (mp, ms)):
+        assert bool(((got_l - want_l).abs() <= 1e-5 * mag_l + 1e-30).all())
+
+
+@pytest.mark.cuda
 def test_hash_grid_wrapper_refuses_unaligned_cell_packed_tables(cuda):
     scales, dense, packs, tables, gen = _grid(3, 4, True, False, seed=2)
     shifted = torch.empty(tables[0].numel() + 1, device="cuda")[1:].view(tables[0].shape)
