@@ -30,6 +30,7 @@ from neurad_tpu_torch.cameras.cameras import generate_rays
 from neurad_tpu_torch.cameras.lidars import generate_lidar_rays_from_points
 from neurad_tpu_torch.core.structs import RayBundle
 from neurad_tpu_torch.data.dataparsers.base import ADDataparserOutputs
+from neurad_tpu_torch.utils import profiler
 
 
 @dataclasses.dataclass
@@ -156,6 +157,8 @@ class ADDataManager:
             for t in self._threads:
                 t.start()
         while True:
+            profiler.count("datamanager.gets", 1)
+            profiler.count("datamanager.gets_waited", int(self._queue.empty()))  # no batch was ready
             item = self._queue.get()
             if isinstance(item, BaseException):
                 raise item

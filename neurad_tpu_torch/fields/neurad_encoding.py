@@ -38,6 +38,7 @@ from neurad_tpu_torch.core.structs import GaussiansStd
 from neurad_tpu_torch.fields.spatial_distortions import scaled_scene_contraction_gaussian
 from neurad_tpu_torch.model_components.dynamic_actors import ActorEdits, DynamicActors
 from neurad_tpu_torch.ops import hash_encoding as he
+from neurad_tpu_torch.utils import profiler
 
 EPS = 1.0e-7
 
@@ -279,6 +280,11 @@ class NeuRADHashEncoding(nn.Module):
             # those, merge the features back densely. Beyond the capacity, samples keep static features.
             cap = max(128, (r * s) // self.actor_compaction)
             flat_hit = hit.reshape(-1)
+            if profiler.is_counting():
+                hits = flat_hit.sum()
+                profiler.count("actor.samples_hit", hits)
+                profiler.count("actor.capacity", cap)
+                profiler.count("actor.samples_dropped", hits, above=cap)
             flat_mean4 = mean4.reshape(r * s, *mean4.shape[2:])
             flat_std = actor_g.std.reshape(r * s, *actor_g.std.shape[2:])
             top_idx = first_k_set(flat_hit, cap)

@@ -29,6 +29,7 @@ from neurad_tpu_torch.model_components.dynamic_actors import ActorData, DynamicA
 from neurad_tpu_torch.model_components.perceptual import Vgg19Slices, vgg_perceptual_loss
 from neurad_tpu_torch.model_components.ray_samplers import power_spacing, proposal_sampler
 from neurad_tpu_torch.ops import rendering as R
+from neurad_tpu_torch.utils import profiler
 
 EPS = 1e-7
 
@@ -222,19 +223,20 @@ class NeuRADModel(nn.Module):
         """Static-split modality decoding -> (rgb [B, D*up, D*up, 3], intensity,
         ray-drop logits). `train`: a batch-norm decoder normalises by the batch
         and updates its running averages."""
-        cam_features = features[:num_cam_rays]
-        lidar_features = features if intensity_for_cam else features[num_cam_rays:]
+        with profiler.span("model.decode"):
+            cam_features = features[:num_cam_rays]
+            lidar_features = features if intensity_for_cam else features[num_cam_rays:]
 
-        intensity = ray_drop_logit = None
-        if lidar_features.shape[0] > 0:
-            out = self.lidar_decoder(lidar_features)
-            intensity, ray_drop_logit = torch.sigmoid(out[..., :1]), out[..., 1:]
+            intensity = ray_drop_logit = None
+            if lidar_features.shape[0] > 0:
+                out = self.lidar_decoder(lidar_features)
+                intensity, ray_drop_logit = torch.sigmoid(out[..., :1]), out[..., 1:]
 
-        rgb = None
-        if cam_features.shape[0] > 0:
-            patches = cam_features.reshape(-1, *patch_size, cam_features.shape[-1])
-            rgb = self.rgb_decoder(patches, train)
-        return rgb, intensity, ray_drop_logit
+            rgb = None
+            if cam_features.shape[0] > 0:
+                patches = cam_features.reshape(-1, *patch_size, cam_features.shape[-1])
+                rgb = self.rgb_decoder(patches, train)
+            return rgb, intensity, ray_drop_logit
 
     def get_nff_outputs(
         self,
@@ -248,57 +250,62 @@ class NeuRADModel(nn.Module):
         """The neural-feature-field render. Every output is per ray ([R, ...]),
         the train-time loss terms (`train`) included, so the method chunks
         over rays at the pipeline level."""
-        ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
-        ray_bundle = self._scale_pixel_area(ray_bundle, num_cam_rays)
-        ray_samples, prop_weights, prop_samples = self._get_ray_samples(ray_bundle, jitters, edits=edits)
+        with profiler.span("model.proposals"):
+            ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
+            ray_bundle = self._scale_pixel_area(ray_bundle, num_cam_rays)
+            ray_samples, prop_weights, prop_samples = self._get_ray_samples(ray_bundle, jitters, edits=edits)
 
-        field_out = self.field(ray_samples, flip_draw=flip_draw, edits=edits)
+        with profiler.span("model.field"):
+            field_out = self.field(ray_samples, flip_draw=flip_draw, edits=edits)
 
-        if self.use_sdf:
-            weights, _ = R.render_weights_from_alpha(field_out.alphas)
-        else:
-            weights = R.render_weights_from_density(field_out.density, ray_samples.deltas)
-        weights = weights[..., 0]  # [R, S]
-        accumulation = torch.sum(weights, dim=-1, keepdim=True)  # [R, 1]
+        with profiler.span("model.weights"):
+            if self.use_sdf:
+                weights, _ = R.render_weights_from_alpha(field_out.alphas)
+            else:
+                weights = R.render_weights_from_density(field_out.density, ray_samples.deltas)
+            weights = weights[..., 0]  # [R, S]
+            accumulation = torch.sum(weights, dim=-1, keepdim=True)  # [R, 1]
 
-        # leftover accumulation goes onto the sky sample
-        weights = torch.cat([weights[..., :-1], weights[..., -1:] + 1.0 - accumulation], dim=-1)
-        weights = weights[..., None]  # [R, S, 1]
-        features = R.accumulate_along_rays(weights, field_out.features)  # [R, F]
-        if self.appearance_dim > 0:
-            features = torch.cat([features, self._get_appearance_embedding(ray_bundle, features)], dim=-1)
+            # leftover accumulation goes onto the sky sample
+            weights = torch.cat([weights[..., :-1], weights[..., -1:] + 1.0 - accumulation], dim=-1)
+            weights = weights[..., None]  # [R, S, 1]
+            features = R.accumulate_along_rays(weights, field_out.features)  # [R, F]
+            if self.appearance_dim > 0:
+                features = torch.cat([features, self._get_appearance_embedding(ray_bundle, features)], dim=-1)
 
-        # the sky sample is left out of the depth
-        w_nosky = weights[..., :-1, :]
-        mids = (ray_samples.frustums.starts + ray_samples.frustums.ends) / 2.0
-        depth = R.accumulate_along_rays(w_nosky, mids[..., :-1, :])
+            # the sky sample is left out of the depth
+            w_nosky = weights[..., :-1, :]
+            mids = (ray_samples.frustums.starts + ray_samples.frustums.ends) / 2.0
+            depth = R.accumulate_along_rays(w_nosky, mids[..., :-1, :])
 
-        outputs: Dict[str, torch.Tensor] = {"features": features, "depth": depth, "accumulation": accumulation}
-        for i, (pw, ps) in enumerate(zip(prop_weights, prop_samples)):
-            pmids = (ps.frustums.starts + ps.frustums.ends) / 2.0
-            outputs[f"prop_depth_{i}"] = R.accumulate_along_rays(pw, pmids)
+            outputs: Dict[str, torch.Tensor] = {"features": features, "depth": depth, "accumulation": accumulation}
+            for i, (pw, ps) in enumerate(zip(prop_weights, prop_samples)):
+                pmids = (ps.frustums.starts + ps.frustums.ends) / 2.0
+                outputs[f"prop_depth_{i}"] = R.accumulate_along_rays(pw, pmids)
 
-        if train:
-            # per-ray interlevel + distortion over the sample histograms
-            weights_list = list(prop_weights) + [w_nosky]
-            sdist_list = [L.ray_samples_to_sdist(s.spacing_starts, s.spacing_ends) for s in prop_samples] + [
-                L.ray_samples_to_sdist(ray_samples.spacing_starts[..., :-1, :], ray_samples.spacing_ends[..., :-1, :])
-            ]
-            outputs["interlevel_per_ray"] = L.zipnerf_interlevel_loss(weights_list, sdist_list, per_ray=True)
-            outputs["distortion_per_ray"] = L.lossfun_distortion(sdist_list[-1], w_nosky[..., 0])
+            if train:
+                # per-ray interlevel + distortion over the sample histograms
+                weights_list = list(prop_weights) + [w_nosky]
+                sdist_list = [L.ray_samples_to_sdist(s.spacing_starts, s.spacing_ends) for s in prop_samples] + [
+                    L.ray_samples_to_sdist(ray_samples.spacing_starts[..., :-1, :],
+                                           ray_samples.spacing_ends[..., :-1, :])
+                ]
+                outputs["interlevel_per_ray"] = L.zipnerf_interlevel_loss(weights_list, sdist_list, per_ray=True)
+                outputs["distortion_per_ray"] = L.lossfun_distortion(sdist_list[-1], w_nosky[..., 0])
 
-            # carving: per-ray sum of the squared weights of lidar samples away from the return, without the sky
-            # sample (it would penalise weight at the sky on non-returning rays, against the non-return term)
-            is_lidar = self._is_lidar_mask(ray_bundle, num_cam_rays)
-            ranges = ray_bundle.metadata.get("directions_norm")
-            did_return = ray_bundle.metadata.get("did_return")
-            if ranges is not None:
-                mask = self._carving_mask(ray_samples, is_lidar, ranges, did_return)[..., :-1]
-                outputs["carving_per_ray"] = torch.sum((w_nosky[..., 0] * mask) ** 2, dim=-1)
-                for i, ps in enumerate(prop_samples):
-                    pmask = self._carving_mask(ps, is_lidar, ranges, did_return)
-                    outputs[f"prop_carving_per_ray_{i}"] = torch.sum((prop_weights[i][..., 0] * pmask) ** 2, dim=-1)
-        return outputs
+                # carving: per-ray sum of the squared weights of lidar samples away from the return, without the sky
+                # sample (it would penalise weight at the sky on non-returning rays, against the non-return term)
+                is_lidar = self._is_lidar_mask(ray_bundle, num_cam_rays)
+                ranges = ray_bundle.metadata.get("directions_norm")
+                did_return = ray_bundle.metadata.get("did_return")
+                if ranges is not None:
+                    mask = self._carving_mask(ray_samples, is_lidar, ranges, did_return)[..., :-1]
+                    outputs["carving_per_ray"] = torch.sum((w_nosky[..., 0] * mask) ** 2, dim=-1)
+                    for i, ps in enumerate(prop_samples):
+                        pmask = self._carving_mask(ps, is_lidar, ranges, did_return)
+                        outputs[f"prop_carving_per_ray_{i}"] = torch.sum((prop_weights[i][..., 0] * pmask) ** 2,
+                                                                         dim=-1)
+            return outputs
 
     def query_geometry(self, points: torch.Tensor, time: float = 0.0) -> torch.Tensor:
         """Field geometry at world points [N, 3]: SDF (use_sdf) or density [N].

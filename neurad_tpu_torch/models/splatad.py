@@ -26,6 +26,7 @@ from neurad_tpu_torch.model_components.cnns import BasicBlock
 from neurad_tpu_torch.model_components.dynamic_actors import ActorData, DynamicActors
 from neurad_tpu_torch.ops import gaussian_rasterize as GR
 from neurad_tpu_torch.ops import gaussians as G
+from neurad_tpu_torch.utils import profiler
 
 BACKGROUND = (0.1490, 0.1647, 0.2157)
 
@@ -379,50 +380,52 @@ class SplatADModel(nn.Module):
         d(loss)/d(means2d), the signal the Default densification strategy reads."""
         cfg = self.config
         dev = self.device
-        c2w_opengl, K = _as_tensor(c2w_opengl, dev), _as_tensor(K, dev)
-        time = _as_tensor(time, dev)
-        sensor_idx = _as_tensor(sensor_idx, dev, torch.long)
-        cam_idx = _as_tensor(cam_idx, dev, torch.long)
-        c2w = self.camera_optimizer.apply_to_camera_pose(c2w_opengl[None], cam_idx)[0]
+        with profiler.span("model.project"):
+            c2w_opengl, K = _as_tensor(c2w_opengl, dev), _as_tensor(K, dev)
+            time = _as_tensor(time, dev)
+            sensor_idx = _as_tensor(sensor_idx, dev, torch.long)
+            cam_idx = _as_tensor(cam_idx, dev, torch.long)
+            c2w = self.camera_optimizer.apply_to_camera_pose(c2w_opengl[None], cam_idx)[0]
 
-        lin_vel = _as_tensor(cam_linear_vel, dev) if cam_linear_vel is not None else torch.zeros(3, device=dev)
-        ang_vel = _as_tensor(cam_angular_vel, dev) if cam_angular_vel is not None else torch.zeros(3, device=dev)
-        time_to_center_pixel = _as_tensor(time_to_center_pixel, dev)
-        if self.velocity_opt_enabled:
-            lin_vel = self.camera_velocity_optimizer.get_linear_velocity(lin_vel[None], cam_idx.reshape(1))[0]
-            ang_vel = self.camera_velocity_optimizer.get_angular_velocity(ang_vel[None], cam_idx.reshape(1))[0]
-            time_to_center_pixel = (
-                time_to_center_pixel
-                + self.camera_velocity_optimizer.get_time_to_center_pixel_adjustment(sensor_idx.reshape(1))[0]
+            lin_vel = _as_tensor(cam_linear_vel, dev) if cam_linear_vel is not None else torch.zeros(3, device=dev)
+            ang_vel = _as_tensor(cam_angular_vel, dev) if cam_angular_vel is not None else torch.zeros(3, device=dev)
+            time_to_center_pixel = _as_tensor(time_to_center_pixel, dev)
+            if self.velocity_opt_enabled:
+                lin_vel = self.camera_velocity_optimizer.get_linear_velocity(lin_vel[None], cam_idx.reshape(1))[0]
+                ang_vel = self.camera_velocity_optimizer.get_angular_velocity(ang_vel[None], cam_idx.reshape(1))[0]
+                time_to_center_pixel = (
+                    time_to_center_pixel
+                    + self.camera_velocity_optimizer.get_time_to_center_pixel_adjustment(sensor_idx.reshape(1))[0]
+                )
+            c2w = c2w.clone()
+            c2w[:3, 3] = c2w[:3, 3] + lin_vel * time_to_center_pixel
+            cam_time = time + time_to_center_pixel
+
+            viewmat = viewmat_from_c2w_opengl(c2w)
+            flip = c2w.new_tensor([1.0, -1.0, -1.0])
+            lin_vel_cam = (c2w[:3, :3].T @ lin_vel) * flip
+            ang_vel_cam = ang_vel * flip
+
+            with profiler.span("model.actor_means"):
+                means, vels = self._actor_adjusted_means(cam_time, edits)
+            covar6 = G.quat_scale_to_covar6(self.quats, torch.exp(self.scales))
+            proj = G.project_gaussians_camera(
+                means,
+                covar6=covar6,
+                viewmat=viewmat,
+                K=K,
+                width=width,
+                height=height,
+                velocities=vels,
+                camera_linear_velocity=lin_vel_cam,
+                camera_angular_velocity=ang_vel_cam,
+                near_plane=cfg.near_plane,
+                eps2d=cfg.eps2d,
+                radius_clip=cfg.radius_clip_pix,
+                antialiased=cfg.antialiased,
             )
-        c2w = c2w.clone()
-        c2w[:3, 3] = c2w[:3, 3] + lin_vel * time_to_center_pixel
-        cam_time = time + time_to_center_pixel
-
-        viewmat = viewmat_from_c2w_opengl(c2w)
-        flip = c2w.new_tensor([1.0, -1.0, -1.0])
-        lin_vel_cam = (c2w[:3, :3].T @ lin_vel) * flip
-        ang_vel_cam = ang_vel * flip
-
-        means, vels = self._actor_adjusted_means(cam_time, edits)
-        covar6 = G.quat_scale_to_covar6(self.quats, torch.exp(self.scales))
-        proj = G.project_gaussians_camera(
-            means,
-            covar6=covar6,
-            viewmat=viewmat,
-            K=K,
-            width=width,
-            height=height,
-            velocities=vels,
-            camera_linear_velocity=lin_vel_cam,
-            camera_angular_velocity=ang_vel_cam,
-            near_plane=cfg.near_plane,
-            eps2d=cfg.eps2d,
-            radius_clip=cfg.radius_clip_pix,
-            antialiased=cfg.antialiased,
-        )
-        if means2d_offset is not None:
-            proj = proj._replace(means2d=proj.means2d + means2d_offset)
+            if means2d_offset is not None:
+                proj = proj._replace(means2d=proj.means2d + means2d_offset)
         feat_img, depth_img, alpha_img, binning = GR.rasterize_camera(
             proj,
             self.features,
@@ -438,23 +441,24 @@ class SplatADModel(nn.Module):
             max_visible=cfg.max_visible_gaussians,
         )
 
-        ray_dirs = ray_dirs_pinhole(K, width, height, c2w)
-        appearance = self.appearance_embedding(sensor_idx.reshape(1))[0]
-        app_img = appearance.expand(feat_img.shape[:-1] + (appearance.shape[-1],))
-        rgb = self.rgb_decoder(torch.cat([feat_img, app_img], dim=-1), ray_dirs)
-        background = rgb.new_tensor(BACKGROUND)
-        rgb = torch.clamp(rgb + (1.0 - alpha_img) * background, 0.0, 1.0)
-        depth_img = torch.where(alpha_img > 0, depth_img, depth_img.detach().max())
-        return {
-            "rgb": rgb,
-            "depth": depth_img,
-            "accumulation": alpha_img,
-            "background": background,
-            "radii": proj.radii.detach(),
-            "binning_dropped_pairs": binning.dropped_pairs,
-            "binning_cropped_gaussians": binning.cropped_gaussians,
-            "binning_culled_visible": binning.culled_visible,
-        }
+        with profiler.span("model.decode"):
+            ray_dirs = ray_dirs_pinhole(K, width, height, c2w)
+            appearance = self.appearance_embedding(sensor_idx.reshape(1))[0]
+            app_img = appearance.expand(feat_img.shape[:-1] + (appearance.shape[-1],))
+            rgb = self.rgb_decoder(torch.cat([feat_img, app_img], dim=-1), ray_dirs)
+            background = rgb.new_tensor(BACKGROUND)
+            rgb = torch.clamp(rgb + (1.0 - alpha_img) * background, 0.0, 1.0)
+            depth_img = torch.where(alpha_img > 0, depth_img, depth_img.detach().max())
+            return {
+                "rgb": rgb,
+                "depth": depth_img,
+                "accumulation": alpha_img,
+                "background": background,
+                "radii": proj.radii.detach(),
+                "binning_dropped_pairs": binning.dropped_pairs,
+                "binning_cropped_gaussians": binning.cropped_gaussians,
+                "binning_culled_visible": binning.culled_visible,
+            }
 
     def get_lidar_outputs(
         self,

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from neurad_tpu_torch.ops.gaussians import Projected
 from neurad_tpu_torch.ops.tile_composite import floored_mod, tile_composite_camera, tile_composite_lidar
+from neurad_tpu_torch.utils import profiler
 
 
 class TileBinning(NamedTuple):
@@ -233,19 +234,25 @@ def rasterize_camera(
     """Rasterize projected gaussians to (features [H,W,C], depth [H,W,1],
     alpha [H,W,1]) (+ the binning when `return_binning`)."""
     _check_backend(backend)
-    binning, table, tile_valid, pix, times = camera_tile_inputs(
-        projected, features, opacities, width, height, tile_size, max_per_tile, max_tiles_per_gaussian,
-        rolling_shutter_time, rs_direction, max_visible,
-    )
-    feat, depth, alpha = tile_composite_camera(table, binning.tile_gauss, tile_valid, pix, times)
-    ntx, nty = binning.num_tiles_x, binning.num_tiles_y
+    with profiler.span("model.bin"):
+        binning, table, tile_valid, pix, times = camera_tile_inputs(
+            projected, features, opacities, width, height, tile_size, max_per_tile, max_tiles_per_gaussian,
+            rolling_shutter_time, rs_direction, max_visible,
+        )
+        if profiler.is_counting():
+            profiler.count("tiles.slots", binning.tile_valid.numel())
+            profiler.count("tiles.slots_valid", binning.tile_valid.sum())
+            profiler.count("tiles.pairs_dropped", binning.dropped_pairs)
+    with profiler.span("model.composite"):
+        feat, depth, alpha = tile_composite_camera(table, binning.tile_gauss, tile_valid, pix, times)
+        ntx, nty = binning.num_tiles_x, binning.num_tiles_y
 
-    def to_image(x):
-        ch = x.shape[-1]
-        x = x.reshape(nty, ntx, tile_size, tile_size, ch).permute(0, 2, 1, 3, 4)
-        return x.reshape(nty * tile_size, ntx * tile_size, ch)[:height, :width]
+        def to_image(x):
+            ch = x.shape[-1]
+            x = x.reshape(nty, ntx, tile_size, tile_size, ch).permute(0, 2, 1, 3, 4)
+            return x.reshape(nty * tile_size, ntx * tile_size, ch)[:height, :width]
 
-    imgs = (to_image(feat), to_image(depth), to_image(alpha))
+        imgs = (to_image(feat), to_image(depth), to_image(alpha))
     return imgs + (binning,) if return_binning else imgs
 
 

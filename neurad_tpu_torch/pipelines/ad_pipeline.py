@@ -69,6 +69,7 @@ from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
 from neurad_tpu_torch.models.nerfacto import NerfactoModel
 from neurad_tpu_torch.models.neurad import LossSettings, MLPProposalSettings, NeuRADModel, SamplingSettings
 from neurad_tpu_torch.parallel import sharding
+from neurad_tpu_torch.utils import profiler
 from neurad_tpu_torch.utils.eval_metrics import fid, fid_suite_shifts, lpips
 
 CHECKPOINT_PATTERN = "step-*.pt"
@@ -294,8 +295,9 @@ class ADPipeline:
         padded = map_tensors(lambda x: torch.cat([x, x[-1:].expand((total - n,) + x.shape[1:])], dim=0), bundle)
         outs = []
         for i, d in enumerate(draws):
-            piece = map_tensors(lambda x: x[i * chunk:(i + 1) * chunk], padded)
-            outs.append(model.get_nff_outputs(piece, 0, jitters=d.jitters, flip_draw=d.flip, train=True))
+            with profiler.span("pipeline.chunk", index=i):
+                piece = map_tensors(lambda x: x[i * chunk:(i + 1) * chunk], padded)
+                outs.append(model.get_nff_outputs(piece, 0, jitters=d.jitters, flip_draw=d.flip, train=True))
         return {k: torch.cat([o[k] for o in outs], dim=0)[:n] for k in outs[0]}
 
     def _loss_of_outputs(self, out: Dict, batch: Dict[str, torch.Tensor], num_cam_rays: int,
@@ -305,16 +307,17 @@ class ADPipeline:
         NeuRAD's reductions (`compute_losses`)."""
         if self._is_nerfacto:
             return self._nerfacto_loss(out, batch, num_cam_rays)
-        out = dict(out)
-        features = out.pop("features")
-        rgb, intensity, ray_drop_logits = self.model.decode_features(features, self.patch_size, num_cam_rays,
-                                                                      train=True)
-        if rgb is not None:
-            out["rgb"] = rgb
-        if intensity is not None:
-            out["intensity"] = intensity
-            out["ray_drop_logits"] = ray_drop_logits
-        return self.model.compute_losses(out, batch, num_cam_rays, vgg=self.vgg, terms=terms)
+        with profiler.span("model.losses"):
+            out = dict(out)
+            features = out.pop("features")
+            rgb, intensity, ray_drop_logits = self.model.decode_features(features, self.patch_size, num_cam_rays,
+                                                                          train=True)
+            if rgb is not None:
+                out["rgb"] = rgb
+            if intensity is not None:
+                out["intensity"] = intensity
+                out["ray_drop_logits"] = ray_drop_logits
+            return self.model.compute_losses(out, batch, num_cam_rays, vgg=self.vgg, terms=terms)
 
     def _nerfacto_loss(self, out: Dict, batch: Dict[str, torch.Tensor], n_cam: int
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -334,12 +337,15 @@ class ADPipeline:
                    draws: Optional[TrainDraws] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer update: loss, backward, every group's step. Metrics
         are detached tensors on the model's device."""
-        if draws is None:
-            draws = self.draw(state.generator, bundle.origins.shape[0])
-        total, metrics = self.loss_fn(bundle, batch, draws)
-        state.optimizers.zero_grad()
-        total.backward()
-        state.optimizers.step()
+        with profiler.span("train.forward"):
+            if draws is None:
+                draws = self.draw(state.generator, bundle.origins.shape[0])
+            total, metrics = self.loss_fn(bundle, batch, draws)
+        with profiler.span("train.backward"):
+            state.optimizers.zero_grad()
+            total.backward()
+        with profiler.span("train.optimizer"):
+            state.optimizers.step()
         state.step += 1
         metrics = dict(metrics)
         metrics["total_loss"] = total.detach()
@@ -509,12 +515,14 @@ class ADPipeline:
             return self._chunked_nff_sharded(bundle, all_camera, edits)
         outs = []
         for start in range(0, n, chunk):
-            piece = map_tensors(lambda x: x[start : start + chunk], bundle)
-            m = piece.origins.shape[0]
-            if m < chunk:
-                piece = map_tensors(lambda x: torch.cat([x, x.new_zeros((chunk - m,) + x.shape[1:])], dim=0), piece)
-            out = self.model.get_nff_outputs(piece, chunk if all_camera else 0, edits=edits)
-            outs.append({k: v[:m] for k, v in out.items()})
+            with profiler.span("pipeline.chunk", index=start // chunk):
+                piece = map_tensors(lambda x: x[start : start + chunk], bundle)
+                m = piece.origins.shape[0]
+                if m < chunk:
+                    piece = map_tensors(lambda x: torch.cat([x, x.new_zeros((chunk - m,) + x.shape[1:])], dim=0),
+                                        piece)
+                out = self.model.get_nff_outputs(piece, chunk if all_camera else 0, edits=edits)
+                outs.append({k: v[:m] for k, v in out.items()})
         if len(outs) == 1:
             return outs[0]
         return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
@@ -564,7 +572,8 @@ class ADPipeline:
         """An eval camera's full-image render -> (pred rgb [H', W', 3] on the
         device, gt rgb). `edits`: actor edits applied at render time; `shift`:
         a world offset [3] added to every ray's origin."""
-        bundle, gt, (hs, ws) = self.datamanager.eval_camera_bundle(cam_idx)
+        with profiler.span("pipeline.rays"):
+            bundle, gt, (hs, ws) = self.datamanager.eval_camera_bundle(cam_idx)
         if shift is not None:
             bundle = bundle.replace(origins=bundle.origins + torch.as_tensor(shift, device=self.device))
         nff = self._chunked_nff(bundle, all_camera=True, edits=edits)
@@ -578,7 +587,8 @@ class ADPipeline:
         self._no_nerfacto()
         self._eval_params()
         rgb, gt = self._render_camera(cam_idx, edits)
-        return rgb.cpu().numpy(), gt
+        with profiler.span("pipeline.to_host"):
+            return rgb.cpu().numpy(), gt
 
     @torch.no_grad()
     def _render_lidar(self, scan_idx: int) -> Dict[str, torch.Tensor]:

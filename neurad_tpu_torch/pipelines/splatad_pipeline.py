@@ -51,6 +51,7 @@ from neurad_tpu_torch.model_components.strategy import (
 )
 from neurad_tpu_torch.models.splatad import SplatADConfig, SplatADModel, seed_gaussians
 from neurad_tpu_torch.parallel import sharding
+from neurad_tpu_torch.utils import profiler
 from neurad_tpu_torch.utils.eval_metrics import fid, fid_suite_shifts
 
 # Per-group learning-rate presets, grouped by parameter name.
@@ -469,7 +470,8 @@ class SplatADPipeline:
     def _render_camera(self, cam_idx: int, edits: Optional[ActorEdits] = None) -> torch.Tensor:
         """An eval camera's full-image render, with its velocity and rolling
         shutter -> rgb [H, W, 3] on the pipeline's device."""
-        s = self.datamanager._camera_sample(cam_idx)
+        with profiler.span("pipeline.rays"):
+            s = self.datamanager._camera_sample(cam_idx)
         out = self.model.get_camera_outputs(
             s.c2w, s.K, s.width, s.height, s.time, s.sensor_idx, s.cam_idx,
             cam_linear_vel=s.linear_velocity,
@@ -482,7 +484,11 @@ class SplatADPipeline:
     @torch.inference_mode()
     def render_eval_camera(self, cam_idx: int, edits: Optional[ActorEdits] = None):
         """Full-image render -> (pred rgb [H, W, 3], gt rgb), numpy."""
-        return self._render_camera(cam_idx, edits).cpu().numpy(), self.datamanager._camera_sample(cam_idx).image
+        rgb = self._render_camera(cam_idx, edits)
+        with profiler.span("pipeline.to_host"):
+            rgb = rgb.cpu().numpy()
+        with profiler.span("pipeline.rays"):
+            return rgb, self.datamanager._camera_sample(cam_idx).image
 
     @torch.inference_mode()
     def render_eval_lidar(self, scan_idx: int) -> Dict[str, np.ndarray]:

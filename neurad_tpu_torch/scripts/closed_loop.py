@@ -25,6 +25,7 @@ model then drawn from `--seed`).
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import threading
 import time
@@ -41,6 +42,7 @@ from neurad_tpu_torch.fields.neurad_encoding import keep_bf16_copies
 from neurad_tpu_torch.model_components.dynamic_actors import actor_data_from_trajectories
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline
+from neurad_tpu_torch.utils import profiler
 
 
 class ClosedLoopState:
@@ -57,6 +59,7 @@ class ClosedLoopState:
         self.render_lock = threading.Lock()
         self.time_offset = float((pipeline.outputs.metadata or {}).get("time_offset", 0.0))
         self.last_render_seconds = float("nan")  # render + copy to host of the last image
+        self._requests = itertools.count(1)  # the number of each `render_image` call, in its span
 
     @classmethod
     def from_run_dir(cls, run_dir, device="cuda") -> "ClosedLoopState":
@@ -69,28 +72,30 @@ class ClosedLoopState:
         return cls(pipeline, device=dev)
 
     def render_image(self, pose_4x4, timestamp: float, camera_name: str = "front") -> np.ndarray:
-        outputs = self.pipeline.outputs
-        cams = outputs.cameras
-        names = {v: k for k, v in outputs.sensor_idx_to_name.items()}
-        sensor = names.get(camera_name, 0)
-        cam_idx = 0
-        if "sensor_idxs" in cams.metadata:
-            matches = np.nonzero(cams.metadata["sensor_idxs"][:, 0].numpy() == sensor)[0]
-            cam_idx = int(matches[0]) if len(matches) else 0
+        with profiler.span("closed_loop.request", request=next(self._requests)):
+            with profiler.span("closed_loop.patch_cameras"):
+                outputs = self.pipeline.outputs
+                cams = outputs.cameras
+                names = {v: k for k, v in outputs.sensor_idx_to_name.items()}
+                sensor = names.get(camera_name, 0)
+                cam_idx = 0
+                if "sensor_idxs" in cams.metadata:
+                    matches = np.nonzero(cams.metadata["sensor_idxs"][:, 0].numpy() == sensor)[0]
+                    cam_idx = int(matches[0]) if len(matches) else 0
 
-        pose = torch.as_tensor(np.asarray(pose_4x4, dtype=np.float32)[:3, :4])
-        c2w = cams.camera_to_worlds.clone()
-        c2w[cam_idx] = pose
-        times = cams.times.clone() if cams.times is not None else None
-        if times is not None:
-            times[cam_idx] = timestamp
-        patched = cams.replace(camera_to_worlds=c2w, times=times)
-        with self.render_lock:
-            self.pipeline.outputs.cameras = patched
-            self.pipeline.datamanager.outputs.cameras = patched
-            start = time.perf_counter()
-            pred, _ = self.pipeline.render_eval_camera(cam_idx)
-            self.last_render_seconds = time.perf_counter() - start
+                pose = torch.as_tensor(np.asarray(pose_4x4, dtype=np.float32)[:3, :4])
+                c2w = cams.camera_to_worlds.clone()
+                c2w[cam_idx] = pose
+                times = cams.times.clone() if cams.times is not None else None
+                if times is not None:
+                    times[cam_idx] = timestamp
+                patched = cams.replace(camera_to_worlds=c2w, times=times)
+            with self.render_lock:
+                self.pipeline.outputs.cameras = patched
+                self.pipeline.datamanager.outputs.cameras = patched
+                start = time.perf_counter()
+                pred, _ = self.pipeline.render_eval_camera(cam_idx)
+                self.last_render_seconds = time.perf_counter() - start
         return pred
 
     def get_actors(self):
