@@ -47,7 +47,9 @@ read type. Launches are counted in `hash_grid_launches` and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 import weakref
 from typing import Optional, Sequence, Tuple
 
@@ -483,6 +485,22 @@ def hash_grid_encode_bwd(
     return dtables, dpos, dstd
 
 
+_capture = threading.local()  # `cut`: the hook of the CUDA graph this thread captures (`cut_at_lookups`)
+
+
+@contextlib.contextmanager
+def cut_at_lookups(cut):
+    """While entered, this thread's lookups without autograd call
+    `cut(positions, stds, tables, layout, copies)` and return its result
+    instead of launching the kernel: a CUDA graph's capture ends a piece
+    there (`models/nff_graphs.py`)."""
+    outer, _capture.cut = getattr(_capture, "cut", None), cut
+    try:
+        yield
+    finally:
+        _capture.cut = outer
+
+
 class HashGridLookup(torch.autograd.Function):
     """The lookup under autograd: forward kernel and backward kernel on CUDA
     tensors, the two plain versions on CPU tensors. Saves only its inputs."""
@@ -518,13 +536,20 @@ def hash_grid_encode(
     kernels; anything the kernels do not take raises. Differentiable in the
     positions, the stds and the tables. `copies`: the owner's bf16 copies of
     these tables; a lookup with bf16 reads and without autograd reads them
-    instead of the masters (the same bits, half the bytes)."""
+    instead of the masters (the same bits, half the bytes).
+
+    While this thread captures a CUDA graph cut at the lookups
+    (`cut_at_lookups`), a lookup without autograd is handed to the capture
+    instead, which runs it eagerly through this function at each replay."""
     _check(positions, stds, tables, scales, buckets, dense_res, f, cell_packed)
     layout = (tuple(float(s) for s in scales), tuple(int(b) for b in buckets), tuple(dense_res), f, bool(read_bf16),
               bool(cell_packed))
     inputs = (positions, stds, *tables)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return HashGridLookup.apply(positions, stds, layout, *tables)
+    cut = getattr(_capture, "cut", None)
+    if cut is not None:
+        return cut(positions, stds, tables, layout, copies)
     return _forward(positions, stds, tables, *layout,
                     copies=copies.of(tables) if copies is not None and read_bf16 else None)
 

@@ -66,6 +66,7 @@ from neurad_tpu_torch.model_components.dynamic_actors import (
     empty_actor_data,
 )
 from neurad_tpu_torch.model_components.perceptual import load_vgg19_params
+from neurad_tpu_torch.models import nff_graphs
 from neurad_tpu_torch.models.nerfacto import NerfactoModel
 from neurad_tpu_torch.models.neurad import LossSettings, MLPProposalSettings, NeuRADModel, SamplingSettings
 from neurad_tpu_torch.parallel import sharding
@@ -178,6 +179,7 @@ class ADPipeline:
         self.datamanager = ADDataManager(outputs, self.config.datamanager, device=self.device,
                                          seed=sharding.host_local_seed(self.config.seed, rank))
         self.model = self._build_model(self.config.seed)
+        self.nff_graphs = nff_graphs.NFFGraphs(self.model)  # the serving renders' CUDA graphs, captured on use
         self.num_cam_rays = self.datamanager.num_cam_rays
         # the train loss sees the global batch: every rank contributes num_cam_rays camera rays
         self._train_num_cam_rays = self.num_cam_rays * world
@@ -508,24 +510,37 @@ class ADPipeline:
         bundle is one modality at eval). The last chunk is padded with zero
         rays to the chunk's size, as the JAX pipeline pads it: the capacity of
         the compacted actor lookup depends on the chunk's size. Outputs are
-        trimmed."""
+        trimmed. Where `_replays_nff` holds, a chunk is rendered by replaying
+        CUDA graphs of the same kernels on the same inputs
+        (`models/nff_graphs.py`)."""
         chunk = self.config.eval_chunk
         n = bundle.origins.shape[0]
         if self._eval_sharded():
             return self._chunked_nff_sharded(bundle, all_camera, edits)
-        outs = []
+        graphs = self.nff_graphs if self._replays_nff(bundle.origins.device, edits) else None
+        num_cam_rays = chunk if all_camera else 0
+        results = None
         for start in range(0, n, chunk):
             with profiler.span("pipeline.chunk", index=start // chunk):
+                profiler.count("nff.chunks", 1)
                 piece = map_tensors(lambda x: x[start : start + chunk], bundle)
                 m = piece.origins.shape[0]
-                if m < chunk:
-                    piece = map_tensors(lambda x: torch.cat([x, x.new_zeros((chunk - m,) + x.shape[1:])], dim=0),
-                                        piece)
-                out = self.model.get_nff_outputs(piece, chunk if all_camera else 0, edits=edits)
-                outs.append({k: v[:m] for k, v in out.items()})
-        if len(outs) == 1:
-            return outs[0]
-        return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+                out = None if graphs is None else graphs.render(piece, chunk, num_cam_rays)
+                if out is None:
+                    if m < chunk:
+                        piece = map_tensors(lambda x: torch.cat([x, x.new_zeros((chunk - m,) + x.shape[1:])], dim=0),
+                                            piece)
+                    out = self.model.get_nff_outputs(piece, num_cam_rays, edits=edits)
+                if results is None:
+                    results = {k: v.new_empty((n,) + v.shape[1:]) for k, v in out.items()}
+                for k, v in out.items():  # before the next replay overwrites the outputs
+                    results[k][start : start + m].copy_(v[:m])
+        return results
+
+    def _replays_nff(self, device: torch.device, edits: Optional[ActorEdits]) -> bool:
+        """Whether `_chunked_nff` replays its chunks' renders as CUDA graphs:
+        not in a sharded render, else as `nff_graphs.engages` says."""
+        return not self._eval_sharded() and nff_graphs.engages(self.model, device, edits)
 
     def _eval_sharded(self) -> bool:
         return self.mesh is not None and self.mesh.world_size > 1 and self.config.eval_shard
@@ -543,6 +558,7 @@ class ADPipeline:
         n = bundle.origins.shape[0]
         outs = []
         for start in range(0, n, chunk * mesh.world_size):
+            profiler.count("nff.chunks", 1)
             rows = min(chunk * mesh.world_size, n - start)
             mine = start + mesh.rank * chunk
             piece = map_tensors(lambda x: x[mine:min(mine + chunk, n)], bundle)

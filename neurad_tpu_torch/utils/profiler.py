@@ -31,7 +31,15 @@ does nothing otherwise; `counter_values` reads the counters once, after the
 window. Counters: `actor.samples_hit`,
 `actor.capacity`, `actor.samples_dropped` (the compacted actor lookup),
 `tiles.slots`, `tiles.slots_valid`, `tiles.pairs_dropped` (the camera
-binning), `datamanager.gets`, `datamanager.gets_waited` (`iter_train`).
+binning), `datamanager.gets`, `datamanager.gets_waited` (`iter_train`),
+`nff.chunks` (every chunk `ADPipeline._chunked_nff` renders),
+`nff.chunks_replayed` (those served by replaying CUDA graphs) and
+`nff.captures` (the captures of those graphs, `models/nff_graphs.py`).
+
+A CUDA graph's capture counts into a `counting()` block of its own, so that
+the counted values are computed inside the graph, and adds that block to
+the current one after each replay (`Counters.count_again`); it notes the
+spans its pieces open (`spans_opened`) and replays each piece in its span.
 
 Rules for spans:
 - only on the thread that drives the device: the profiler does not record
@@ -108,6 +116,7 @@ def flush_profiler() -> Dict[str, float]:
 atexit.register(flush_profiler)
 
 _NO_SPAN = nullcontext()
+_OPENED: Optional[List[str]] = None  # the names of the spans opened inside `spans_opened()`
 
 
 def span(name: str, **args):
@@ -115,9 +124,23 @@ def span(name: str, **args):
     such as a chunk's index, in the range's arguments) while a profile runs;
     otherwise one shared null context (module docstring: the names and the
     rules)."""
+    if _OPENED is not None:
+        _OPENED.append(name)
     if not torch.autograd.profiler._is_profiler_enabled:
         return _NO_SPAN
     return torch.profiler.record_function(name, repr(args) if args else None)
+
+
+@contextmanager
+def spans_opened():
+    """Yields the list of the names of the spans opened in the block, in
+    order (an enclosing block's list is set aside meanwhile)."""
+    global _OPENED
+    outer, _OPENED = _OPENED, []
+    try:
+        yield _OPENED
+    finally:
+        _OPENED = outer
 
 
 class Counters:
@@ -151,6 +174,22 @@ class Counters:
         if name in self.floors:
             values = (values - torch.tensor(self.floors[name], device=values.device)).clamp_min(0)
         return values.sum()
+
+    def count_again(self) -> None:
+        """Add this block's counts to the current `counting()` block (nothing
+        outside one), each device value cloned once: the counts of a captured
+        CUDA graph, added after each replay, which the next replay overwrites."""
+        if _COUNTERS is None:
+            return
+        for name, total in self.ints.items():
+            _COUNTERS.add(name, total)
+        clones: Dict[int, torch.Tensor] = {}
+        for name, pending in self.device.items():
+            floors = self.floors.get(name)
+            for k, value in enumerate(pending):
+                if id(value) not in clones:
+                    clones[id(value)] = value.clone()
+                _COUNTERS.add(name, clones[id(value)], None if floors is None else floors[k])
 
     def values(self) -> Dict[str, int]:
         out = dict(self.ints)
