@@ -46,6 +46,24 @@ metric is added with files and entries, without editing a file that is here:
                                         metric `<name>.<part>` takes the driver's
                                         `<name>` (one entry, with its own bound,
                                         for each family's cells)
+    portbench/tests/by_family/<family>.py
+                                        the family's part of the CPU tests:
+                                        `tiny(config)` (the configuration at a
+                                        size a CPU runs in seconds), `LIMITS`
+                                        ({cell: {number: limit}} where the full
+                                        size's do not hold there) and the port
+                                        faults the tests plant, functions of
+                                        pytest's `monkeypatch`: `answer_altered`
+                                        for a family that serves,
+                                        `step_unchanged` and `half_batch` for
+                                        one that trains; a cell whose family
+                                        lacks one fails the tests
+
+A family that trains provides the entry points that `drivers/train.py`'s
+docstring lists. The reference that its `reference_train` returns has
+`step(sampler_state, generator_state)`, `first_moments()` and `changes()`,
+and honours `fault = "half"` (the mean loss of half the batch), which the
+driver's `FAULTS` puts in the port's place in the control's readings.
 
 A cell is an entry of `workloads` that names a configuration and a traffic
 mix; a metric is an entry of `end_to_end` or `per_layer`. The plain
@@ -72,12 +90,37 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 
+M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3  # glibc's mallopt parameters
+HEAP_MMAP_THRESHOLD = 32 * 2**20  # glibc's largest on 64 bits; a 1920x1080 fp32 frame (25 MB) lies under it
+HEAP_TRIM_THRESHOLD = 2**30
+
+
+def steady_host_heap() -> bool:
+    """One allocation policy of glibc's for the whole run: blocks under 32 MiB
+    come from the heap, and the heap keeps what is freed (up to 1 GiB at its
+    top). Left alone, glibc moves both thresholds with the first large block a
+    process frees, so whether a served frame's host copy reused memory (2.2-2.6
+    ms for 25 MB on the H100's host) or got new memory (11-13 ms) was settled
+    per process, and the p90 of a run sat on one of two levels. False where the
+    C library takes no such setting (not glibc)."""
+    import ctypes
+
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+        return bool(libc.mallopt(M_MMAP_THRESHOLD, HEAP_MMAP_THRESHOLD)
+                    and libc.mallopt(M_TRIM_THRESHOLD, HEAP_TRIM_THRESHOLD))
+    except (OSError, AttributeError):
+        return False
+
+
 def _environment() -> None:
-    """Caches inside the checkout at fixed paths; no library loads JAX."""
+    """Caches inside the checkout at fixed paths; no library loads JAX; the
+    host heap's policy fixed before anything is allocated."""
     cache = ROOT / ".portbench_cache"
     os.environ["TORCH_EXTENSIONS_DIR"] = str(cache / "torch_extensions")
     os.environ["TRITON_CACHE_DIR"] = str(cache / "triton")
     os.environ["USE_FLAX"] = "0"
+    steady_host_heap()
 
 
 def parse_args(argv=None):

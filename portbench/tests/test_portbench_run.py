@@ -7,9 +7,7 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import pytest
-import torch
 
 from portbench.controls import readings as R
 from portbench.harness import cell as C
@@ -71,20 +69,9 @@ def test_the_control_fails_at_a_tiny_size(workload):
 
 @pytest.mark.parametrize("workload", SERVE)
 def test_an_answer_altered_where_it_is_produced_fails(workload, monkeypatch):
-    """The pipeline's render returns an image with one block of pixels wrong."""
-    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
-    from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline
-
-    for cls in (ADPipeline, SplatADPipeline):
-        original = cls.render_eval_camera
-
-        def altered(self, *args, _original=original, **kwargs):
-            rgb, gt = _original(self, *args, **kwargs)
-            rgb = np.array(rgb)
-            rgb[:16, :16] = 1.0 - rgb[:16, :16]
-            return rgb, gt
-
-        monkeypatch.setattr(cls, "render_eval_camera", altered)
+    """The pipeline's render returns an image with one block of pixels wrong
+    (the family's `answer_altered`)."""
+    tiny.fault(workload, "answer_altered")(monkeypatch)
     assert not _correct(tiny.cell(workload), _run(workload))
 
 
@@ -101,41 +88,17 @@ def test_actors_left_unmoved_fail(workload, monkeypatch):
 
 @pytest.mark.parametrize("workload", TRAIN)
 def test_a_step_that_returns_its_state_unchanged_fails(workload, monkeypatch):
-    """The step computes its loss and leaves the parameters as they were."""
-    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
-
-    def unchanged(self, state, bundle, batch, draws=None):
-        draws = self.draw(state.generator, bundle.origins.shape[0]) if draws is None else draws
-        total, metrics = self.loss_fn(bundle, batch, draws)
-        state.step += 1
-        return state, dict(metrics, total_loss=total.detach())
-
-    monkeypatch.setattr(ADPipeline, "train_step", unchanged)
+    """The step computes its loss and leaves the parameters as they were (the
+    family's `step_unchanged`)."""
+    tiny.fault(workload, "step_unchanged")(monkeypatch)
     assert not _correct(tiny.cell(workload), _run(workload))
 
 
 @pytest.mark.parametrize("workload", TRAIN)
 def test_half_of_the_batch_left_out_fails(workload, monkeypatch):
-    """The step takes the loss of the first half of the camera patches and of
-    the lidar rays, the mean over them."""
-    from neurad_tpu_torch.core.structs import map_tensors
-    from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline
-
-    original = ADPipeline.train_step
-
-    def half(self, state, bundle, batch, draws=None):
-        n_cam, n, per = self.num_cam_rays, bundle.origins.shape[0], self.patch_size[0] * self.patch_size[1]
-        cam, lid = n_cam // 2 // per * per, (n - n_cam) // 2
-        rows = torch.cat([torch.arange(cam), torch.arange(n_cam, n_cam + lid)])
-        bundle = map_tensors(lambda x: x[rows], bundle)
-        batch = {k: (v[: cam // per] if k == "image" else v[:lid]) for k, v in batch.items()}
-        full, self.num_cam_rays = self.num_cam_rays, cam
-        try:
-            return original(self, state, bundle, batch)
-        finally:
-            self.num_cam_rays = full
-
-    monkeypatch.setattr(ADPipeline, "train_step", half)
+    """The step takes the mean loss of half of the batch (the family's
+    `half_batch`)."""
+    tiny.fault(workload, "half_batch")(monkeypatch)
     assert not _correct(tiny.cell(workload), _run(workload))
 
 

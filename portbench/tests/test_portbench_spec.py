@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
+import re
 import shutil
 from pathlib import Path
 
@@ -11,6 +13,7 @@ import pytest
 
 from portbench.harness import cell as C
 from portbench.harness import spec as S
+from portbench.tests import tiny
 
 BENCH = S.benchmark()
 TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
@@ -119,3 +122,92 @@ def test_a_cell_and_a_metric_are_added_from_files_alone(tmp_path):
     assert reader.read(type("T", (), {"window_s": 2.5})()) == 2.5
     after = _digest(pkg)
     assert {k: v for k, v in after.items() if k in before} == before, "no file that was there changed"
+
+
+_STUB_TESTS = '''
+def tiny(c):
+    c["train"]["batch_rays"] = 64
+    return c
+
+
+LIMITS = {"stub.train": {"loss_rel": 0.25}}
+
+
+def step_unchanged(monkeypatch):
+    monkeypatch.setenv("PORTBENCH_STUB_FAULT", "step_unchanged")
+
+
+def half_batch(monkeypatch):
+    monkeypatch.setenv("PORTBENCH_STUB_FAULT", "half_batch")
+'''
+
+
+def _train_entry_points() -> list:
+    """The entry points a family that trains provides, as the train driver's
+    docstring lists them."""
+    from portbench.drivers import train
+
+    doc = train.__doc__
+    return re.findall(r"`(\w+)`", doc[doc.index("A family that trains provides"):].split("\n\n")[0])
+
+
+def _add_stub_family(tmp_path: Path, tests_module) -> dict:
+    """A copy of the benchmark with a training cell `stub.train` of a new
+    family `stub` added from new files and entries alone (`tests_module`: its
+    test-side module, None for none); the digests of the copy's files as
+    they were before."""
+    shutil.copy(S.ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(S.PKG, tmp_path / "portbench", ignore=shutil.ignore_patterns("__pycache__"))
+    pkg = tmp_path / "portbench"
+    before = _digest(pkg)
+    (pkg / "families" / "stub.py").write_text("".join(
+        f"def {name}(*args, **kwargs):\n    raise NotImplementedError\n\n\n" for name in _train_entry_points()))
+    if tests_module is not None:
+        (pkg / "tests" / "by_family" / "stub.py").write_text(tests_module)
+    config = {"family": "stub", "preset": "stub", "control": "tf32", "train": {"batch_rays": 65536},
+              "weights": {"rules": []}}
+    (pkg / "configs" / "stub.json").write_text(json.dumps(config))
+    (pkg / "limits" / "stub.train.json").write_text(json.dumps({"loss_rel": 4e-6}))
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "stub", "source": "https://arxiv.org/abs/2411.16816",
+                             "file": "portbench/configs/stub.json", "reduced": [], "why": "a family that trains"})
+    bench["workloads"].append({"name": "stub.train", "config": "stub", "traffic": "train", "chips": 1,
+                               "why": "the stub family trained"})
+    bench["end_to_end"].append({"name": "train_rays_per_s.stub", "unit": "rays/s", "better": "higher", "bound": 0.25,
+                                "source": "host_clock", "workloads": ["stub.train"]})
+    bench["per_layer"].append({"name": "mfu.train.stub", "unit": "%", "better": "higher", "source": "device_trace",
+                               "layer": "model", "moves": "train_rays_per_s.stub", "workloads": ["stub.train"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return before
+
+
+def test_a_training_cell_of_a_new_family_is_added_from_files_alone(tmp_path, monkeypatch):
+    before = _add_stub_family(tmp_path, _STUB_TESTS)
+    full = S.load("stub.train", root=tmp_path)
+    assert full.traffic["kind"] == "train" and full.limits == {"loss_rel": 4e-6}
+    assert {m["name"] for m in full.end_to_end} == {"train_rays_per_s.stub", "peak_mem_gib", "setup_s"}
+    assert S.driver_value({"train_rays_per_s": 1.5}, "train_rays_per_s.stub") == 1.5
+    assert [m["name"] for m in full.per_layer] == ["mfu.train.stub"]
+    assert hasattr(C.load_reader("mfu.train.stub", root=tmp_path), "read")
+    assert {"build_train", "train_step", "reference_train"} <= set(_train_entry_points())
+
+    cell = tiny.cell("stub.train", root=tmp_path)
+    assert cell.config["train"]["batch_rays"] == 64 and cell.config["scene"] == tiny.SCENE
+    assert cell.limits == {"loss_rel": 0.25}
+    for name in ("step_unchanged", "half_batch"):
+        tiny.fault("stub.train", name, root=tmp_path)(monkeypatch)
+        assert os.environ["PORTBENCH_STUB_FAULT"] == name
+    after = _digest(tmp_path / "portbench")
+    assert {k: v for k, v in after.items() if k in before} == before, "no file that was there changed"
+
+
+@pytest.mark.parametrize("tests_module, missing", [
+    (None, "has no test-side module: add portbench/tests/by_family/stub.py"),
+    ("def tiny(c):\n    return c\n", "to portbench/tests/by_family/stub.py"),
+], ids=["no-module", "no-faults"])
+def test_a_family_without_its_faults_fails_loudly(tmp_path, tests_module, missing):
+    _add_stub_family(tmp_path, tests_module)
+    for name in ("step_unchanged", "half_batch"):
+        with pytest.raises(LookupError, match=re.escape(missing)) as err:
+            tiny.fault("stub.train", name, root=tmp_path)
+        assert tests_module is None or f"`def {name}(monkeypatch)`" in str(err.value)

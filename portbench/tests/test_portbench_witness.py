@@ -74,7 +74,7 @@ from portbench.reference.port.data.dataparsers.synthetic import SyntheticDataPar
 from portbench.reference.port.fields import neurad_encoding as RE  # noqa: E402
 from portbench.reference.port.models import neurad as RM  # noqa: E402
 from portbench.reference.splatad_serve import SplatADServe  # noqa: E402
-from portbench.tests import tiny  # noqa: E402
+from portbench.tests.by_family import neurad as tiny_neurad  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -89,7 +89,7 @@ GROUPS = {g: dict(lr=LR, warmup_steps=0) for g in ("fields", "hashgrids", "cnn")
 
 def _model_block() -> dict:
     """The tiny cells' model settings (parity layout, hash proposals, fp32)."""
-    return copy.deepcopy(tiny.NEURAD_MODEL)
+    return copy.deepcopy(tiny_neurad.NEURAD_MODEL)
 
 
 def _jax_overrides(block: dict) -> dict:

@@ -1,69 +1,62 @@
 """Tiny versions of the cells for the CPU tests: the same families, traffic
-kinds and readers, at widths and sizes a CPU runs in seconds."""
+kinds and readers, at widths and sizes a CPU runs in seconds.
+
+A family's own sizes, limits and planted port faults are in its test-side
+module, `portbench/tests/by_family/<family>.py`, found by the configuration's
+`family`; a cell whose family has none fails the tests that ask for it."""
 
 from __future__ import annotations
 
-import copy
+import importlib.util
 import json
+from pathlib import Path
+from types import ModuleType
+from typing import Callable
 
 from portbench.harness import spec as S
 
 SCENE = {"num_frames": 3, "image_height": 48, "image_width": 72, "focal": 50.4, "lidar_channels": 8,
          "lidar_azimuths": 64}
-_PARITY = {"cell_packed": False, "parity": True}
-NEURAD_MODEL = {
-    "loss": {"vgg_mult": 0.05},
-    "sampling": {"num_proposal_samples": [12, 8], "num_nerf_samples": 6, "sky_distance": 1000.0},
-    "field_static": {"num_levels": 4, "base_res": 16, "max_res": 256, "log2_hashmap_size": 13, "hashgrid_dim": 4,
-                     **_PARITY},
-    "field_actor": {"flip_prob": 0.25, "num_levels": 2, "base_res": 16, "max_res": 64, "log2_hashmap_size": 11,
-                    "hashgrid_dim": 4, **_PARITY},
-    "proposal_static": [{"num_levels": 3, "base_res": 16, "max_res": 128, "log2_hashmap_size": 11,
-                         "hashgrid_dim": 1, **_PARITY}] * 2,
-    "proposal_actor": {"num_levels": 2, "base_res": 16, "max_res": 64, "log2_hashmap_size": 9, "hashgrid_dim": 1,
-                       **_PARITY},
-    "appearance_dim": 4,
-    "max_actors_per_ray": 1,
-    "proposal_mode": "hashgrid",
-    "compute_fp32": True,
-}
 
 
-def config(name: str) -> dict:
+def family(name: str, root: Path = S.ROOT) -> ModuleType:
+    """The test-side module of family `name` in `root`'s benchmark; raises
+    LookupError, naming the file to add, where there is none."""
+    path = root / "portbench" / "tests" / "by_family" / f"{name}.py"
+    if not path.is_file():
+        raise LookupError(f"family {name!r} has no test-side module: add portbench/tests/by_family/{name}.py "
+                          "with `tiny(config)`, `LIMITS` and the family's planted faults (see portbench/run.py)")
+    module_spec = importlib.util.spec_from_file_location(f"portbench_tests_by_family_{name}", path)
+    module = importlib.util.module_from_spec(module_spec)
+    module_spec.loader.exec_module(module)
+    return module
+
+
+def fault(workload: str, name: str, root: Path = S.ROOT) -> Callable:
+    """The port fault `name` that the tests plant in cell `workload`: a
+    function of pytest's `monkeypatch` from the cell's family's module;
+    raises LookupError, naming the file and the function to add, where that
+    module has none."""
+    fam = S.load(workload, root).config["family"]
+    planted = getattr(family(fam, root), name, None)
+    if planted is None:
+        raise LookupError(f"cell {workload!r}: family {fam!r} plants no fault {name!r}: add "
+                          f"`def {name}(monkeypatch)` to portbench/tests/by_family/{fam}.py")
+    return planted
+
+
+def config(name: str, root: Path = S.ROOT) -> dict:
     """The configuration `name` of the benchmark at a tiny size."""
-    c = copy.deepcopy(json.loads((S.PKG / "configs" / f"{name}.json").read_text()))
+    c = json.loads((root / "portbench" / "configs" / f"{name}.json").read_text())
     c["scene"] = dict(SCENE)
-    if c["family"] == "neurad":
-        c["preset"] = "neurad-tiny"
-        for rule in c["weights"]["rules"]:  # three proposal levels, not six: the same density in free space
-            if "density_decoder" in rule["match"] and rule["init"] == "const":
-                rule["value"] = 2.0 * rule["value"]
-        c["model"] = copy.deepcopy(NEURAD_MODEL)
-        c["serve"] = {"eval_chunk": 256, "rgb_upsample_factor": 3}
-        c["train"] = {"num_cam_patches": 2, "patch_size": 4, "num_lidar_rays": 64, "rgb_upsample_factor": 3,
-                      "train_ray_chunk": 64, "sampler_threads": 2, "prefetch": 2,
-                      "optimizer_groups": {g: {"lr": 5e-3, "warmup_steps": 0} for g in ("fields", "hashgrids", "cnn")}
-                      | {g: {"lr": 1e-4, "warmup_steps": 0} for g in ("trajectory_opt", "camera_opt")}}
-    else:
-        c["serve"] = {"cap_max": 4096, "model": {"max_per_tile": 64}}
-    return c
+    return family(c["family"], root).tiny(c)
 
 
-# Limits at the tiny size where the full size's do not hold. On the CPU the port and the reference
-# compute the same fp32 sums (every reading 0 at the tiny size); the control (its convolutions in
-# bf16: TF32 does not exist on the CPU) reads rgb_max_abs >= 0.0060, rgb_rmse >= 0.0010 and the
-# actors left where the scene logged them actor_rgb_rmse >= 0.0027 over two seeds; in training the
-# control reads loss_rel >= 0.0016, grad_gap >= 0.049, change_gap >= 0.060 and half the batch 1.1 /
-# 0.50 / 0.24.
-LIMITS = {"neurad.train": {"loss_rel": 0.0005, "grad_gap": 0.02, "change_gap": 0.02},
-          "neurad.sim-camera": {"rgb_max_abs": 0.003, "rgb_rmse": 0.0005, "actor_rgb_rmse": 0.0008}}
-
-
-def cell(workload: str, traffic: dict = None) -> S.Cell:
+def cell(workload: str, traffic: dict = None, root: Path = S.ROOT) -> S.Cell:
     """The benchmark's cell `workload` with its configuration made tiny."""
-    full = S.load(workload)
-    full.config = config(full.config_name)
-    full.limits = LIMITS.get(workload, full.limits)
+    full = S.load(workload, root)
+    full.config = config(full.config_name, root)
+    full.limits = getattr(family(full.config["family"], root), "LIMITS", {}).get(workload, full.limits)
     if traffic:
         full.traffic = dict(full.traffic, **traffic)
     return full
