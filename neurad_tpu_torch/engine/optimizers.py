@@ -126,6 +126,15 @@ class Optimizers:
                       if self.configs[g].accum_steps > 1}
         self.mini = {g: 0 for g in self.accum}
 
+    def start_at(self, step: int) -> None:
+        """Put the schedules at `step` of training, as a checkpoint of that
+        step restores them: `count`, and each group's `updates` (one a window
+        where it accumulates); the moments and the accumulators as they are
+        (zero for fresh optimizers)."""
+        state = self.state_dict()
+        state.update(count=int(step), updates={g: int(step) // self.configs[g].accum_steps for g in self.params})
+        self.load_state_dict(state)
+
     def learning_rates(self, step: Optional[int] = None) -> Dict[str, float]:
         """Each group's learning rate at `step` (default: at its next update)."""
         return {g: sched(self.updates[g] if step is None else step) for g, sched in self.schedules.items()}

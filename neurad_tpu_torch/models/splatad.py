@@ -473,21 +473,23 @@ class SplatADModel(nn.Module):
         """Lidar render at spherical query points."""
         cfg = self.config
         dev = self.device
-        l2w, raster_pts = _as_tensor(l2w, dev), _as_tensor(raster_pts, dev)
-        time, sensor_idx = _as_tensor(time, dev), _as_tensor(sensor_idx, dev, torch.long)
-        means, vels = self._actor_adjusted_means(time, edits)
-        covar6 = G.quat_scale_to_covar6(self.quats, torch.exp(self.scales))
-        r_wl = l2w[:3, :3].T
-        viewmat = torch.eye(4, device=dev)
-        viewmat[:3, :3] = r_wl
-        viewmat[:3, 3] = -r_wl @ l2w[:3, 3]
-        lin_v = _as_tensor(lidar_linear_vel, dev) if lidar_linear_vel is not None else torch.zeros(3, device=dev)
-        lin = l2w[:3, :3].T @ lin_v
-        ang = _as_tensor(lidar_angular_vel, dev) if lidar_angular_vel is not None else torch.zeros(3, device=dev)
-        proj = G.project_gaussians_lidar(
-            means, covar6=covar6, viewmat=viewmat, velocities=vels,
-            lidar_linear_velocity=lin, lidar_angular_velocity=ang,
-        )
+        with profiler.span("model.project"):
+            l2w, raster_pts = _as_tensor(l2w, dev), _as_tensor(raster_pts, dev)
+            time, sensor_idx = _as_tensor(time, dev), _as_tensor(sensor_idx, dev, torch.long)
+            with profiler.span("model.actor_means"):
+                means, vels = self._actor_adjusted_means(time, edits)
+            covar6 = G.quat_scale_to_covar6(self.quats, torch.exp(self.scales))
+            r_wl = l2w[:3, :3].T
+            viewmat = torch.eye(4, device=dev)
+            viewmat[:3, :3] = r_wl
+            viewmat[:3, 3] = -r_wl @ l2w[:3, 3]
+            lin_v = _as_tensor(lidar_linear_vel, dev) if lidar_linear_vel is not None else torch.zeros(3, device=dev)
+            lin = l2w[:3, :3].T @ lin_v
+            ang = _as_tensor(lidar_angular_vel, dev) if lidar_angular_vel is not None else torch.zeros(3, device=dev)
+            proj = G.project_gaussians_lidar(
+                means, covar6=covar6, viewmat=viewmat, velocities=vels,
+                lidar_linear_velocity=lin, lidar_angular_velocity=ang,
+            )
         raster_kw = dict(
             elev_range=cfg.lidar_elev_range,
             tile_size_azim=cfg.lidar_tile_azim,
@@ -500,20 +502,22 @@ class SplatADModel(nn.Module):
                 proj, self.features, torch.sigmoid(self.opacities), raster_pts[:, :4],
                 pts_per_tile=cfg.lidar_pts_per_tile, backend=cfg.rasterize_backend, **raster_kw,
             )
-        else:  # per-point gathers in plain PyTorch, as XLA computes them in the JAX package
-            out = GR.rasterize_lidar_points(proj, self.features, torch.sigmoid(self.opacities), raster_pts[:, :4],
-                                            **raster_kw)
-        azim = torch.deg2rad(raster_pts[:, 0])
-        elev = torch.deg2rad(raster_pts[:, 1])
-        dirs = torch.stack(
-            [torch.cos(elev) * torch.cos(azim), torch.cos(elev) * torch.sin(azim), torch.sin(elev)], dim=-1
-        )
-        dirs = dirs @ l2w[:3, :3].T  # the decoder takes world-frame ray dirs
-        appearance = self.appearance_embedding(sensor_idx.reshape(1))[0].expand(dirs.shape[0], -1)
-        dec = self.lidar_decoder(torch.cat([out["features"], appearance, dirs], dim=-1))
-        out["intensity"] = torch.sigmoid(dec[..., :1])
-        out["ray_drop_logits"] = dec[..., 1:]
-        return out
+        else:  # per-point gathers in plain PyTorch, as XLA computes them in the JAX package (binning included)
+            with profiler.span("model.composite"):
+                out = GR.rasterize_lidar_points(proj, self.features, torch.sigmoid(self.opacities),
+                                                raster_pts[:, :4], **raster_kw)
+        with profiler.span("model.decode"):
+            azim = torch.deg2rad(raster_pts[:, 0])
+            elev = torch.deg2rad(raster_pts[:, 1])
+            dirs = torch.stack(
+                [torch.cos(elev) * torch.cos(azim), torch.cos(elev) * torch.sin(azim), torch.sin(elev)], dim=-1
+            )
+            dirs = dirs @ l2w[:3, :3].T  # the decoder takes world-frame ray dirs
+            appearance = self.appearance_embedding(sensor_idx.reshape(1))[0].expand(dirs.shape[0], -1)
+            dec = self.lidar_decoder(torch.cat([out["features"], appearance, dirs], dim=-1))
+            out["intensity"] = torch.sigmoid(dec[..., :1])
+            out["ray_drop_logits"] = dec[..., 1:]
+            return out
 
     # ------------------------------------------------------------------
     # losses

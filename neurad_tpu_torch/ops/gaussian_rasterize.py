@@ -343,34 +343,36 @@ def rasterize_lidar_points_tiled(
     features/depth/alpha, alpha accumulated in front of the gt depth, median
     depth and the overflow counters."""
     _check_backend(backend)
-    ti = lidar_tile_inputs(
-        projected, features, opacities, raster_pts, azim_range, elev_range, tile_size_azim, tile_size_elev,
-        max_per_tile, max_tiles_per_gaussian, pts_per_tile,
-    )
-    feat, depth, acc, until, med = tile_composite_lidar(
-        ti["table"], ti["binning"].tile_gauss, ti["tile_valid"], ti["pts_slot"], ti["valid_slot"],
-        ti["wrap"], depth_eps, compute_alpha_sum_until_points,
-    )
-    slot_of_pt = ti["slot_of_pt"]
+    with profiler.span("model.bin"):
+        ti = lidar_tile_inputs(
+            projected, features, opacities, raster_pts, azim_range, elev_range, tile_size_azim, tile_size_elev,
+            max_per_tile, max_tiles_per_gaussian, pts_per_tile,
+        )
+    with profiler.span("model.composite"):
+        feat, depth, acc, until, med = tile_composite_lidar(
+            ti["table"], ti["binning"].tile_gauss, ti["tile_valid"], ti["pts_slot"], ti["valid_slot"],
+            ti["wrap"], depth_eps, compute_alpha_sum_until_points,
+        )
+        slot_of_pt = ti["slot_of_pt"]
 
-    def per_point(x):
-        flat = x.reshape(-1, x.shape[-1])
-        flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])  # overflow -> zero row
-        # index_select: its backward adds with atomics; advanced indexing's backward sorts, which is
-        # slow where many points share the overflow row
-        return torch.index_select(flat, 0, slot_of_pt)
+        def per_point(x):
+            flat = x.reshape(-1, x.shape[-1])
+            flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])  # overflow -> zero row
+            # index_select: its backward adds with atomics; advanced indexing's backward sorts, which is
+            # slow where many points share the overflow row
+            return torch.index_select(flat, 0, slot_of_pt)
 
-    binning = ti["binning"]
-    return {
-        "features": per_point(feat),
-        "depth": per_point(depth),
-        "alpha": per_point(acc),
-        "alpha_sum_until_points": per_point(until),
-        "median_depth": per_point(med),
-        "binning_dropped_pairs": binning.dropped_pairs,
-        "binning_cropped_gaussians": binning.cropped_gaussians,
-        "points_overflowed": ti["overflow"],
-    }
+        binning = ti["binning"]
+        return {
+            "features": per_point(feat),
+            "depth": per_point(depth),
+            "alpha": per_point(acc),
+            "alpha_sum_until_points": per_point(until),
+            "median_depth": per_point(med),
+            "binning_dropped_pairs": binning.dropped_pairs,
+            "binning_cropped_gaussians": binning.cropped_gaussians,
+            "points_overflowed": ti["overflow"],
+        }
 
 
 def rasterize_lidar_points(

@@ -5,9 +5,11 @@ and the eval/viewer renders.
 The pipeline owns its model, and the model owns the parameters (the JAX
 pipeline carries them in a TrainState). `init_state` makes the rest of the
 training state: the per-group optimizers, the step count and the generator the
-densification draws from. `train_step` takes one camera frame or one lidar
-scan: forward, loss, backward (the tile composites' backward kernels on a CUDA
-device), one optimizer update, then the densification strategy when it is due.
+densification draws from, at step 0 or at a step of the schedules. `train_step`
+takes one camera frame or one lidar scan: forward, loss, backward (the tile
+composites' backward kernels on a CUDA device), one optimizer update, then the
+densification strategy when it is due (spans `train.forward`,
+`train.backward`, `train.optimizer`, `train.refine`).
 `eval_metrics` and `eval_fid_suite` score the eval split.
 `make_sharded_train_step` is the data-parallel step over a `torch.distributed`
 world (one frame or scan a rank, `parallel/sharding.py`);
@@ -172,13 +174,19 @@ class SplatADPipeline:
     # training
     # ------------------------------------------------------------------
 
-    def init_state(self, seed: Optional[int] = None) -> TrainState:
+    def init_state(self, seed: Optional[int] = None, step: int = 0) -> TrainState:
+        """A fresh training state. `step` > 0 starts the schedules there: the
+        step count, which the resolution and densification schedules read,
+        and every group's learning-rate schedule (`Optimizers.start_at`),
+        with Adam's moments at zero, as a run that loads a model's
+        parameters at that step and starts its optimizers afresh."""
         if self.config.strategy not in ("mcmc", "default"):
             raise ValueError(f"unknown densification strategy {self.config.strategy!r}")
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.config.seed if seed is None else seed)
         optimizers = Optimizers(self.model.named_parameters(), self.config.optimizer_groups, SPLATAD_GROUP_RULES)
-        return TrainState(step=0, optimizers=optimizers, generator=generator)
+        optimizers.start_at(step)
+        return TrainState(step=step, optimizers=optimizers, generator=generator)
 
     def _downscale_sample(self, sample: CameraSample, step: int) -> CameraSample:
         """Coarse to fine: the image is subsampled by
@@ -250,10 +258,13 @@ class SplatADPipeline:
         offset = self._offset(sample)
         model.train()
         try:
-            total, metrics, out = self._forward_loss(sample, offset)
-            state.optimizers.zero_grad()
-            total.backward()
-            state.optimizers.step()
+            with profiler.span("train.forward"):
+                total, metrics, out = self._forward_loss(sample, offset)
+            with profiler.span("train.backward"):
+                state.optimizers.zero_grad()
+                total.backward()
+            with profiler.span("train.optimizer"):
+                state.optimizers.step()
         finally:
             model.eval()
         state.step += 1
@@ -377,11 +388,14 @@ class SplatADPipeline:
         if self.config.strategy == "default":
             cfg = self.config.default_strategy
             if should_refine_default(step, cfg):
-                self._refine_default(state)
+                with profiler.span("train.refine"):
+                    self._refine_default(state)
             if step % cfg.reset_every == 0 and 0 < step < cfg.refine_stop_iter:
-                self._set_gaussians(reset_opacities(self._gaussians(), cfg))
+                with profiler.span("train.refine"):
+                    self._set_gaussians(reset_opacities(self._gaussians(), cfg))
         elif should_refine(step, self.config.mcmc):
-            self._refine(state)
+            with profiler.span("train.refine"):
+                self._refine(state)
 
     def _refine(self, state: TrainState, targets=None, eps=None) -> None:
         """MCMC relocation + exploration noise. As in the JAX pipeline the

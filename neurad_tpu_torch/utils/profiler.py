@@ -22,8 +22,10 @@ after a single check of the profiler's state (about 1 us). Names are
     model.proposals, model.field, model.weights, model.decode,
     model.losses                                               NeuRAD (models/neurad.py, the pipeline's loss)
     model.actor_means, model.project, model.bin,
-    model.composite, model.decode                              SplatAD (models/splatad.py, ops/gaussian_rasterize.py)
-    train.forward, train.backward, train.optimizer             ADPipeline.train_step
+    model.composite, model.decode                              SplatAD camera and lidar (models/splatad.py,
+                                                               ops/gaussian_rasterize.py)
+    train.forward, train.backward, train.optimizer             ADPipeline.train_step, SplatADPipeline.train_step
+    train.refine                                               SplatADPipeline's densification, when it runs
 
 `count(name, value)` adds a Python int or a device scalar to a counter while
 `counting()` is entered (`above=floor`: only the part above the floor), and
@@ -33,8 +35,10 @@ window. Counters: `actor.samples_hit`,
 `tiles.slots`, `tiles.slots_valid`, `tiles.pairs_dropped` (the camera
 binning), `datamanager.gets`, `datamanager.gets_waited` (`iter_train`),
 `nff.chunks` (every chunk `ADPipeline._chunked_nff` renders),
-`nff.chunks_replayed` (those served by replaying CUDA graphs) and
-`nff.captures` (the captures of those graphs, `models/nff_graphs.py`).
+`nff.chunks_replayed` (those served by replaying CUDA graphs),
+`nff.captures` (the captures of those graphs, `models/nff_graphs.py`),
+`mcmc.refines` and `mcmc.relocated` (the MCMC relocations and the dead
+slots they move, `model_components/strategy.py`).
 
 A CUDA graph's capture counts into a `counting()` block of its own, so that
 the counted values are computed inside the graph, and adds that block to
@@ -54,7 +58,8 @@ Rules for spans:
   device's idle time is put down to the innermost span that was open;
 - the kernel entries the benchmark's launch recorders wrap keep their names:
   `ops.hash_encoding._forward`, `hash_grid_encode_bwd`,
-  `ops.tile_composite._camera_forward`.
+  `ops.tile_composite._camera_forward`, `_camera_backward`, `_lidar_forward`,
+  `_lidar_backward`.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port's spans and counters (`utils/profiler.py`): free with the
 profiler and the counters off, the documented span tree of a NeuRAD and a
-SplatAD closed-loop request and of a NeuRAD train step with the profiler on,
-and the counters against hand counts on tiny inputs."""
+SplatAD closed-loop request and of a NeuRAD and a SplatAD train step (camera,
+lidar, a refine) with the profiler on, and the counters against hand counts
+on tiny inputs."""
 
 import dataclasses
 import threading
@@ -16,8 +17,11 @@ from neurad_tpu_torch.configs.method_configs import neurad_tiny_overrides
 from neurad_tpu_torch.core.structs import GaussiansStd
 from neurad_tpu_torch.data.datamanager import ADDataManagerConfig
 from neurad_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+from neurad_tpu_torch.data.full_image_datamanager import CameraSample, FullImageLidarDataManagerConfig
 from neurad_tpu_torch.fields import neurad_encoding as E
 from neurad_tpu_torch.model_components import dynamic_actors as A
+from neurad_tpu_torch.model_components import strategy as ST
+from neurad_tpu_torch.models.splatad import SplatADConfig
 from neurad_tpu_torch.ops import gaussian_rasterize as GR
 from neurad_tpu_torch.pipelines.ad_pipeline import ADPipeline, ADPipelineConfig
 from neurad_tpu_torch.pipelines.splatad_pipeline import SplatADPipeline, SplatADPipelineConfig
@@ -197,6 +201,76 @@ def test_neurad_train_step_span_tree(neurad):
     assert _names(forward) == ["pipeline.chunk"] * 3 + ["model.losses"]  # 96 rays in chunks of 32
     assert all(_names(c[1]) == list(NFF) for c in forward[:3])
     assert forward[3][1] == [("model.decode", [])]
+
+
+SPLAT_TRAIN = SplatADConfig(num_downscales=0, lidar_tile_azim=20.0, lidar_tile_elev=14.0, lidar_max_per_tile=32,
+                            lidar_pts_per_tile=64)
+SPLAT_STEP = ["model.project", "model.bin", "model.composite", "model.decode"]
+
+
+@pytest.fixture(scope="module")
+def splatad_train(scene):
+    """A SplatAD pipeline with small lidar tiles, its state one step before
+    a refine (step 599: 500 < 600 < 25,000, every 100th)."""
+    cfg = SplatADPipelineConfig(cap_max=500, model=SPLAT_TRAIN,
+                                datamanager=FullImageLidarDataManagerConfig(max_lidar_points=1024))
+    pipeline = SplatADPipeline(scene, cfg, device="cpu")
+    return pipeline, pipeline.init_state(0, step=599)
+
+
+def _splat_sample(pipeline, camera: bool):
+    while True:
+        sample = pipeline.datamanager.next_train()
+        if isinstance(sample, CameraSample) == camera:
+            return sample
+
+
+@pytest.mark.parametrize("camera", [True, False], ids=["camera", "lidar"])
+def test_splatad_train_step_span_tree(splatad_train, camera):
+    pipeline, state = splatad_train
+    sample = _splat_sample(pipeline, camera)
+    step = state.step
+    state.step = 0  # no refine after this step
+    try:
+        _, tree = _traced(lambda: pipeline.train_step(state, sample))
+    finally:
+        state.step = step
+    assert _names(tree) == ["train.forward", "train.backward", "train.optimizer"]
+    forward = tree[0][1]
+    assert _names(forward) == SPLAT_STEP
+    assert forward[0][1] == [("model.actor_means", [])]
+
+
+def test_a_refining_step_opens_train_refine_and_counts(splatad_train):
+    """The step that lands on a refine opens `train.refine` after the
+    optimizer; inside `counting()` it counts one refine and the dead slots
+    it relocates, outside nothing is counted and nothing more dispatched."""
+    pipeline, state = splatad_train
+    with torch.no_grad():
+        pipeline.model.opacities[:37] = -8.0  # dead: below min_opacity 0.005 after any one step
+    dead = int((torch.sigmoid(pipeline.model.opacities.detach()) < 0.005).sum())
+    sample = _splat_sample(pipeline, True)
+    state.step = 599
+    _, tree = _traced(lambda: pipeline.train_step(state, sample))
+    assert _names(tree) == ["train.forward", "train.backward", "train.optimizer", "train.refine"]
+    assert state.step == 600
+
+    gauss = pipeline._gaussians()
+    opacities = gauss["opacities"].clone()
+    opacities[:37] = -8.0
+    gauss["opacities"] = opacities
+    cfg = pipeline.config.mcmc
+    with _Ops() as off:
+        ST.mcmc_relocate(torch.Generator().manual_seed(0), gauss, None, cfg)
+    with P.counting() as counters, _Ops() as on:
+        ST.mcmc_relocate(torch.Generator().manual_seed(0), gauss, None, cfg)
+    extra = list(on.names)
+    for name in off.names:
+        extra.remove(name)
+    assert extra == ["sum"]
+    want = int((torch.sigmoid(opacities) < cfg.min_opacity).sum())
+    assert want >= dead == 37
+    assert P.counter_values(counters) == {"mcmc.refines": 1, "mcmc.relocated": want}
 
 
 def _actor_encoding():
